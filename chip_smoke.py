@@ -41,7 +41,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# H100 SXM dense peaks by operand type: bf16 on the tensor cores,
+# float32 outside them
+PEAK_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 BF16_ULP = 2.0 ** -7           # bf16 spacing relative to the value (max)
 
 # the port's kernels: name -> (CUDA source, the TPU kernel it replaces)
@@ -93,46 +95,60 @@ def cuda_time_ms(fn, iters=20, warmup=3, flush=None):
     return total / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def within_bf16_ulp(got, ref, atol=1e-5):
-    """|got - ref| <= one bf16 spacing at ref (+ atol near zero): the
-    kernel and the plain version do the same float32 arithmetic in
-    another order, so they may differ only where the final bf16 cast
-    rounds a float32 difference of ~1e-6 across a boundary."""
+def within_tolerance(got, ref, atol=1e-5):
+    """|got - ref| <= ref's spacing + ``atol``: one bf16 spacing at ref
+    for bfloat16 (the kernel and the plain version do the same float32
+    arithmetic in another order, so they may differ only where the final
+    bf16 cast rounds a float32 difference of ~1e-6 across a boundary),
+    and 1e-5 relative for float32 (that reordering alone)."""
+    rel = BF16_ULP if ref.dtype == torch_dtype("bfloat16") else 1e-5
     d = (got.float() - ref.float()).abs()
-    return bool((d <= ref.float().abs() * BF16_ULP + atol).all())
+    return bool((d <= ref.float().abs() * rel + atol).all())
+
+
+def torch_dtype(name):
+    import torch
+
+    return getattr(torch, name)
+
+
+def tolerance_text(dtype):
+    return ("one bf16 spacing at the value + 1e-5" if dtype == "bfloat16"
+            else "1e-5 relative + 1e-5")
 
 
 # ---------------------------------------------------------------- kernels
-def rms_case(n, h, flush):
+def rms_case(n, h, flush, dtype="bfloat16"):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, \
         rms_norm_plain
 
     g = torch.Generator(device="cuda").manual_seed(n * 7 + h)
-    x = torch.randn(n, h, generator=g, device="cuda").to(torch.bfloat16)
-    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
-        torch.bfloat16)
+    dt = torch_dtype(dtype)
+    x = torch.randn(n, h, generator=g, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
     eps = 1e-5
     got = rms_norm(x, w, eps)
     torch.cuda.synchronize()
     ref = rms_norm_plain(x, w, eps)
     d = (got.float() - ref.float()).abs()
-    ok = within_bf16_ulp(got, ref)
-    nbytes = 2 * x.numel() * 2 + w.numel() * 2
-    b_ms, b_by = bound_ms(nbytes, 4 * x.numel())
+    ok = within_tolerance(got, ref)
+    nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+    b_ms, b_by = bound_ms(nbytes, 4 * x.numel(), dtype)
     return {
-        "case": f"rows{n}", "shape": [n, h], "dtype": "bfloat16",
+        "case": f"rows{n}" + ("" if dtype == "bfloat16" else f"_{dtype}"),
+        "shape": [n, h], "dtype": dtype,
         "max_abs_err": float(d.max()),
         "max_rel_err": float((d / ref.float().abs().clamp_min(1e-6)).max()),
-        "tolerance": "one bf16 spacing at the value + 1e-5",
+        "tolerance": tolerance_text(dtype),
         "ok": ok,
         "kernel_ms": cuda_time_ms(lambda: rms_norm(x, w, eps),
                                   flush=flush),
@@ -144,26 +160,37 @@ def rms_case(n, h, flush):
     }
 
 
-def attn_work(seq_lens, q_lens, t, h, kvh, d, window, itemsize=2):
-    """Bytes the ragged attention must move (q in, out written, and
-    each needed K/V row read once) and operations it must do (QK^T and
-    PV over the kept keys), for THESE inputs."""
-    nbytes = 2 * len(seq_lens) * t * h * d * itemsize
+def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize):
+    """Bytes the ragged attention must move and operations it must do,
+    for THESE inputs: the real rows' q read once, the whole output
+    written once (padded rows too: they are written as zeros), each K/V
+    row some real row needs read once, and QK^T and PV over the kept
+    keys. A real row that sees no key (qpos < 0) averages V over the
+    slots of the pages below seq_len."""
+    b = len(seq_lens)
+    if q_lens is None:
+        q_lens = [t] * b
+    nbytes = b * t * h * d * itemsize
     flops = 0
     for s, ql in zip(seq_lens, q_lens):
         if s == 0 or ql == 0:
             continue
+        nbytes += ql * h * d * itemsize
         qlo = s - ql
         lo = max(0, qlo - window + 1) if window else 0
         nbytes += (s - lo) * kvh * d * itemsize * 2
-        for qpos in range(qlo, s):
+        if qlo < 0:
+            slots = -(-s // page) * page
+            nbytes += (slots - s) * kvh * d * itemsize
+            flops += -qlo * h * d * slots
+        for qpos in range(max(qlo, 0), s):
             keys = qpos + 1 - (max(0, qpos - window + 1) if window else 0)
             flops += 4 * d * keys * h
     return nbytes, flops
 
 
 def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
-              h=32, kvh=8, d=128, page=16, seed=0):
+              h=32, kvh=8, d=128, page=16, seed=0, dtype="bfloat16"):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -171,12 +198,12 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = len(seq_lens)
-    bf = torch.bfloat16
-    q = torch.randn(b, t, h, d, generator=g, device="cuda").to(bf)
+    dt = torch_dtype(dtype)
+    q = torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
     kp = torch.randn(num_pages, page, kvh, d, generator=g,
-                     device="cuda").to(bf)
+                     device="cuda").to(dt)
     vp = torch.randn(num_pages, page, kvh, d, generator=g,
-                     device="cuda").to(bf)
+                     device="cuda").to(dt)
     mp = 1 << (max(1, max(-(-s // page) for s in seq_lens)) - 1).bit_length()
     perm = torch.randperm(num_pages, generator=g, device="cuda")
     tbl = torch.zeros(b, mp, dtype=torch.int32, device="cuda")
@@ -186,7 +213,8 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
         tbl[i, :n] = perm[used:used + n].int()
         used += n
     lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
-    ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
+    ql = None if q_lens is None else torch.tensor(
+        q_lens, dtype=torch.int32, device="cuda")
 
     def kernel():
         return paged_ragged_attention(q, kp, vp, tbl, lens, ql,
@@ -200,9 +228,9 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
     torch.cuda.synchronize()
     ref = plain()
     d_err = (got.float() - ref.float()).abs()
-    ok = within_bf16_ulp(got, ref)
+    ok = within_tolerance(got, ref)
     pad_zero = True
-    for i, (s, n) in enumerate(zip(seq_lens, q_lens)):
+    for i, (s, n) in enumerate(zip(seq_lens, q_lens or [t] * b)):
         pad = t if s == 0 else t - n
         if pad > 0 and bool((got[i, :pad] != 0).any()):
             pad_zero = False
@@ -222,17 +250,17 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
     library_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=keep, enable_gqa=True), flush=flush)
-    nbytes, flops = attn_work(seq_lens, q_lens, t, h, kvh, d, window)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    nbytes, flops = attn_work(seq_lens, q_lens, t, h, kvh, d, window,
+                              page, q.element_size())
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
     return {
         "case": name, "B": b, "T": t, "H": h, "KVH": kvh, "D": d,
         "page_size": page, "max_pages": mp, "window": window,
-        "seq_lens": seq_lens, "q_lens": q_lens, "dtype": "bfloat16",
+        "seq_lens": seq_lens, "q_lens": q_lens, "dtype": dtype,
         "max_abs_err": float(d_err.max()),
         "max_rel_err": float(
             (d_err / ref.float().abs().clamp_min(1e-6)).max()),
-        "tolerance": "one bf16 spacing at the value + 1e-5; padded rows "
-                     "exactly 0",
+        "tolerance": tolerance_text(dtype) + "; padded rows exactly 0",
         "padded_rows_zero": pad_zero, "ok": ok and pad_zero,
         "kernel_ms": cuda_time_ms(kernel, flush=flush),
         "plain_ms": cuda_time_ms(plain, flush=flush),
@@ -253,10 +281,13 @@ def kernels_phase():
             a @ a
         torch.cuda.synchronize()
     del a
-    rms = [rms_case(256, 4096, flush), rms_case(8, 4096, flush)]
+    rms = [rms_case(256, 4096, flush), rms_case(8, 4096, flush),
+           rms_case(8, 4096, flush, dtype="float32")]
+    decode_lens = [1056, 64, 300, 777, 1000, 129, 512, 16]
     attn = [
-        attn_case("decode", [1056, 64, 300, 777, 1000, 129, 512, 16],
-                  [1] * 8, 1, 0, flush, seed=1),
+        attn_case("decode", decode_lens, [1] * 8, 1, 0, flush, seed=1),
+        attn_case("decode_float32", decode_lens, [1] * 8, 1, 0, flush,
+                  seed=1, dtype="float32"),
         attn_case("prefill_chunk", [1000], [248], 256, 0, flush, seed=2),
         # the serving path's largest bucket: 7 decode rows + one
         # 248-token prefill chunk in one (8, 256) right-aligned block
@@ -266,6 +297,10 @@ def kernels_phase():
                   flush, seed=4),
         attn_case("window", [900, 300, 64, 1000], [64, 1, 64, 30], 64,
                   128, flush, seed=5),
+        # q_lens absent and seq_len < T: the leading rows see no key and
+        # average V over the visited pages' slots, as the TPU kernel does
+        attn_case("no_key_rows", [5, 40, 12, 1], None, 16, 0, flush,
+                  seed=6),
     ]
     del flush
     bad = [c["case"] for c in rms + attn if not c["ok"]]

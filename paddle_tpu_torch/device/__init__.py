@@ -8,6 +8,7 @@ the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _current = None
@@ -54,3 +55,21 @@ def resolve_device(device=None) -> torch.device:
     if _current is not None:
         return _current
     return _parse("cuda:0")
+
+
+_INDEX_DTYPES = {torch.int32: np.int32, torch.int64: np.int64}
+
+
+def copy_to_device(arrays, device, dtype):
+    """Host index arrays (numpy or lists) as ``dtype`` (int32 or int64)
+    tensors on ``device``, moved in ONE host-to-device copy: the arrays
+    are packed into one buffer and come back as views of it, shaped like
+    the inputs."""
+    host = [np.asarray(a, _INDEX_DTYPES[dtype]) for a in arrays]
+    flat = np.concatenate([a.ravel() for a in host])
+    buf = torch.from_numpy(flat).to(device, non_blocking=True)
+    out, off = [], 0
+    for a in host:
+        out.append(buf[off:off + a.size].view(a.shape))
+        off += a.size
+    return out

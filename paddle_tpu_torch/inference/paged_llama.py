@@ -18,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import copy_to_device
 from ..framework.flags import ragged_attention_mode
 from ..incubate.nn import PagedKVCacheManager
 from ..ops.kernels.paged_attention import (
     packed_position_index as _packed_position_index,
-    pad_plan_i32 as _pad_plan,
 )
 from ..ops.kernels.rope import apply_rotary_emb, build_rope_cache
 
@@ -42,15 +42,13 @@ def _right_align_plan(row_indices, starts, counts, t_pad, rows_pad):
     gm = np.zeros((rows_pad, t_pad), np.int64)
     rr, cc, ff = [], [], []
     for r, i in enumerate(row_indices):
-        c = counts[i]
-        st = starts[i]
+        c = int(counts[i])
+        st = int(starts[i])
         gm[r, t_pad - c:] = np.arange(st, st + c)
-        for j in range(c):
-            rr.append(r)
-            cc.append(t_pad - c + j)
-            ff.append(st + j)
-    return (gm, np.asarray(rr, np.int32), np.asarray(cc, np.int32),
-            np.asarray(ff, np.int32))
+        rr.append(np.full(c, r))
+        cc.append(np.arange(t_pad - c, t_pad))
+        ff.append(np.arange(st, st + c))
+    return gm, *(np.concatenate(a).astype(np.int32) for a in (rr, cc, ff))
 
 
 class PagedLlamaAdapter:
@@ -161,6 +159,18 @@ class PagedLlamaAdapter:
                 f"{self.max_length}; positions beyond it cannot be "
                 "rotary-encoded")
 
+    def _book_step(self, seq_ids, counts, rows_pad=None, max_pages=None):
+        """Book one step's new tokens in every layer's pool, then build
+        the step's device inputs ONCE for all layers. Every pool goes
+        through the same alloc/append/free calls, so their page tables
+        agree; the pages each draws are checked to be the same."""
+        drawn = self.caches[0].book_ragged(seq_ids, counts)
+        for c in self.caches[1:]:
+            if c.book_ragged(seq_ids, counts) != drawn:
+                raise AssertionError("the layers' KV page pools diverged")
+        return self.caches[0].ragged_step_inputs(
+            seq_ids, counts, rows_pad=rows_pad, max_pages=max_pages)
+
     @torch.inference_mode()
     def decode_token(self, token_ids, seq_ids):
         """One token per listed sequence; returns logits (B, vocab)."""
@@ -171,10 +181,10 @@ class PagedLlamaAdapter:
                        cfg.head_dim)
         lens = [self.caches[0].seq_len(s) for s in seq_ids]
         self._check_positions(seq_ids, lens, [1] * b)
-        pos = torch.as_tensor(np.asarray(lens, np.int64)[:, None]).to(
-            self.device, non_blocking=True)
-        ids = torch.as_tensor(np.asarray(token_ids, np.int64)).to(
-            self.device, non_blocking=True)
+        ids, pos = copy_to_device(
+            [token_ids, np.asarray(lens)[:, None]], self.device,
+            torch.int64)
+        step = self._book_step(seq_ids, [1] * b)
         x = self.model.model.embed_tokens(ids)              # (B, E)
         for li, layer in enumerate(self.model.model.layers):
             att = layer.self_attn
@@ -184,9 +194,11 @@ class PagedLlamaAdapter:
             vh = att.v_proj(xi).reshape(b, 1, nkv, hd)
             qh = apply_rotary_emb(qh, self._cos, self._sin, position_ids=pos)
             kh = apply_rotary_emb(kh, self._cos, self._sin, position_ids=pos)
-            self.caches[li].append_batch(seq_ids, kh[:, 0], vh[:, 0])
-            attn = self.caches[li].attend(qh[:, 0], seq_ids,
-                                          window=self._window)
+            cache = self.caches[li]
+            cache.append_ragged(seq_ids, [1] * b, kh[:, 0], vh[:, 0],
+                                step=step)
+            attn = cache.attend_ragged(qh, seq_ids, [1] * b,
+                                       window=self._window, step=step)
             x = x + att.o_proj(attn.reshape(b, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.model._head(self.model.model.norm(x))
@@ -269,20 +281,16 @@ class PagedLlamaAdapter:
         shape = ("ragged_fused", b_pad, t_pad, mp_pad, pad_to) \
             if fuse else ("ragged", b_pad, t_pad, mp_pad)
         self._kernel_shapes.add(shape)
-        dev = self.device
-        pos = torch.as_tensor(pos_np).to(dev, non_blocking=True)
-        gm_d = torch.as_tensor(gm).to(dev, non_blocking=True)
-        if fuse:
-            # loop-invariant across layers: pad the scatter plan to the
-            # bucket once
-            mr = _pad_plan(mr, pad_to, 0)
-            mc = _pad_plan(mc, pad_to, 0)
-            m_flat = _pad_plan(m_flat, pad_to, pad_to)
-        else:
-            sc = torch.as_tensor(np.stack([mr, mc, m_flat]).astype(
-                np.int64)).to(dev, non_blocking=True)
+        # the step's plans go over in one copy, its pool inputs in one
+        # more, and every layer reuses them
+        host = [flat, pos_np, gm, np.stack([mr, mc, m_flat]), last_idx]
+        if logits_rows is not None:
+            host.append(_packed_position_index(starts, counts, logits_rows))
+        ids, pos, gm_d, sc, last_d, *vidx = copy_to_device(
+            host, self.device, torch.int64)
+        step = self._book_step(seq_ids, counts, rows_pad=b_pad,
+                               max_pages=mp_pad)
 
-        ids = torch.as_tensor(flat).to(dev, non_blocking=True)
         x = self.model.model.embed_tokens(ids)              # (N, E)
         for li, layer in enumerate(self.model.model.layers):
             cache = self.caches[li]
@@ -298,8 +306,8 @@ class PagedLlamaAdapter:
                     xi, (att.q_proj.weight, att.k_proj.weight,
                          att.v_proj.weight, att.o_proj.weight, biases),
                     (self._cos, self._sin), pos, seq_ids, counts, gm_d,
-                    (mr, mc, m_flat), rows_pad=b_pad, max_pages=mp_pad,
-                    window=self._window)
+                    tuple(sc), rows_pad=b_pad, max_pages=mp_pad,
+                    window=self._window, step=step)
                 x = x + y
             else:
                 qh = att.q_proj(xi).reshape(1, pad_to, nh, hd)
@@ -310,20 +318,17 @@ class PagedLlamaAdapter:
                 kh = apply_rotary_emb(kh, self._cos, self._sin,
                                       position_ids=pos)[0]
                 cache.append_ragged(seq_ids, counts, kh[:n_real],
-                                    vh[:n_real])
+                                    vh[:n_real], step=step)
                 out = cache.attend_ragged(
-                    qh[gm_d], seq_ids, counts, rows_pad=b_pad,
-                    max_pages=mp_pad, window=self._window)
+                    qh[gm_d], seq_ids, counts, window=self._window,
+                    step=step)
                 attn = torch.zeros((pad_to, nh, hd), dtype=qh.dtype,
-                                   device=dev)
+                                   device=self.device)
                 attn[sc[2]] = out[sc[0], sc[1]]
                 x = x + att.o_proj(attn.reshape(pad_to, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
-        last_d = torch.as_tensor(last_idx).to(dev, non_blocking=True)
         last = self.model._head(self.model.model.norm(x[last_d]))
         if logits_rows is None:
             return last
-        vidx = torch.as_tensor(_packed_position_index(
-            starts, counts, logits_rows)).to(dev, non_blocking=True)
-        full = self.model._head(self.model.model.norm(x[vidx]))
+        full = self.model._head(self.model.model.norm(x[vidx[0]]))
         return last, full

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
 
 # dtype codes of the C entry points (csrc/common.cuh, ptt::DType)
-DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64

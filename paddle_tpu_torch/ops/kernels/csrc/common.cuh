@@ -1,20 +1,18 @@
 // Shared device helpers of the port's CUDA kernels: conversions between
-// the storage types (float, half, bfloat16) and float32, 16-byte vector
+// the storage types (float, bfloat16) and float32, 16-byte vector
 // loads, and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptt {
 
 // dtype codes shared with the Python wrappers
-enum DType : int { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
@@ -24,10 +22,6 @@ __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
 }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {

@@ -19,10 +19,14 @@
 // Keys outside [window floor of the lowest real row, seq_len) are never
 // loaded: the loop over keys is bounded by seq_len, not by the table
 // width, and skips pages wholly below every row's window.
-// One deliberate difference from the Pallas kernel: a key tile in which
-// a row sees no key is skipped for that row, so a real row that sees no
-// key at all (only possible with q_lens absent and seq_len < T) returns
-// 0 here, where the TPU kernel averaged the masked slots.
+// A real row that sees no key (qpos < 0: with q_lens absent, the rows
+// r < T - seq_len; with q_lens given, none, since q_lens[b] <= seq_lens[b]
+// by contract) returns what the Pallas kernel's online softmax over
+// all-NEG_INF scores gives: the mean of V over every slot of the pages it
+// visits, pages [0, ceil(seq_len / P)) (no window floor excludes one of
+// them, since the lowest row's floor is then below 0). A second small
+// kernel writes those rows, launched only when q_lens is absent, so the
+// main kernel's serving path carries none of that code.
 //
 // What bounds it on the H100: at the serving shapes, bytes for decode
 // rows (each KV byte is used by the 4 q heads of its group for one row:
@@ -203,6 +207,34 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   }
 }
 
+// Rows that see no key (qpos < 0; with q_lens absent, the rows r < T -
+// seq_len) get the mean of V over every slot of the pages below seq_len.
+// ragged_kernel leaves them 0; this kernel, launched after it on the
+// same stream and only when q_lens is absent, writes them. Grid (B, H),
+// one thread per output column.
+template <typename T, int D>
+__global__ void __launch_bounds__(D) no_key_rows_kernel(
+    const T* __restrict__ vp, const int* __restrict__ tbl,
+    const int* __restrict__ lens, T* __restrict__ out, int t, int h_total,
+    int kvh_total, int np, int page, int mp) {
+  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const int seq_len = lens[b];
+  const int rows = t - seq_len;
+  if (seq_len <= 0 || rows <= 0) return;
+  const int kvh = h / (h_total / kvh_total);
+  const int slots = min((seq_len + page - 1) / page, mp) * page;
+  float a = 0.f;
+  for (int j = 0; j < slots; ++j) {
+    const int pg = tbl[(int64_t)b * mp + j / page];
+    if (pg >= 0 && pg < np)
+      a += ptt::to_f32(
+          vp[(((int64_t)pg * page + j % page) * kvh_total + kvh) * D + d]);
+  }
+  const T mean = ptt::from_f32<T>(a / (float)slots);
+  for (int r = 0; r < rows; ++r)
+    out[(((int64_t)b * t + r) * h_total + h) * D + d] = mean;
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const void* tbl,
            const void* lens, const void* qlens, void* out, int64_t b,
@@ -224,6 +256,13 @@ int launch(const void* q, const void* kp, const void* vp, const void* tbl,
       static_cast<const int*>(lens), static_cast<const int*>(qlens),
       static_cast<T*>(out), (int)t, (int)h, (int)kvh, (int)np, (int)page,
       (int)mp, tq, scale, (int)window);
+  if (qlens == nullptr && t > 1) {
+    no_key_rows_kernel<T, D><<<dim3((unsigned)b, (unsigned)h), D, 0,
+                                 stream>>>(
+        static_cast<const T*>(vp), static_cast<const int*>(tbl),
+        static_cast<const int*>(lens), static_cast<T*>(out), (int)t, (int)h,
+        (int)kvh, (int)np, (int)page, (int)mp);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -267,10 +306,6 @@ extern "C" int ptt_paged_ragged_attention(
       return dispatch_d<float>(d, q, k_pages, v_pages, page_table, seq_lens,
                                q_lens, out, b, t, h, kvh, np, page, mp,
                                scale, window, s);
-    case ptt::kFloat16:
-      return dispatch_d<__half>(d, q, k_pages, v_pages, page_table,
-                                seq_lens, q_lens, out, b, t, h, kvh, np,
-                                page, mp, scale, window, s);
     case ptt::kBFloat16:
       return dispatch_d<__nv_bfloat16>(d, q, k_pages, v_pages, page_table,
                                        seq_lens, q_lens, out, b, t, h, kvh,

@@ -127,9 +127,6 @@ extern "C" int ptt_rms_norm(const void* x, const void* w, void* y,
     case ptt::kFloat32:
       launch<float>(x, w, y, rows, hidden, eps, s);
       break;
-    case ptt::kFloat16:
-      launch<__half>(x, w, y, rows, hidden, eps, s);
-      break;
     case ptt::kBFloat16:
       launch<__nv_bfloat16>(x, w, y, rows, hidden, eps, s);
       break;

@@ -49,7 +49,7 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
                                  window=0):
     """Gather each sequence's pages, then one dense masked softmax in
     float32. Same contract as :func:`paged_ragged_attention`; returns
-    (B, T, H, D) in q's dtype. A row that sees no key returns 0."""
+    (B, T, H, D) in q's dtype."""
     b, t, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     group = h // kvh
@@ -66,8 +66,14 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
     qpos = lens[:, None] - t + rows[None, :]                    # (B, T)
     keep = ((kpos[None, None, :] <= qpos[:, :, None])
             & (kpos[None, None, :] < lens[:, None, None]))
+    # the slots of the pages the TPU kernel visits: below seq_len, and
+    # not wholly below every row's window
+    page_lo = kpos // page_size * page_size                     # (S,)
+    visited = page_lo[None, :] < lens[:, None]                  # (B, S)
     if window:
         keep = keep & (qpos[:, :, None] - kpos[None, None, :] < window)
+        visited = visited & (page_lo[None, :] + page_size
+                             > lens[:, None] - t - window + 1)
     if q_lens is not None:
         real = rows[None, :] >= t - q_lens.long()[:, None]      # (B, T)
     else:
@@ -75,8 +81,10 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
     keep = (keep & real[:, :, None])[:, None, None]     # (B,1,1,T,S)
     s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    # masked keys weigh exactly 0, also in a row that sees no key
-    p = torch.exp(s - m) * keep
+    # a masked key weighs exp(NEG_INF - m) = 0 beside a kept one; a row
+    # that sees no key weighs every visited slot alike, as the TPU
+    # kernel's online softmax over all-NEG_INF scores does
+    p = torch.exp(s - m) * visited[:, None, None, None, :]
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgts,bskd->btkgd", p / l, vd)
     out = out * real[:, :, None, None, None]
@@ -168,9 +176,12 @@ def paged_ragged_attention(q, k_pages, v_pages, page_table, seq_lens,
     q: (B, T, H, D), each row's newest tokens right-aligned, whose K/V
     are already in the pages (``seq_lens`` counts them). ``q_lens``
     (B,) marks how many trailing rows of each sequence are real; the
-    padded leading rows return exact zeros. Without ``q_lens`` every
-    row is real. ``window`` > 0 keeps only keys with
-    ``qpos - kpos < window``. Returns (B, T, H, D)."""
+    padded leading rows return exact zeros; ``q_lens[b] <= seq_lens[b]``.
+    Without ``q_lens`` every row is real, and a row that then sees no
+    key (``qpos < 0``) returns the mean of V over the slots of the pages
+    below ``seq_len``, as the reference's kernel does. ``window`` > 0
+    keeps only keys with ``qpos - kpos < window``. Returns
+    (B, T, H, D)."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
             "paged_ragged_attention: int8 pages (k_scales/v_scales) are "
@@ -188,11 +199,13 @@ def paged_ragged_attention(q, k_pages, v_pages, page_table, seq_lens,
 
 
 def pad_plan_i32(a, n, fill):
-    """Pad a 1-D int32 plan operand of :func:`paged_ragged_fused_step`
-    to ``n`` entries with ``fill`` (host numpy) — the one place the
-    out-of-bounds drop-entry contract is encoded: ``fill`` is the packed
-    length for the scatter-back plan and ``num_pages`` for the page
-    plan."""
+    """Pad a 1-D int32 plan operand to ``n`` entries with ``fill`` (host
+    numpy): the reference's out-of-bounds drop entries, which keep its
+    compiled step's operands bucket-shaped (``fill`` is the packed length
+    for the scatter-back plan and ``num_pages`` for the page plan). The
+    port compiles nothing, so its own callers pass real-length plans;
+    :func:`paged_ragged_fused_step` reads only the leading real entries
+    of a padded one."""
     a = np.asarray(a, np.int32)
     short = n - a.shape[0]
     if short <= 0:
@@ -209,26 +222,10 @@ def packed_position_index(starts, counts, rows):
     return np.concatenate(idx)
 
 
-def _kept_plan(arrays, key, limit, dev):
-    """Stack the host plan ``arrays`` (1-D, equal length) into one
-    (len(arrays), n_kept) int64 tensor on ``dev``, keeping only the
-    entries whose ``arrays[key]`` lies in [0, limit): the reference's
-    ``mode="drop"`` scatter skips out-of-bounds entries, where torch
-    would fault. Plans are host arrays (numpy, lists or CPU tensors), so
-    the filter costs no device sync and the survivors cross in one
-    copy. Returns None when nothing is kept."""
-    host = np.stack([np.asarray(a.numpy() if isinstance(a, torch.Tensor)
-                                else a, np.int64) for a in arrays])
-    host = host[:, (host[key] >= 0) & (host[key] < limit)]
-    if host.shape[1] == 0:
-        return None
-    return torch.from_numpy(np.ascontiguousarray(host)).to(
-        dev, non_blocking=True)
-
-
 def _on_device(a, dev):
     """An index operand (tensor, numpy or list) as an int64 tensor on
-    ``dev``; host arrays go over in one non-blocking copy."""
+    ``dev``: no copy for an int64 tensor already there, one
+    host-to-device copy for a host array."""
     if isinstance(a, torch.Tensor):
         return a.to(device=dev, dtype=torch.int64)
     return torch.as_tensor(np.asarray(a, np.int64)).to(
@@ -238,20 +235,24 @@ def _on_device(a, dev):
 def paged_ragged_fused_step(x, wq, wk, wv, wo, biases, cos, sin, pos,
                             pg, of, gm, mr, mc, mflat, k_pages, v_pages,
                             page_table, seq_lens, q_lens, sm_scale=None,
-                            window=0):
+                            window=0, n_real=None):
     """One packed attention layer step over the bucketed packed axis.
 
     ``x`` (n_pad, E) normed packed hidden states; ``wq/wk/wv/wo`` the
     [in, out] projection weights; ``biases`` None or (bq, bk, bv);
     ``cos/sin`` (S, hd) RoPE tables; ``pos`` (n_pad,) absolute
-    positions. The host-side plans, as in the reference: ``pg/of``
-    (n_pad,) physical page / slot per token, padding entries carrying
-    page id ``num_pages``; ``gm`` (b_pad, t_pad) gather map
-    right-aligning each row; ``mr/mc/mflat`` (n_pad,) the inverse
-    scatter, padding entries carrying ``mflat == n_pad``. The
-    reference's ``mode="drop"`` scatters skip out-of-bounds entries;
-    torch would fault on them, so they are dropped here on the host
-    before anything reaches the device.
+    positions. The plans, as in the reference: ``pg/of`` the physical
+    page / slot of each packed token; ``gm`` (b_pad, t_pad) the gather
+    map right-aligning each row; ``mr/mc/mflat`` the inverse scatter
+    (kernel row, column -> packed token). Index operands are tensors
+    (no copy when already int64 on ``x``'s device) or host arrays.
+
+    Only the leading ``n_real`` entries of ``pg/of/mr/mc/mflat`` are
+    read (all of them when ``n_real`` is None). The reference pads them
+    to n_pad with out-of-bounds entries that its ``mode="drop"``
+    scatters skip (:func:`pad_plan_i32`); torch would fault on those,
+    and they are always the trailing ones, so a padded plan is cut to
+    its real length instead.
 
     The K/V pages are written IN PLACE (the reference rebuilds the
     arrays; at Llama-3-8B shapes they are 33.5 MB per layer). Returns
@@ -262,6 +263,7 @@ def paged_ragged_fused_step(x, wq, wk, wv, wo, biases, cos, sin, pos,
     nh = wq.shape[1] // hd
     kvh = wk.shape[1] // hd
     dev = x.device
+    n = len(pg) if n_real is None else int(n_real)
     xq = torch.matmul(x, wq)
     xk = torch.matmul(x, wk)
     xv = torch.matmul(x, wv)
@@ -275,13 +277,12 @@ def paged_ragged_fused_step(x, wq, wk, wv, wo, biases, cos, sin, pos,
                           position_ids=pos_t)[0]
     vh = xv.reshape(n_pad, kvh, hd)
 
-    # this chunk's K/V land in the pages in place; plan entries are
-    # (packed row, page, slot), padding rows dropped
-    rows = np.arange(n_pad)
-    plan = _kept_plan((rows, pg, of), 1, k_pages.shape[0], dev)
-    if plan is not None:
-        k_pages.index_put_((plan[1], plan[2]), kh[plan[0]].to(k_pages.dtype))
-        v_pages.index_put_((plan[1], plan[2]), vh[plan[0]].to(v_pages.dtype))
+    # this chunk's K/V land in the pages in place: packed token i at
+    # page pg[i], slot of[i]
+    if n:
+        pg_t, of_t = _on_device(pg, dev)[:n], _on_device(of, dev)[:n]
+        k_pages.index_put_((pg_t, of_t), kh[:n].to(k_pages.dtype))
+        v_pages.index_put_((pg_t, of_t), vh[:n].to(v_pages.dtype))
 
     qm = qh[_on_device(gm, dev)]                # (b_pad, t_pad, nh, hd)
     out = paged_ragged_attention(qm, k_pages, v_pages, page_table,
@@ -290,8 +291,8 @@ def paged_ragged_fused_step(x, wq, wk, wv, wo, biases, cos, sin, pos,
 
     # scatter the kernel rows back to the packed axis, then o_proj
     attn = torch.zeros((n_pad, nh, hd), dtype=qh.dtype, device=dev)
-    plan = _kept_plan((mr, mc, mflat), 2, n_pad, dev)
-    if plan is not None:
-        attn[plan[2]] = out[plan[0], plan[1]]
+    if n:
+        attn[_on_device(mflat, dev)[:n]] = out[_on_device(mr, dev)[:n],
+                                               _on_device(mc, dev)[:n]]
     y = torch.matmul(attn.reshape(n_pad, nh * hd), wo)
     return y, k_pages, v_pages

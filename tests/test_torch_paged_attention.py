@@ -81,6 +81,13 @@ CASES = {
     "seq_len0_rows": ([15, 0, 6, 0], [2, 0, 1, 0], 2, 4, 2, 0),
     "q_lens_none": ([10, 5, 8], None, 4, 4, 2, 0),
 }
+# rows the numpy oracle cannot take: with q_lens absent and seq_len < T
+# the leading real rows see no key, and the Pallas kernel averages V over
+# the slots of the pages it visits
+JAX_ONLY_CASES = {
+    "q_lens_none_short": ([3, 6, 9], None, 8, 4, 2, 0),
+    "q_lens_none_short_window": ([2, 13], None, 4, 4, 2, 3),
+}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -94,6 +101,17 @@ def test_matches_pallas_interpret_and_numpy_reference(name):
     ref = jpa.paged_ragged_attention_reference(*args[:5], q_lens=args[5],
                                                window=window)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ONLY_CASES))
+def test_rows_seeing_no_key_match_pallas_interpret(name):
+    seq_lens, q_lens, t, h, kvh, window = JAX_ONLY_CASES[name]
+    args = _inputs(seq_lens, q_lens, t, h, kvh, seed=7)
+    got = _port(*args, window=window)
+    np.testing.assert_allclose(got, _jax(*args, window=window),
+                               atol=ATOL, rtol=0)
+    # such rows are not zero: they average the visited slots
+    assert np.abs(got[0, :t - seq_lens[0]]).max() > 0.01
 
 
 @pytest.mark.parametrize("name", ["mixed", "seq_len0_rows", "window"])
@@ -190,31 +208,42 @@ def _fused_operands(has_bias, seed=0):
     return (x, w, biases, cos, sin, pos, plans, kp0, vp0, tbl, lens, ql)
 
 
+@pytest.mark.parametrize("plans", ["padded", "real_length"])
 @pytest.mark.parametrize("has_bias", [False, True])
-def test_fused_step_matches_jax_with_drop_entries(has_bias):
-    (x, w, biases, cos, sin, pos, plans, kp0, vp0, tbl, lens,
+def test_fused_step_matches_jax_with_drop_entries(has_bias, plans):
+    """The JAX step takes plans padded with out-of-bounds drop entries;
+    the port takes the same padded plans cut at ``n_real``, or the
+    real-length plans its own callers pass (device tensors)."""
+    (x, w, biases, cos, sin, pos, plan, kp0, vp0, tbl, lens,
      ql) = _fused_operands(has_bias)
     j = jnp.asarray
     jy, jk, jv = jpa.paged_ragged_fused_step(
         j(x), j(w["q"]), j(w["k"]), j(w["v"]), j(w["o"]),
         None if biases is None else tuple(j(b) for b in biases),
-        j(cos), j(sin), j(pos), j(plans["pg"]), j(plans["of"]),
-        j(plans["gm"]), j(plans["mr"]), j(plans["mc"]),
-        j(plans["mflat"]), j(kp0), j(vp0), j(tbl), j(lens), j(ql))
+        j(cos), j(sin), j(pos), j(plan["pg"]), j(plan["of"]),
+        j(plan["gm"]), j(plan["mr"]), j(plan["mc"]),
+        j(plan["mflat"]), j(kp0), j(vp0), j(tbl), j(lens), j(ql))
     t = torch.from_numpy
+    n_real = int(ql.sum())
+    names = ("pg", "of", "mr", "mc", "mflat")
+    if plans == "padded":
+        ops = [plan[k] for k in names]
+    else:
+        ops = [torch.from_numpy(plan[k][:n_real].astype(np.int64))
+               for k in names]
     kp, vp = t(kp0.copy()), t(vp0.copy())
     y, kp_out, vp_out = paged_ragged_fused_step(
         t(x), t(w["q"]), t(w["k"]), t(w["v"]), t(w["o"]),
         None if biases is None else tuple(t(b) for b in biases),
-        t(cos), t(sin), pos, plans["pg"], plans["of"], plans["gm"],
-        plans["mr"], plans["mc"], plans["mflat"], kp, vp, t(tbl),
-        t(lens), t(ql))
+        t(cos), t(sin), pos, ops[0], ops[1], plan["gm"], *ops[2:], kp, vp,
+        t(tbl), t(lens), t(ql), n_real=n_real)
     # pages are written in place and returned
     assert kp_out is kp and vp_out is vp
     np.testing.assert_array_equal(kp.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(vp.numpy(), np.asarray(jv))
     # the pad entries wrote nothing: every untouched slot is unchanged
-    touched = set(zip(plans["pg"][:7].tolist(), plans["of"][:7].tolist()))
+    touched = set(zip(plan["pg"][:n_real].tolist(),
+                      plan["of"][:n_real].tolist()))
     for p_ in range(kp0.shape[0]):
         for o_ in range(kp0.shape[1]):
             if (p_, o_) not in touched:
@@ -222,4 +251,4 @@ def test_fused_step_matches_jax_with_drop_entries(has_bias):
     np.testing.assert_allclose(y.numpy(), np.asarray(jy),
                                rtol=1e-5, atol=1e-3)
     # rows past the real tokens scatter nothing: zero attention, y = 0
-    assert np.all(y.numpy()[7:] == 0.0)
+    assert np.all(y.numpy()[n_real:] == 0.0)
