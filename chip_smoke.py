@@ -11,10 +11,11 @@ It prints one JSON line per phase:
    power limit);
 2. ``build``: builds the hand-written CUDA kernels from
    ``paddle_tpu_torch/ops/kernels/csrc`` and reports the seconds taken;
-3. ``kernels``: calls each kernel's wrapper at the serving path's shapes
-   and holds the result against its plain PyTorch version on the same
-   inputs (tolerances below), with the kernel, plain and library
-   (``torch.nn.functional.rms_norm``, ``scaled_dot_product_attention``;
+3. ``kernels``: calls each kernel's wrapper at the shapes of the serving
+   and training paths and holds the result against its plain PyTorch
+   version on the same inputs (tolerances below), with the kernel, plain
+   and library (``torch.nn.functional.rms_norm``,
+   ``scaled_dot_product_attention`` forward and its autograd backward;
    timed only, never used by the port) times and the kernel's bound;
 4. ``serve``: serves 8 requests on Llama-3-8B's published shape (random
    bf16 weights from the seed) through ``BatchScheduler`` ->
@@ -23,13 +24,28 @@ It prints one JSON line per phase:
    logits of two requests against the dense float32 oracle
    (``paddle_tpu_torch.testing.dense_reference_logits``);
 5. ``profile``: a short serve under ``torch.profiler``: device time by
-   kernel and the device's busy share of the wall.
+   kernel and the device's busy share of the wall;
+6. ``train_check``: Qwen2-0.5B at its published shape (random bf16
+   weights from the seed, fused CE head): the loss and every
+   parameter's gradient on one 2048-token sequence against the float32
+   oracle (``paddle_tpu_torch.testing.dense_reference_loss_and_grads``);
+7. ``train``: ``bench.py``'s training loop at batch 8 x 2048 (forward,
+   fused CE head, backward, ``AdamW(3e-4, multi_precision=True)``):
+   2 warm-up and 5 timed steps on the same batch, with the launch
+   counters reset around the timed steps; step time, tokens/s, MFU,
+   peak memory, and the loss of every step;
+8. ``train_profile``: one training step under ``torch.profiler``.
 
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero without the last line. Without CUDA it exits 2
 before doing anything.
+
+Two narrower runs: ``--flash-cases NAMES`` builds the kernels and holds
+only those flash cases against their plain versions; ``--fault-check``
+plants each fault of ``FLASH_FAULTS`` in a copy of the repository and
+fails unless the flash gates catch every one.
 """
 from __future__ import annotations
 
@@ -47,13 +63,22 @@ PEAK_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 BF16_ULP = 2.0 ** -7           # bf16 spacing relative to the value (max)
 
 # the port's kernels: name -> (CUDA source, the TPU kernel it replaces)
+_FLASH_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 KERNELS = {
     "rms_norm": ("paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
                  "paddle_tpu/ops/kernels/rms_norm.py:32"),
     "paged_ragged_attention": (
         "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
         "paddle_tpu/ops/kernels/paged_attention.py:351"),
+    "flash_attention_fwd": (
+        _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:50"),
+    "flash_attention_bwd_dkdv": (
+        _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:199"),
+    "flash_attention_bwd_dq": (
+        _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:276"),
 }
+FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+         "flash_attention_bwd_dq")
 
 
 def emit(phase, **fields):
@@ -269,6 +294,290 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
     }
 
 
+# Flash kernels against their plain float32 versions on the same inputs,
+# each tensor (out, dq, dk, dv) held by two relative L2 errors: over the
+# whole tensor, and over each row of D values (a q row of out or dq, a
+# key row of dk or dv) against that row's own norm, so that a fault in
+# the late rows of a causal band, whose values are small, shows as
+# plainly as one in the first rows. bfloat16: the kernels round p (and
+# ds) to bf16 before their products, as the TPU kernel does, while the
+# plain versions keep them in float32, and the outputs are cast to bf16
+# (2^-9 relative) at the end. On an H100 (700 W) the eight cases below
+# measured at most 2.65e-3 over a tensor and 5.4e-3 over a row in bf16:
+# the gates leave 2.9x headroom. In float32, 4.2e-7 over a tensor, and
+# over a row 1.1e-6, but 2.1e-5 on dq's one-key rows (see
+# rel_l2_errors). The faults that --fault-check plants fail the gates
+# by far over the rows: 0.49 to 1.14, each in the kernel it broke
+# alone. lse is float32 in both: within 1e-4 + 1e-5|lse|. Rows that
+# see no key must be exactly 0, with lse exactly -1e30, and are left
+# out of the comparison of out and lse.
+FLASH_TOL = {"bfloat16": {"tensor": 2.0 ** -7, "row": 2.0 ** -6},
+             "float32": {"tensor": 1e-5, "row": 1e-4}}
+
+
+def rel_l2_errors(got, ref):
+    """(||got - ref|| / ||ref|| over the tensor, the largest of the same
+    ratio over its rows of D values) in float32. A row's reference norm
+    is floored at 1/8 of the median norm of the rows that are not zero:
+    a causal dq row that sees one key has p = 1 and so ds = 0 exactly,
+    which leaves its reference at rounding noise."""
+    err = got.float() - ref.float()
+    ref = ref.float()
+    ref_rows = ref.norm(dim=-1)
+    nonzero = ref_rows[ref_rows > 0]
+    floor = nonzero.median() / 8 if nonzero.numel() else 1e-30
+    rows = err.norm(dim=-1) / ref_rows.clamp_min(floor)
+    return (float(err.norm() / ref.norm().clamp_min(1e-30)),
+            float(rows.max()))
+
+
+def flash_work(b, sq, sk, h, kvh, d, causal, window, itemsize):
+    """(kept (q, k) pairs over every head, {kernel: bytes}): each input
+    read once and each output written once. The kernels do 2 products
+    over the kept pairs in the forward (q k^T, p v), 4 in dK/dV (q k^T,
+    p^T do, do v^T, ds^T q) and 3 in dQ (q k^T, do v^T, ds k)."""
+    import numpy as np
+
+    if causal:
+        qpos = np.arange(sq) + (sk - sq)
+        hi = np.minimum(sk - 1, qpos)
+        lo = np.maximum(0, qpos - window + 1) if window else 0
+        per_head = int(np.maximum(hi - lo + 1, 0).sum())
+    else:
+        per_head = sq * sk
+    qb = b * sq * h * d * itemsize
+    kvb = b * sk * kvh * d * itemsize
+    rows = b * h * sq * 4
+    return b * h * per_head, {
+        "flash_attention_fwd": 2 * qb + 2 * kvb + rows,
+        "flash_attention_bwd_dkdv": 2 * qb + 4 * kvb + 2 * rows,
+        "flash_attention_bwd_dq": 3 * qb + 2 * kvb + 2 * rows,
+    }
+
+
+FLASH_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_bwd_dkdv": 4,
+                  "flash_attention_bwd_dq": 3}
+
+# (name, B, Sq, Sk, H, KVH, D, causal, keyword arguments of flash_case)
+FLASH_CASES = [
+    # the training path: Qwen2-0.5B, batch 8 x 2048
+    ("train", 8, 2048, 2048, 14, 2, 64, True, {}),
+    # Llama-3-8B's heads
+    ("gqa_d128", 2, 2048, 2048, 32, 8, 128, True, {"seed": 1}),
+    ("window", 1, 2048, 2048, 32, 8, 128, True, {"window": 512, "seed": 2}),
+    ("rect_q256_k2048", 1, 256, 2048, 14, 2, 64, True, {"seed": 3}),
+    # Sq > Sk: the first 384 rows see no key
+    ("rect_q512_k128", 1, 512, 128, 8, 2, 128, True, {"seed": 4}),
+    ("noncausal", 2, 1024, 1024, 16, 4, 128, False, {"seed": 5}),
+    ("float32", 1, 256, 256, 4, 2, 64, True,
+     {"dtype": "float32", "seed": 6}),
+    ("dlse", 1, 512, 512, 8, 2, 64, True, {"dlse": True, "seed": 7}),
+]
+
+
+def flash_case(name, b, sq, sk, h, kvh, d, causal, flush, window=0,
+               dtype="bfloat16", dlse=False, seed=0):
+    """{kernel name: case result} for the forward (unless ``dlse``: the
+    backward-only case) and both backward kernels."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch_dtype(dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    q, k, v, do = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d), \
+        rnd(b, sq, h, d)
+    dl = 0.1 * torch.randn(b, h, sq, generator=g, device="cuda") \
+        if dlse else None
+    scale = d ** -0.5
+    tol = FLASH_TOL[dtype]
+    # the backward of both versions starts from the plain forward
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                    window)
+    delta = fa._delta(do, ref_out, dl)
+    bwd_args = (q, k, v, do, ref_lse, delta, causal, scale, window)
+    runs = {
+        "flash_attention_bwd_dkdv": (
+            lambda: fa.flash_attention_bwd_dkdv(*bwd_args),
+            lambda: fa.flash_attention_bwd_dkdv_plain(*bwd_args)),
+        "flash_attention_bwd_dq": (
+            lambda: (fa.flash_attention_bwd_dq(*bwd_args),),
+            lambda: (fa.flash_attention_bwd_dq_plain(*bwd_args),)),
+    }
+    if not dlse:
+        runs["flash_attention_fwd"] = (
+            lambda: fa.flash_attention_fwd(q, k, v, causal, scale, window),
+            lambda: (ref_out, ref_lse))
+
+    # the library yardstick: SDPA on [B, H, S, D] views (an explicit
+    # band mask where is_causal's top-left alignment or the window
+    # differ from the port's), forward, and its autograd backward for
+    # both backward kernels (it computes dq, dk and dv at once)
+    keep = fa._keep_mask(sq, sk, causal, window, "cuda")
+    mask = {"attn_mask": keep} if causal and (sq != sk or window) else \
+        {"is_causal": causal}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **mask), flush=flush)
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+    del o
+
+    pairs, nbytes = flash_work(b, sq, sk, h, kvh, d, causal, window,
+                               q.element_size())
+    seen = ref_lse > -1e29
+    seen_rows = seen.transpose(1, 2)  # [B, Sq, H], out's row layout
+    out = {}
+    for kname, (kern, plain) in runs.items():
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain() if kname != "flash_attention_fwd" else (ref_out,)
+        if kname == "flash_attention_fwd":
+            got, lse = got
+            lse_err = float(((lse - ref_lse).abs() * seen).max())
+            nokey_zero = bool((got[~seen_rows] == 0).all()) and \
+                bool((lse[~seen] == fa.NO_KEY_LSE).all())
+            lse_ok = bool((((lse - ref_lse).abs()
+                            <= 1e-4 + 1e-5 * ref_lse.abs()) | ~seen).all())
+            got = (got,)
+            pairs_cmp = [(got[0][seen_rows], ref_out[seen_rows])]
+        else:
+            lse_err, nokey_zero, lse_ok = None, True, True
+            pairs_cmp = list(zip(got, ref))
+        errs = [float((a.float() - r.float()).abs().max()) for a, r in
+                zip(got, ref)]
+        rel = [rel_l2_errors(a, r) for a, r in pairs_cmp]
+        ok = all(t <= tol["tensor"] and r <= tol["row"] for t, r in rel)
+        b_ms, b_by = bound_ms(
+            nbytes[kname], 2 * d * FLASH_PRODUCTS[kname] * pairs, dtype)
+        out[kname] = {
+            "case": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh,
+            "D": d, "causal": causal, "window": window, "dtype": dtype,
+            "dlse": dlse, "kept_pairs": pairs,
+            "rows_without_key": int((~seen).sum()),
+            "max_abs_err": max(errs),
+            # per output tensor: [||err|| / ||ref||, max over rows of it]
+            "rel_l2_err": rel,
+            "lse_max_abs_err": lse_err,
+            "tolerance": (f"||err|| <= {tol['tensor']:g} ||ref|| over each "
+                          f"tensor and <= {tol['row']:g} ||ref row|| over "
+                          "each row of D values"
+                          + ("; lse within 1e-4 + 1e-5|lse|; rows that "
+                             "see no key exactly 0, lse -1e30"
+                             if lse_err is not None else "")),
+            "no_key_rows_exact": nokey_zero,
+            "ok": ok and lse_ok and nokey_zero,
+            "kernel_ms": cuda_time_ms(kern, flush=flush),
+            "plain_ms": cuda_time_ms(plain, iters=5, flush=flush)
+            if kname != "flash_attention_fwd" else cuda_time_ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v, causal,
+                                                     scale, window),
+                iters=5, flush=flush),
+            "library_ms": sdpa_fwd_ms if kname == "flash_attention_fwd"
+            else sdpa_bwd_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    return out
+
+
+def flash_cases(flush, names=None):
+    """{kernel name: [case results]} over FLASH_CASES (those in ``names``
+    when given)."""
+    flash = {name: [] for name in FLASH}
+    for name, *shape, kw in FLASH_CASES:
+        if names is None or name in names:
+            for kname, result in flash_case(name, *shape, flush,
+                                            **kw).items():
+                flash[kname].append(result)
+    return flash
+
+
+# Faults that --fault-check plants, one at a time, in a copy of the
+# repository, each of which the flash gates must catch: (name, text of
+# csrc/flash_attention.cu, its replacement, the flash cases to run).
+_LATE_ROW = "r >= p.Sq / 2 && c == r + p.Sk - p.Sq"
+FLASH_FAULTS = [
+    ("dq_drops_last_k_tile",
+     "float e = exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
+     "float e = kt == t_hi ? 0.f : exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
+     ("train", "gqa_d128")),
+    ("dkdv_drops_one_q_head", "const int n_steps = group * nqt;",
+     "const int n_steps = (group - 1) * nqt;", ("train", "gqa_d128")),
+    ("dkdv_drops_last_q_tile",
+     "const int nqt = qhi >= qlo ? qhi / BQ - t_lo + 1 : 0;",
+     "const int nqt = qhi >= qlo ? qhi / BQ - t_lo : 0;", ("train",)),
+    # the diagonal key of the late half of the rows (keys) only
+    ("dq_late_rows_drop_own_key",
+     "if (c >= p.Sk || !keep(p, r, c)) e = 0.f;",
+     f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) e = 0.f;",
+     ("train", "gqa_d128")),
+    ("dkdv_late_keys_drop_own_row",
+     "if (!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) e = 0.f;",
+     "if ((!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) || "
+     "(krow0 + (i >> 1) * 8 >= p.Sk / 2 && "
+     "q0 + c == krow0 + (i >> 1) * 8 + p.Sq - p.Sk)) e = 0.f;",
+     ("train", "gqa_d128")),
+    ("fwd_late_rows_drop_own_key",
+     "if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;",
+     f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) x = -INFINITY;",
+     ("train",)),
+]
+
+
+def fault_check_phase():
+    """Plants each fault of FLASH_FAULTS in a copy of the repository in a
+    temporary directory, runs its flash cases there (``--flash-cases``,
+    a child process that builds the faulty kernels), and fails unless
+    every fault fails a gate."""
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    results, missed = [], []
+    for name, old, new, cases in FLASH_FAULTS:
+        tmp = tempfile.mkdtemp(prefix="flash_fault_")
+        try:
+            tree = os.path.join(tmp, "repo")
+            shutil.copytree(root, tree, ignore=shutil.ignore_patterns(
+                ".git", "_build", "__pycache__"))
+            src = os.path.join(tree, _FLASH_CU)
+            with open(src) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the text to replace occurs "
+                                   f"{text.count(old)} times")
+            with open(src, "w") as f:
+                f.write(text.replace(old, new))
+            child = subprocess.run(
+                [sys.executable, os.path.join(tree, "chip_smoke.py"),
+                 "--flash-cases", ",".join(cases)],
+                cwd=tree, capture_output=True, text=True, timeout=900)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        line = next((json.loads(s) for s in child.stdout.splitlines()
+                     if s.startswith('{"phase": "flash_cases"')), None)
+        if line is None:
+            raise RuntimeError(f"{name}: the child printed no result "
+                               f"(exit {child.returncode}):\n"
+                               f"{child.stderr[-2000:]}")
+        results.append({"fault": name, "failed": line["failed"],
+                        "rel_l2_err": {
+                            f"{k['name']}:{c['case']}": c["rel_l2_err"]
+                            for k in line["kernels"] for c in k["cases"]}})
+        if not line["failed"]:
+            missed.append(name)
+    emit("fault_check", tolerance=FLASH_TOL, faults=results, missed=missed)
+    if missed:
+        raise RuntimeError(f"planted faults pass the flash gates: {missed}")
+
+
 def kernels_phase():
     import torch
 
@@ -282,7 +591,10 @@ def kernels_phase():
         torch.cuda.synchronize()
     del a
     rms = [rms_case(256, 4096, flush), rms_case(8, 4096, flush),
-           rms_case(8, 4096, flush, dtype="float32")]
+           rms_case(8, 4096, flush, dtype="float32"),
+           # the training path: Qwen2-0.5B at batch 8 x 2048, and the
+           # gradient check's one sequence
+           rms_case(16384, 896, flush), rms_case(2048, 896, flush)]
     decode_lens = [1056, 64, 300, 777, 1000, 129, 512, 16]
     attn = [
         attn_case("decode", decode_lens, [1] * 8, 1, 0, flush, seed=1),
@@ -302,17 +614,21 @@ def kernels_phase():
         attn_case("no_key_rows", [5, 40, 12, 1], None, 16, 0, flush,
                   seed=6),
     ]
+    flash = flash_cases(flush)
     del flush
-    bad = [c["case"] for c in rms + attn if not c["ok"]]
+    bad = [c["case"] for c in rms + attn if not c["ok"]] + [
+        f"{name}:{c['case']}" for name in FLASH for c in flash[name]
+        if not c["ok"]]
     emit("kernels", failed=bad, kernels=[
         {"name": name, "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "cases": cases}
         for name, cases in (("rms_norm", rms),
-                            ("paged_ragged_attention", attn))])
+                            ("paged_ragged_attention", attn),
+                            *flash.items())])
     if bad:
         raise RuntimeError(f"kernel cases disagree with their plain "
                            f"versions: {bad}")
-    return rms, attn
+    return {"rms_norm": rms, "paged_ragged_attention": attn, **flash}
 
 
 # ------------------------------------------------------------------ serve
@@ -482,17 +798,54 @@ def serve_phase(seed, layers):
 
 def _kernel_class(name):
     n = name.lower()
-    if "ragged_kernel" in n:
-        return "paged_ragged_attention"
-    if "rms_norm_kernel" in n:
-        return "rms_norm"
+    for key, cls in (("ragged_kernel", "paged_ragged_attention"),
+                     ("rms_norm_kernel", "rms_norm"),
+                     ("flash_fwd", "flash_attention_fwd"),
+                     ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
+                     ("flash_bwd_dq", "flash_attention_bwd_dq")):
+        if key in n:
+            return cls
     if "nvjet" in n or "gemm" in n or "cutlass" in n or "xmma" in n:
         return "gemm"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
-    if "index" in n or "gather" in n or "scatter" in n:
+    if "index" in n or "gather" in n or "scatter" in n or \
+            "embedding" in n:
         return "index/gather/scatter"
     return "elementwise/other"
+
+
+def device_summary(prof, wall_us):
+    """Device time by kernel class (GPU kernel events only, so no time is
+    counted twice under the op that launched it) and the busy share of
+    ``wall_us``."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    device_us = sum(r[0] for r in rows)
+    by_class = {}
+    for us, key, _ in rows:
+        c = _kernel_class(key)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e3
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": device_us / 1e3 if rows else "not measured",
+        "device_busy_share": device_us / wall_us if rows else
+        "not measured",
+        "device_ms_by_class": by_class,
+        "device_events": sum(n for _, _, n in rows),
+        "htod_copies": sum(n for _, k, n in rows if "HtoD" in k),
+        "top_device_ms": [[k[:90], round(us / 1e3, 4), n]
+                          for us, k, n in rows[:15]]}
 
 
 def profile_phase(adapter, prompts):
@@ -501,7 +854,6 @@ def profile_phase(adapter, prompts):
     kernel events only, so no time is counted twice under the op that
     launched it) and the device's busy share of the wall."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import BatchScheduler, Request
 
@@ -519,31 +871,188 @@ def profile_phase(adapter, prompts):
             steps += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    device_us = sum(r[0] for r in rows)
-    by_class = {}
-    for us, key, _ in rows:
-        c = _kernel_class(key)
-        by_class[c] = by_class.get(c, 0.0) + us / 1e3
-    emit("profile", steps=steps, wall_ms=wall_us / 1e3,
-         device_busy_ms=device_us / 1e3 if rows else "not measured",
-         device_busy_share=device_us / wall_us if rows else
-         "not measured",
-         device_ms_by_class=by_class,
-         device_events=sum(n for _, _, n in rows),
-         htod_copies=sum(n for _, k, n in rows if "HtoD" in k),
-         top_device_ms=[[k[:90], round(us / 1e3, 4), n]
-                        for us, k, n in rows[:15]])
+    emit("profile", steps=steps, **device_summary(prof, wall_us))
 
+
+# ------------------------------------------------------------------ train
+PEAK_BF16_TFLOPS = PEAK_FLOPS_PER_S["bfloat16"] / 1e12
+# bench.py's traffic: batch 8 x 2048; 2 warm-up and 5 timed steps (the
+# step count is what to cut first if the run outgrows its time limit)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+
+
+def build_trainer(seed):
+    """Qwen2-0.5B at full width and depth (fused CE head) in bf16 on the
+    card and its AdamW, as ``bench.py``'s headline trains
+    ``llama_headline``."""
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True),
+                             device="cuda", dtype=torch.bfloat16, seed=seed)
+    opt = AdamW(3e-4, parameters=model.parameters(), multi_precision=True)
+    return model, opt
+
+
+def train_batch(cfg):
+    """bench.py's data: random ids from RandomState(0), one batch reused
+    on every step."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+    y = rng.randint(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+    return (torch.from_numpy(x.astype("int32")).cuda(),
+            torch.from_numpy(y.astype("int64")).cuda())
+
+
+def train_step(model, opt, x, y):
+    """bench.py's step: forward with labels, backward, AdamW, clear."""
+    _, loss = model(x, y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def train_check_phase(model, opt, x, y):
+    """The loss and every parameter's gradient of one 2048-token sequence
+    of the batch, bf16 on the kernels, against the float32 oracle."""
+    import torch
+    from paddle_tpu_torch.testing import dense_reference_loss_and_grads
+
+    x1, y1 = x[:1], y[:1]
+    _, loss = model(x1, y1)
+    loss.backward()
+    loss = loss.detach()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = dense_reference_loss_and_grads(model, x1, y1)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    per_param = {}
+    for name, p in model.named_parameters():
+        g, r = p.grad.float().flatten(), ref_grads.pop(name).flatten()
+        per_param[name] = (
+            float(torch.nn.functional.cosine_similarity(g, r, dim=0)),
+            float((g - r).norm() / r.norm().clamp_min(1e-30)))
+    opt.clear_grad()
+    del ref_grads
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst = min(per_param, key=lambda n: per_param[n][0])
+    problems = []
+    if not loss_rel <= TRAIN_LOSS_REL_GATE:
+        problems.append(f"loss relative error {loss_rel:.3e} > "
+                        f"{TRAIN_LOSS_REL_GATE}")
+    if not per_param[worst][0] >= TRAIN_GRAD_COS_GATE:
+        problems.append(f"{worst}: gradient cosine "
+                        f"{per_param[worst][0]:.6f} < {TRAIN_GRAD_COS_GATE}")
+    by_cos = sorted(per_param.items(), key=lambda kv: kv[1][0])
+    emit("train_check", tokens=int(x1.numel()), loss=float(loss),
+         oracle_loss=float(ref_loss), loss_rel_err=loss_rel,
+         loss_rel_gate=TRAIN_LOSS_REL_GATE, params=len(per_param),
+         worst_param=worst, worst_cosine=per_param[worst][0],
+         worst_rel_err=per_param[worst][1],
+         max_rel_err=max(v[1] for v in per_param.values()),
+         cosine_gate=TRAIN_GRAD_COS_GATE,
+         lowest_cosines=[[n, c, r] for n, (c, r) in by_cos[:6]],
+         oracle_s=oracle_s, problems=problems)
+    if problems:
+        raise RuntimeError("train_check phase failed: "
+                           + "; ".join(problems))
+
+
+def train_phase(model, opt, x, y):
+    """bench.py's loop: 2 warm-up steps, then TRAIN_STEPS timed ones with
+    the launch counters reset just before and read just after."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    cfg = model.config
+    steps = TRAIN_STEPS
+    for _ in range(2):
+        train_step(model, opt, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + 1)]
+    losses = []
+    kernel_launch_stats(reset=True)
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        losses.append(train_step(model, opt, x, y))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_stats(reset=True)
+    losses = [float(v) for v in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_per_s = tokens * steps / wall
+    n_params = cfg.num_params()
+    # bench.py's FLOP count: 6 N per token plus attention's 6 L H S
+    flops_per_token = 6.0 * n_params + 6.0 * cfg.num_hidden_layers \
+        * cfg.hidden_size * TRAIN_SEQ
+    model_tflops = tok_per_s * flops_per_token / 1e12
+    n_layers = cfg.num_hidden_layers
+    want = {name: n_layers * steps for name in FLASH}
+    want["rms_norm"] = (2 * n_layers + 1) * steps
+    problems = [f"{name} launches {launches.get(name, 0)} != {n}"
+                for name, n in want.items() if launches.get(name, 0) != n]
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        problems.append(f"a loss is not finite: {losses}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"the loss did not fall: {losses}")
+    emit("train", model="qwen2_0_5b", layers=n_layers,
+         hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+         heads=cfg.num_attention_heads,
+         kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+         vocab=cfg.vocab_size, params=n_params,
+         params_counted=sum(p.numel() for p in model.parameters()),
+         dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         optimizer="AdamW(3e-4, multi_precision=True)",
+         fused_head_loss=True, steps=steps, wall_s=wall,
+         step_ms_host=wall * 1e3 / steps, step_ms_device=step_ms,
+         tokens_per_s=tok_per_s, flops_per_step=flops_per_token * tokens,
+         model_tflops=model_tflops,
+         mfu_pct=100.0 * model_tflops / PEAK_BF16_TFLOPS,
+         peak_tflops=PEAK_BF16_TFLOPS,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         losses=losses, launches=launches, launches_wanted=want,
+         problems=problems)
+    if problems:
+        raise RuntimeError("train phase failed: " + "; ".join(problems))
+    return launches
+
+
+def train_profile_phase(model, opt, x, y):
+    """One training step under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit("train_profile", steps=1, **device_summary(prof, wall_us))
+
+
+# Gates of the train_check phase, the bf16 step on the kernels against
+# the float32 oracle on one 2048-token sequence of Qwen2-0.5B. bf16
+# rounds every activation and the kernels round p and ds, so the loss
+# and the gradients differ from float32 by rounding alone. On an H100
+# (700 W) the first run measured a loss error of 1.9e-6 relative and a
+# lowest gradient cosine of 0.99931 (a k_proj bias, whose gradient sums
+# dK over all 2048 positions) over the 290 parameters: the gates leave
+# 50x headroom on the loss and 7x on 1 - cosine.
+TRAIN_LOSS_REL_GATE = 1e-4
+TRAIN_GRAD_COS_GATE = 0.995
 
 # Served bf16 logits against the float32 oracle, per sampled position.
 # The served path rounds every activation to bf16 (2^-9 relative) through
@@ -558,7 +1067,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the model's depth (never its width)")
+                    help="cut the served model's depth (never its width)")
+    ap.add_argument("--flash-cases", default=None, metavar="NAMES",
+                    help="only build and hold these flash cases "
+                    "(comma-separated names of FLASH_CASES) against "
+                    "their plain versions")
+    ap.add_argument("--fault-check", action="store_true",
+                    help="only show that the flash gates fail each "
+                    "fault of FLASH_FAULTS, planted in a copy")
     args = ap.parse_args(argv)
 
     import torch
@@ -577,6 +1093,9 @@ def main(argv=None):
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
+    if args.fault_check:
+        fault_check_phase()
+        return 0
 
     t0 = time.perf_counter()
     _build.library()
@@ -584,26 +1103,49 @@ def main(argv=None):
          compiled=_build.build_seconds is not None,
          nvcc_flags=" ".join(_build.NVCC_FLAGS),
          sources=list(_build.SOURCES))
+    if args.flash_cases:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        flash = flash_cases(flush, args.flash_cases.split(","))
+        bad = [f"{k}:{c['case']}" for k in FLASH for c in flash[k]
+               if not c["ok"]]
+        emit("flash_cases", failed=bad, kernels=[
+            {"name": k, "cases": v} for k, v in flash.items()])
+        return 1 if bad else 0
 
-    rms, attn = kernels_phase()
-    launches, adapter, prompts = serve_phase(args.seed, args.layers)
+    cases = kernels_phase()
+    serve_launches, adapter, prompts = serve_phase(args.seed, args.layers)
     profile_phase(adapter, prompts)
+    del adapter, prompts
+    torch.cuda.empty_cache()
 
-    def summary(name, cases, main_case):
-        c = next(x for x in cases if x["case"] == main_case)
+    model, opt = build_trainer(args.seed)
+    x, y = train_batch(model.config)
+    train_check_phase(model, opt, x, y)
+    train_launches = train_phase(model, opt, x, y)
+    train_profile_phase(model, opt, x, y)
+
+    def summary(name, main_case):
+        c = next(x for x in cases[name] if x["case"] == main_case)
+        by_path = {path: launches[name] for path, launches in
+                   (("serve", serve_launches), ("train", train_launches))
+                   if launches.get(name)}
         return {"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1],
-                "launches": launches.get(name, 0),
-                "max_abs_err": max(x["max_abs_err"] for x in cases),
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max(x["max_abs_err"] for x in cases[name]),
                 "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"], "case": main_case}
 
+    kernels = [summary("rms_norm", "rows256"),
+               summary("paged_ragged_attention", "mixed")] + [
+        summary(name, "train") for name in FLASH]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [
-        summary("rms_norm", rms, "rows256"),
-        summary("paged_ragged_attention", attn, "mixed"),
-    ]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

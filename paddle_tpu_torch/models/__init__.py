@@ -6,6 +6,7 @@ from .llama import (  # noqa: F401
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaPretrainingCriterion,
     llama3_8b,
     llama_tiny,
     mistral_7b,

@@ -1,18 +1,21 @@
 """Llama model family of the port (counterpart of the reference's
 ``models/llama.py``): ``LlamaConfig`` and its presets, and the modules
-the paged serving path drives — embedding, per layer RMSNorm -> q/k/v
-projections -> (paged attention in the serving adapter) -> o_proj ->
-SwiGLU MLP, final norm, LM head (untied or tied).
+of both paths — embedding, per layer RMSNorm -> q/k/v projections ->
+attention -> o_proj -> SwiGLU MLP, final norm, LM head (untied or tied).
+
+The dense whole-sequence ``forward`` is the training path: RoPE, the
+flash-attention kernels, and with ``labels`` the next-token loss, either
+through the chunked fused CE head (``fused_head_loss``, no logits) or
+through ``LlamaPretrainingCriterion`` over full logits. The paged
+serving adapter (``inference/paged_llama.py``) drives the same modules'
+projections around its own attention kernel.
 
 Module and parameter names mirror the reference, so its state dict maps
 1:1 (:meth:`LlamaForCausalLM.load_reference_state`). Parameters are
 built directly on their device in the model dtype, with the reference's
 XavierNormal scale, from a seeded ``torch.Generator`` on that device.
-
-The dense whole-sequence ``forward`` needs the flash-attention kernel,
-which comes with the training slice; it raises until then. The dense
-float32 oracle the tests and ``chip_smoke.py`` compare against is
-``paddle_tpu_torch.testing.dense_reference_logits``.
+The float32 oracles the tests and ``chip_smoke.py`` compare against are
+in ``paddle_tpu_torch.testing``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..nn.functional import cross_entropy, flash_attention
 from ..nn.layer.norm import RMSNorm
+from ..ops.kernels.rope import apply_rotary_emb, build_rope_cache
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -45,6 +51,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # activation recompute in the backward: not ported yet (must stay
+    # False)
+    recompute: bool = False
+    # chunked fused linear+CE loss head: never materializes the [T, V]
+    # logits (ops/kernels/fused_loss.py); forward returns (None, loss)
+    fused_head_loss: bool = False
     # Qwen2-style bias on q/k/v projections (o_proj stays bias-free)
     attention_bias: bool = False
     # Mistral-style sliding-window attention: 0 = full causal; w > 0
@@ -57,6 +69,16 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    def num_params(self) -> int:
+        """Total parameter count (for the MFU arithmetic)."""
+        h, i, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        kvh = self.num_key_value_heads * self.head_dim
+        per_layer = 2 * h * h + 2 * h * kvh + 3 * h * i + 2 * h
+        if self.attention_bias:
+            per_layer += h + 2 * kvh
+        emb = v * h * (1 if self.tie_word_embeddings else 2)
+        return per_layer * self.num_hidden_layers + emb + h
 
 
 def llama3_8b(**kw) -> LlamaConfig:
@@ -134,10 +156,9 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention projections. The attention itself runs in the paged
-    serving adapter (``inference/paged_llama.py``) through the ragged
-    paged-attention kernel; the dense ``forward`` waits for the flash
-    kernel of the training slice."""
+    """GQA attention. The dense ``forward`` runs the flash-attention
+    kernels (causal, K/V never repeated); the paged serving adapter uses
+    the projections around its ragged paged-attention kernel."""
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -157,10 +178,20 @@ class LlamaAttention(nn.Module):
         self.o_proj = RowParallelLinear(
             h, h, has_bias=False, input_is_parallel=True, **factory)
 
-    def forward(self, x):
-        raise NotImplementedError(
-            "dense LlamaAttention.forward needs the flash-attention "
-            "kernel (training slice); serve through PagedLlamaAdapter")
+    def forward(self, x, cos, sin):
+        """``cos``/``sin``: the RoPE tables of positions 0..s-1
+        (``build_rope_cache``), built once per forward by ``LlamaModel``."""
+        b, s = x.shape[0], x.shape[1]
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        q = apply_rotary_emb(self.q_proj(x).reshape(b, s, nh, hd), cos, sin)
+        k = apply_rotary_emb(self.k_proj(x).reshape(b, s, nkv, hd), cos,
+                             sin)
+        v = self.v_proj(x).reshape(b, s, nkv, hd)
+        # w >= s makes the band inert (plain causal)
+        w = int(self.config.sliding_window or 0)
+        out, _ = flash_attention(q, k, v, causal=True,
+                                 window=w if (w and w < s) else 0)
+        return self.o_proj(out.reshape(b, s, nh * hd))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -178,6 +209,10 @@ class LlamaDecoderLayer(nn.Module):
             device=device, dtype=dtype)
         self.mlp = LlamaMLP(config, **factory)
 
+    def forward(self, x, cos, sin):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
 
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
@@ -193,6 +228,16 @@ class LlamaModel(nn.Module):
                             device=factory.get("device"),
                             dtype=factory.get("dtype"))
 
+    def forward(self, input_ids):
+        h = self.embed_tokens(input_ids)
+        cfg = self.config
+        cos, sin = build_rope_cache(h.shape[1], cfg.head_dim,
+                                    base=cfg.rope_theta, dtype=torch.float32,
+                                    device=h.device)
+        for layer in self.layers:
+            h = layer(h, cos, sin)
+        return self.norm(h)
+
 
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM. ``device`` defaults to the card (``cuda``) and
@@ -206,6 +251,8 @@ class LlamaForCausalLM(nn.Module):
         if config.num_local_experts:
             raise NotImplementedError(
                 "Mixtral MoE layers are not ported yet")
+        if config.recompute:
+            raise NotImplementedError("recompute is not ported yet")
         device = resolve_device(device)
         if dtype is None:
             dtype = _DTYPES[config.dtype or "float32"]
@@ -232,12 +279,23 @@ class LlamaForCausalLM(nn.Module):
         return self.model.embed_tokens.weight.dtype
 
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(
-            "the dense LlamaForCausalLM.forward needs the flash-attention "
-            "kernel (training slice); serve through "
-            "inference.PagedLlamaAdapter, or use "
-            "paddle_tpu_torch.testing.dense_reference_logits as the "
-            "float32 oracle")
+        """Logits [B, S, V] without labels. With labels [B, S]
+        (next-token targets, shifted here): ``(None, loss)`` through the
+        fused CE head when ``config.fused_head_loss``, else
+        ``(logits, loss)``."""
+        h = self.model(input_ids)
+        if labels is not None and self.config.fused_head_loss:
+            tied = self.lm_head is None
+            w = (self.model.embed_tokens.weight if tied
+                 else self.lm_head.weight)  # [V, H] tied / [H, V] linear
+            # h[:, :-1] predicts labels[:, 1:]; the chunked head never
+            # builds the logits, so there are none to return
+            return None, fused_linear_cross_entropy(
+                h[:, :-1], w, labels[:, 1:], transpose_w=not tied)
+        logits = self._head(h)
+        if labels is None:
+            return logits
+        return logits, LlamaPretrainingCriterion()(logits, labels)
 
     def _head(self, h):
         if self.lm_head is not None:
@@ -253,3 +311,17 @@ class LlamaForCausalLM(nn.Module):
         state = from_reference_state(np_state, self.device, self.dtype)
         self.load_state_dict(state, strict=True)
         return self
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Next-token mean CE: logits[:, t] predicts labels[:, t + 1]; the
+    mean runs over the labels that are not ``ignore_index``."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        return cross_entropy(logits[:, :-1], labels[:, 1:],
+                             reduction="mean",
+                             ignore_index=self.ignore_index)

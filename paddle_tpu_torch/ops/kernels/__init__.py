@@ -28,8 +28,10 @@ def record_launch(kernel: str) -> None:
 
 
 def kernel_launch_stats(reset: bool = False) -> dict:
-    """``{'rms_norm': n, 'paged_ragged_attention': m}`` — CUDA kernel
-    launches since the last reset."""
+    """``{'rms_norm': n, 'paged_ragged_attention': m,
+    'flash_attention_fwd': ..., 'flash_attention_bwd_dkdv': ...,
+    'flash_attention_bwd_dq': ...}`` — CUDA kernel launches since the
+    last reset."""
     out = dict(_LAUNCHES)
     if reset:
         _LAUNCHES.clear()

@@ -26,7 +26,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("rms_norm.cu", "paged_attention.cu")
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -50,6 +50,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _F32, _I64, _I32, _P),
+    # q, k, v, out, lse, B, H, KVH, Sq, Sk, D, scale, causal, window,
+    # dtype, stream
+    "ptt_flash_fwd": (
+        _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I64, _I32, _P),
+    # q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, scale,
+    # causal, window, dtype, stream
+    "ptt_flash_bwd_dkdv": (
+        _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I64, _I32, _P),
+    # q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, scale, causal,
+    # window, dtype, stream
+    "ptt_flash_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I64, _I32, _P),
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,12 @@ the kernel replaces its Pallas ``_rms_kernel``).
 ``rms_norm`` dispatches on the tensor's device: a CPU tensor takes
 :func:`rms_norm_plain`, a CUDA tensor launches ``csrc/rms_norm.cu`` or
 raises. Unlike the reference, which takes its Pallas path only when the
-width is a multiple of 128, the kernel takes any width. The backward
-(the reference's XLA custom VJP) waits for the training slice;
-``layer_norm_fused`` waits too.
+width is a multiple of 128, the kernel takes any width.
+
+The gradient is ``_RMSNormFn``: its forward is the same dispatch, its
+backward the closed form of the reference's ``_rms_bwd`` (the XLA vjp of
+``_rms_ref``, not a Pallas kernel) in float32 torch code, with one cast
+each for dx and dw. ``layer_norm_fused`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -56,10 +59,49 @@ def _rms_norm_cuda(x, weight, eps):
     return y.reshape(x.shape)
 
 
-def rms_norm(x, weight=None, eps=1e-6):
-    """RMSNorm over the last axis. x: [..., H], weight: [H] or None."""
+def _rms_norm_fwd(x, weight, eps):
     if x.device.type == "cuda":
         return _rms_norm_cuda(x, weight, eps)
     if x.device.type != "cpu":
         raise RuntimeError(f"rms_norm: unsupported device {x.device}")
     return rms_norm_plain(x, weight, eps)
+
+
+def rms_norm_bwd(x, weight, g, eps):
+    """(dx, dw) of ``rms_norm`` at x for the cotangent g, in float32 and
+    cast once each: with xhat = x * r, r = rsqrt(mean(x^2) + eps) and
+    gw = g * w, dx = r * (gw - xhat * mean(gw * xhat)) and
+    dw = sum over rows of g * xhat. dw is None without a weight."""
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gf = g.float()
+    gw = gf * weight.float() if weight is not None else gf
+    dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = None
+    if weight is not None:
+        dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(0).to(weight.dtype)
+    return dx.to(x.dtype), dw
+
+
+class _RMSNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x, weight=None, eps=1e-6):
+    """RMSNorm over the last axis. x: [..., H], weight: [H] or None.
+    Differentiable in x and weight when autograd records."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (weight is not None and weight.requires_grad)):
+        return _RMSNormFn.apply(x, weight, eps)
+    return _rms_norm_fwd(x, weight, eps)

@@ -10,12 +10,20 @@ Tolerances: float32 at 1e-6 (same float32 arithmetic, another summation
 order); bfloat16 at one bf16 spacing of the value (both compute in
 float32 and cast once, so they may differ only where the cast rounds a
 float32 difference across a boundary).
+
+The backward (``_RMSNormFn``, closed form in float32) is held against
+``jax.vjp`` of the reference ``rms_norm`` (whose ``_rms_bwd`` is the XLA
+vjp of ``_rms_ref``): float32 within 1e-5 relative to the largest
+gradient (the closed form and XLA's chain rule sum in another order);
+bf16 within one bf16 spacing of the largest gradient (both cast dx and
+dw once from float32).
 """
 import importlib
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -23,7 +31,8 @@ import paddle_tpu as paddle
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn.functional import rms_norm as port_functional
 from paddle_tpu_torch.ops.kernels import kernel_launch_stats
-from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_plain
+from paddle_tpu_torch.ops.kernels.rms_norm import (rms_norm, rms_norm_bwd,
+                                                   rms_norm_plain)
 
 rn = importlib.import_module("paddle_tpu.ops.kernels.rms_norm")
 
@@ -145,3 +154,64 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(rms_norm(x), rms_norm_plain(x))
     assert kernel_launch_stats() == {}
     assert _build._lib is None  # nothing was built or loaded
+
+
+def _bwd_pair(shape, with_weight, dtype, seed):
+    x = _np(shape, seed)
+    w = _np(shape[-1:], seed + 1) if with_weight else None
+    g = _np(shape, seed + 2)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    if with_weight:
+        _, vjp = jax.vjp(lambda a, b: rn.rms_norm(a, b, 1e-5),
+                         _jax(x, jd), _jax(w, jd))
+    else:
+        _, vjp = jax.vjp(lambda a: rn.rms_norm(a, None, 1e-5), _jax(x, jd))
+    want = vjp(_jax(g, jd))
+    xt = _torch(x, td).requires_grad_()
+    wt = _torch(w, td).requires_grad_() if with_weight else None
+    y = rms_norm(xt, wt, 1e-5)
+    y.backward(_torch(g, td))
+    got = (xt.grad,) + ((wt.grad,) if with_weight else ())
+    return got, want
+
+
+@pytest.mark.parametrize("with_weight", [True, False])
+@pytest.mark.parametrize("shape", [(4, 6, 256), (8, 100)])
+def test_backward_fp32_matches_jax_vjp(shape, with_weight):
+    got, want = _bwd_pair(shape, with_weight, "float32", 20)
+    assert len(got) == len(want)
+    for gt, w in zip(got, want):
+        w = np.asarray(w)
+        assert gt.dtype == torch.float32 and gt.shape == w.shape
+        np.testing.assert_allclose(gt.numpy(), w,
+                                   atol=1e-5 * np.abs(w).max(), rtol=0)
+
+
+@pytest.mark.parametrize("with_weight", [True, False])
+def test_backward_bf16_matches_jax_vjp(with_weight):
+    got, want = _bwd_pair((16, 512), with_weight, "bfloat16", 30)
+    for gt, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert gt.dtype == torch.bfloat16
+        assert np.abs(gt.float().numpy() - w).max() <= \
+            BF16_ULP * np.abs(w).max()
+
+
+def test_backward_through_the_layer_reaches_the_weight():
+    tl = RMSNorm(64, epsilon=1e-5, device="cpu")
+    x = torch.from_numpy(_np((3, 64), 40)).requires_grad_()
+    tl(x).square().sum().backward()
+    assert tl.weight.grad is not None and x.grad is not None
+    dx, dw = rms_norm_bwd(x.detach(), tl.weight.detach(),
+                          2 * tl(x).detach(), 1e-5)
+    assert torch.allclose(tl.weight.grad, dw) and torch.allclose(x.grad, dx)
+
+
+def test_no_autograd_record_without_grad():
+    """Serving calls take the bare forward: no graph node is made."""
+    x = torch.from_numpy(_np((2, 64), 41))
+    w = torch.ones(64)
+    assert rms_norm(x, w).grad_fn is None
+    with torch.no_grad():
+        assert rms_norm(x, w.requires_grad_()).grad_fn is None
