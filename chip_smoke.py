@@ -11,30 +11,43 @@ It prints one JSON line per phase:
    power limit);
 2. ``build``: builds the hand-written CUDA kernels from
    ``paddle_tpu_torch/ops/kernels/csrc`` and reports the seconds taken;
-3. ``kernels``: calls each kernel's wrapper at the shapes of the serving
-   and training paths and holds the result against its plain PyTorch
-   version on the same inputs (tolerances below), with the kernel, plain
-   and library (``torch.nn.functional.rms_norm``,
-   ``scaled_dot_product_attention`` forward and its autograd backward;
-   timed only, never used by the port) times and the kernel's bound;
-4. ``serve``: serves 8 requests on Llama-3-8B's published shape (random
+3. ``kernels``: calls each kernel's wrapper at the shapes of the serving,
+   training, packed-attention and LayerNorm paths and holds the result
+   against its plain PyTorch version on the same inputs (tolerances
+   below), with the kernel, plain and library
+   (``torch.nn.functional.rms_norm`` and ``layer_norm``,
+   ``scaled_dot_product_attention`` forward and its autograd backward,
+   ``torch.nn.attention.varlen.varlen_attn`` where it imports; timed
+   only, never used by the port) times and the kernel's bound; also the
+   serving path's fused layer step (``paged_ragged_fused_step``)
+   against the same function built from ``torch.matmul`` and SDPA;
+4. ``varlen``: the public ``flash_attn_unpadded`` forward and backward
+   through autograd at Qwen2-0.5B's attention width (14 q and 2 kv
+   heads of 64, bf16, causal) on one 16384-token pack of documents,
+   with the launch counters reset just before one call and read just
+   after, out and the gradients held against the plain version, and
+   PR 2's dense kernels timed on the same documents padded to the
+   longest;
+5. ``layer_norm``: ``layer_norm_fused`` forward and backward at
+   [16384, 768] bf16, with launch counts;
+6. ``serve``: serves 8 requests on Llama-3-8B's published shape (random
    bf16 weights from the seed) through ``BatchScheduler`` ->
    ``PagedLlamaAdapter`` -> the paged KV pool, with the kernel launch
    counters reset just before and read just after, and holds the served
    logits of two requests against the dense float32 oracle
    (``paddle_tpu_torch.testing.dense_reference_logits``);
-5. ``profile``: a short serve under ``torch.profiler``: device time by
+7. ``profile``: a short serve under ``torch.profiler``: device time by
    kernel and the device's busy share of the wall;
-6. ``train_check``: Qwen2-0.5B at its published shape (random bf16
+8. ``train_check``: Qwen2-0.5B at its published shape (random bf16
    weights from the seed, fused CE head): the loss and every
    parameter's gradient on one 2048-token sequence against the float32
    oracle (``paddle_tpu_torch.testing.dense_reference_loss_and_grads``);
-7. ``train``: ``bench.py``'s training loop at batch 8 x 2048 (forward,
+9. ``train``: ``bench.py``'s training loop at batch 8 x 2048 (forward,
    fused CE head, backward, ``AdamW(3e-4, multi_precision=True)``):
    2 warm-up and 5 timed steps on the same batch, with the launch
    counters reset around the timed steps; step time, tokens/s, MFU,
    peak memory, and the loss of every step;
-8. ``train_profile``: one training step under ``torch.profiler``.
+10. ``train_profile``: one training step under ``torch.profiler``.
 
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and last
@@ -43,13 +56,15 @@ script exits non-zero without the last line. Without CUDA it exits 2
 before doing anything.
 
 Two narrower runs: ``--flash-cases NAMES`` builds the kernels and holds
-only those flash cases against their plain versions; ``--fault-check``
+only those flash and varlen cases (names of ``FLASH_CASES`` and
+``VARLEN_CASES``) against their plain versions; ``--fault-check``
 plants each fault of ``FLASH_FAULTS`` in a copy of the repository and
-fails unless the flash gates catch every one.
+fails unless the flash and varlen gates catch every one.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -62,23 +77,40 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 BF16_ULP = 2.0 ** -7           # bf16 spacing relative to the value (max)
 
+# bench.py's traffic: batch 8 x 2048; 2 warm-up and 5 timed steps (the
+# step count is what to cut first if the run outgrows its time limit)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+
 # the port's kernels: name -> (CUDA source, the TPU kernel it replaces)
 _FLASH_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+_VARLEN_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
+_NORM_CU = "paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu"
 KERNELS = {
-    "rms_norm": ("paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
-                 "paddle_tpu/ops/kernels/rms_norm.py:32"),
+    "rms_norm": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:32"),
+    "layer_norm_fused": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:120"),
     "paged_ragged_attention": (
         "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
         "paddle_tpu/ops/kernels/paged_attention.py:351"),
+    # torch around paged_ragged_attention: no kernel of its own
+    "paged_ragged_fused_step": (
+        "paddle_tpu_torch/ops/kernels/paged_attention.py",
+        "paddle_tpu/ops/kernels/paged_attention.py:582"),
     "flash_attention_fwd": (
         _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:50"),
     "flash_attention_bwd_dkdv": (
         _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:199"),
     "flash_attention_bwd_dq": (
         _FLASH_CU, "paddle_tpu/ops/kernels/flash_attention.py:276"),
+    "flash_varlen_fwd": (
+        _VARLEN_CU, "paddle_tpu/ops/kernels/flash_varlen.py:63"),
+    "flash_varlen_bwd_dkdv": (
+        _VARLEN_CU, "paddle_tpu/ops/kernels/flash_varlen.py:126"),
+    "flash_varlen_bwd_dq": (
+        _VARLEN_CU, "paddle_tpu/ops/kernels/flash_varlen.py:188"),
 }
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
          "flash_attention_bwd_dq")
+VARLEN = ("flash_varlen_fwd", "flash_varlen_bwd_dkdv", "flash_varlen_bwd_dq")
 
 
 def emit(phase, **fields):
@@ -181,6 +213,46 @@ def rms_case(n, h, flush, dtype="bfloat16"):
                                  flush=flush),
         "library_ms": cuda_time_ms(
             lambda: F.rms_norm(x, (h,), w, eps), flush=flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def ln_case(n, h, flush, dtype="bfloat16", affine=True):
+    """layer_norm_fused's kernel against its plain version at [n, h]
+    (weight and bias, or neither), held like rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels.rms_norm import layer_norm_fused, \
+        layer_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(n * 5 + h)
+    dt = torch_dtype(dtype)
+    x = (0.3 + 1.5 * torch.randn(n, h, generator=g, device="cuda")).to(dt)
+    w = b = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(dt)
+    eps = 1e-5
+    got = layer_norm_fused(x, w, b, eps)
+    torch.cuda.synchronize()
+    ref = layer_norm_plain(x, w, b, eps)
+    d = (got.float() - ref.float()).abs()
+    nbytes = (2 * x.numel() + (2 * h if affine else 0)) * x.element_size()
+    b_ms, b_by = bound_ms(nbytes, 8 * x.numel(), dtype)
+    return {
+        "case": f"rows{n}_h{h}" + ("" if affine else "_no_affine")
+        + ("" if dtype == "bfloat16" else f"_{dtype}"),
+        "shape": [n, h], "dtype": dtype, "weight_and_bias": affine,
+        "max_abs_err": float(d.max()),
+        "max_rel_err": float((d / ref.float().abs().clamp_min(1e-6)).max()),
+        "tolerance": tolerance_text(dtype),
+        "ok": within_tolerance(got, ref),
+        "kernel_ms": cuda_time_ms(lambda: layer_norm_fused(x, w, b, eps),
+                                  flush=flush),
+        "plain_ms": cuda_time_ms(lambda: layer_norm_plain(x, w, b, eps),
+                                 flush=flush),
+        "library_ms": cuda_time_ms(
+            lambda: F.layer_norm(x, (h,), w, b, eps), flush=flush),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -294,6 +366,109 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
     }
 
 
+def fused_step_case(flush, seq_lens=(900, 640, 333, 1056, 71, 512, 1001,
+                                     496),
+                    q_lens=(1, 1, 1, 1, 1, 1, 1, 248), pad_to=256, seed=3):
+    """``paged_ragged_fused_step`` (the port of #11: qkv projection, RoPE
+    and the chunk's page writes in torch around the ragged kernel, then
+    o_proj) for one Llama-3-8B layer at the serving path's mixed bucket,
+    against the same function built from ``torch.matmul`` and SDPA over
+    the gathered pages (the library yardstick): its device time per
+    layer call and its bound. Repeated calls write the same slots, so
+    every call does the same work."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
+    from paddle_tpu_torch.inference.paged_llama import _right_align_plan
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_ragged_fused_step
+    from paddle_tpu_torch.ops.kernels.rope import (apply_rotary_emb,
+                                                   build_rope_cache)
+
+    e, nh, kvh, hd, page = 4096, 32, 8, 128, 16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(
+            torch.bfloat16)
+
+    pool = PagedKVCacheManager(600, page, kvh, hd, device="cuda")
+    pool.k_pages.copy_(rnd(*pool.k_pages.shape))
+    pool.v_pages.copy_(rnd(*pool.v_pages.shape))
+    ids = [f"s{i}" for i in range(len(seq_lens))]
+    for i, s, c in zip(ids, seq_lens, q_lens):
+        pool.alloc(i)
+        pool.book_ragged([i], [s - c])
+    pool.book_ragged(ids, q_lens)
+    b, t = len(ids), max(q_lens)
+    mp = 1 << (max(-(-s // page) for s in seq_lens) - 1).bit_length()
+    step = pool.ragged_step_inputs(ids, q_lens, rows_pad=b, max_pages=mp)
+    starts = [sum(q_lens[:i]) for i in range(b)]
+    n_real = sum(q_lens)
+    gm, mr, mc, mflat = (torch.from_numpy(a).long().cuda() for a in
+                         _right_align_plan(range(b), starts, q_lens, t, b))
+    pos = torch.zeros(pad_to, dtype=torch.long, device="cuda")
+    pos[:n_real] = torch.cat([torch.arange(s - c, s, device="cuda")
+                              for s, c in zip(seq_lens, q_lens)])
+    cos, sin = build_rope_cache(2048, hd, base=500000.0, device="cuda")
+    x = rnd(pad_to, e)
+    w = [rnd(e, n, scale=e ** -0.5) for n in (nh * hd, kvh * hd, kvh * hd)]
+    wo = rnd(nh * hd, e, scale=e ** -0.5)
+
+    def kernel():
+        return paged_ragged_fused_step(
+            x, *w, wo, None, cos, sin, pos, step.slots[0], step.slots[1], gm,
+            mr, mc, mflat, pool.k_pages, pool.v_pages, step.page_table,
+            step.seq_lens, step.q_lens, n_real=n_real)[0]
+
+    tbl = step.page_table.long()
+    kpos = torch.arange(mp * page, device="cuda")
+    qpos = step.seq_lens.long()[:, None] - t + torch.arange(t, device="cuda")
+    keep = ((kpos[None, None] <= qpos[:, :, None])
+            & (kpos[None, None] < step.seq_lens.long()[:, None, None]))[:, None]
+
+    def library():
+        q = apply_rotary_emb(torch.matmul(x, w[0]).reshape(1, pad_to, nh, hd),
+                             cos, sin, position_ids=pos)[0]
+        k = apply_rotary_emb(torch.matmul(x, w[1]).reshape(1, pad_to, kvh,
+                                                           hd),
+                             cos, sin, position_ids=pos)[0]
+        v = torch.matmul(x, w[2]).reshape(pad_to, kvh, hd)
+        pool.k_pages.index_put_((step.slots[0], step.slots[1]), k[:n_real])
+        pool.v_pages.index_put_((step.slots[0], step.slots[1]), v[:n_real])
+        kd = pool.k_pages[tbl].reshape(b, mp * page, kvh, hd).transpose(1, 2)
+        vd = pool.v_pages[tbl].reshape(b, mp * page, kvh, hd).transpose(1, 2)
+        o = F.scaled_dot_product_attention(
+            q[gm].transpose(1, 2), kd, vd, attn_mask=keep, enable_gqa=True)
+        attn = torch.zeros(pad_to, nh, hd, dtype=x.dtype, device="cuda")
+        attn[mflat] = o.transpose(1, 2)[mr, mc]
+        return torch.matmul(attn.reshape(pad_to, nh * hd), wo)
+
+    got = kernel()
+    ref = library()
+    torch.cuda.synchronize()
+    cos_sim = float(F.cosine_similarity(got[:n_real].float().flatten(),
+                                        ref[:n_real].float().flatten(),
+                                        dim=0))
+    attn_bytes, attn_flops = attn_work(list(seq_lens), list(q_lens), t, nh,
+                                       kvh, hd, 0, page, 2)
+    nbytes = 2 * (sum(t.numel() for t in w) + wo.numel()
+                  + 2 * x.numel() + 2 * n_real * kvh * hd) + attn_bytes
+    flops = 2 * pad_to * e * (2 * nh * hd + 2 * kvh * hd) + attn_flops
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    return {"case": "mixed", "seq_lens": list(seq_lens),
+            "q_lens": list(q_lens), "packed_tokens": n_real,
+            "pad_to": pad_to, "hidden": e, "heads": nh, "kv_heads": kvh,
+            "head_dim": hd, "cosine_vs_library": cos_sim,
+            "max_abs_err": float((got[:n_real] - ref[:n_real]).abs().max()),
+            "tolerance": f"cosine with the library version >= {COSINE_GATE}",
+            "ok": cos_sim >= COSINE_GATE,
+            "kernel_ms": cuda_time_ms(kernel, flush=flush),
+            "library": "torch.matmul + SDPA over the gathered pages",
+            "library_ms": cuda_time_ms(library, flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 # Flash kernels against their plain float32 versions on the same inputs,
 # each tensor (out, dq, dk, dv) held by two relative L2 errors: over the
 # whole tensor, and over each row of D values (a q row of out or dq, a
@@ -329,6 +504,53 @@ def rel_l2_errors(got, ref):
     rows = err.norm(dim=-1) / ref_rows.clamp_min(floor)
     return (float(err.norm() / ref.norm().clamp_min(1e-30)),
             float(rows.max()))
+
+
+def hold_flash(fwd, kern, plain, ref_out, ref_lse, tol, flush):
+    """Runs one flash or varlen kernel and holds it against its plain
+    version: the forward's out over the rows that see a key, its lse,
+    and the rows that see none (exactly 0, lse -1e30); a backward's
+    tensors whole. ``plain`` is the plain version (for a backward, also
+    the reference; a forward's is ``ref_out``, ``ref_lse``, whose last
+    axis is the rows). Returns the result fields every case shares."""
+    import torch
+
+    got = kern()
+    torch.cuda.synchronize()
+    if fwd:
+        seen = ref_lse > -1e29
+        seen_rows = seen.transpose(-1, -2)  # out's row layout
+        got, lse = got
+        lse_err = float(((lse - ref_lse).abs() * seen).max())
+        nokey_zero = bool((got[~seen_rows] == 0).all()) and \
+            bool((lse[~seen] == -1e30).all())
+        lse_ok = bool((((lse - ref_lse).abs()
+                        <= 1e-4 + 1e-5 * ref_lse.abs()) | ~seen).all())
+        got, ref = (got,), (ref_out,)
+        pairs_cmp = [(got[0][seen_rows], ref_out[seen_rows])]
+    else:
+        ref = plain()
+        lse_err, nokey_zero, lse_ok = None, True, True
+        pairs_cmp = list(zip(got, ref))
+    errs = [float((a.float() - r.float()).abs().max()) for a, r in
+            zip(got, ref)]
+    rel = [rel_l2_errors(a, r) for a, r in pairs_cmp]
+    ok = all(t <= tol["tensor"] and r <= tol["row"] for t, r in rel)
+    return {
+        "max_abs_err": max(errs),
+        # per output tensor: [||err|| / ||ref||, max over rows of it]
+        "rel_l2_err": rel,
+        "lse_max_abs_err": lse_err,
+        "tolerance": (f"||err|| <= {tol['tensor']:g} ||ref|| over each "
+                      f"tensor and <= {tol['row']:g} ||ref row|| over "
+                      "each row of D values"
+                      + ("; lse within 1e-4 + 1e-5|lse|; rows that "
+                         "see no key exactly 0, lse -1e30" if fwd else "")),
+        "no_key_rows_exact": nokey_zero,
+        "ok": ok and lse_ok and nokey_zero,
+        "kernel_ms": cuda_time_ms(kern, flush=flush),
+        "plain_ms": cuda_time_ms(plain, iters=5, flush=flush),
+    }
 
 
 def flash_work(b, sq, sk, h, kvh, d, causal, window, itemsize):
@@ -411,7 +633,8 @@ def flash_case(name, b, sq, sk, h, kvh, d, causal, flush, window=0,
     if not dlse:
         runs["flash_attention_fwd"] = (
             lambda: fa.flash_attention_fwd(q, k, v, causal, scale, window),
-            lambda: (ref_out, ref_lse))
+            lambda: fa.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                 window))
 
     # the library yardstick: SDPA on [B, H, S, D] views (an explicit
     # band mask where is_causal's top-left alignment or the window
@@ -432,54 +655,17 @@ def flash_case(name, b, sq, sk, h, kvh, d, causal, flush, window=0,
 
     pairs, nbytes = flash_work(b, sq, sk, h, kvh, d, causal, window,
                                q.element_size())
-    seen = ref_lse > -1e29
-    seen_rows = seen.transpose(1, 2)  # [B, Sq, H], out's row layout
     out = {}
     for kname, (kern, plain) in runs.items():
-        got = kern()
-        torch.cuda.synchronize()
-        ref = plain() if kname != "flash_attention_fwd" else (ref_out,)
-        if kname == "flash_attention_fwd":
-            got, lse = got
-            lse_err = float(((lse - ref_lse).abs() * seen).max())
-            nokey_zero = bool((got[~seen_rows] == 0).all()) and \
-                bool((lse[~seen] == fa.NO_KEY_LSE).all())
-            lse_ok = bool((((lse - ref_lse).abs()
-                            <= 1e-4 + 1e-5 * ref_lse.abs()) | ~seen).all())
-            got = (got,)
-            pairs_cmp = [(got[0][seen_rows], ref_out[seen_rows])]
-        else:
-            lse_err, nokey_zero, lse_ok = None, True, True
-            pairs_cmp = list(zip(got, ref))
-        errs = [float((a.float() - r.float()).abs().max()) for a, r in
-                zip(got, ref)]
-        rel = [rel_l2_errors(a, r) for a, r in pairs_cmp]
-        ok = all(t <= tol["tensor"] and r <= tol["row"] for t, r in rel)
         b_ms, b_by = bound_ms(
             nbytes[kname], 2 * d * FLASH_PRODUCTS[kname] * pairs, dtype)
         out[kname] = {
             "case": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "KVH": kvh,
             "D": d, "causal": causal, "window": window, "dtype": dtype,
             "dlse": dlse, "kept_pairs": pairs,
-            "rows_without_key": int((~seen).sum()),
-            "max_abs_err": max(errs),
-            # per output tensor: [||err|| / ||ref||, max over rows of it]
-            "rel_l2_err": rel,
-            "lse_max_abs_err": lse_err,
-            "tolerance": (f"||err|| <= {tol['tensor']:g} ||ref|| over each "
-                          f"tensor and <= {tol['row']:g} ||ref row|| over "
-                          "each row of D values"
-                          + ("; lse within 1e-4 + 1e-5|lse|; rows that "
-                             "see no key exactly 0, lse -1e30"
-                             if lse_err is not None else "")),
-            "no_key_rows_exact": nokey_zero,
-            "ok": ok and lse_ok and nokey_zero,
-            "kernel_ms": cuda_time_ms(kern, flush=flush),
-            "plain_ms": cuda_time_ms(plain, iters=5, flush=flush)
-            if kname != "flash_attention_fwd" else cuda_time_ms(
-                lambda: fa.flash_attention_fwd_plain(q, k, v, causal,
-                                                     scale, window),
-                iters=5, flush=flush),
+            "rows_without_key": int((ref_lse <= -1e29).sum()),
+            **hold_flash(kname == "flash_attention_fwd", kern, plain,
+                         ref_out, ref_lse, tol, flush),
             "library_ms": sdpa_fwd_ms if kname == "flash_attention_fwd"
             else sdpa_bwd_ms,
             "bound_ms": b_ms, "bound_by": b_by,
@@ -499,35 +685,300 @@ def flash_cases(flush, names=None):
     return flash
 
 
+# ------------------------------------------------------- varlen flash
+def pack_lengths(seed, budget=None):
+    """Document lengths of one packed batch: RandomState(seed).randint(64,
+    2049) until the budget (the train cell's 8 x 2048 tokens) is full,
+    the last one cut to fill it."""
+    import numpy as np
+
+    budget = budget or TRAIN_BATCH * TRAIN_SEQ
+    rng, lens = np.random.RandomState(seed), []
+    while sum(lens) < budget:
+        lens.append(int(rng.randint(64, 2049)))
+    lens[-1] -= sum(lens) - budget
+    return lens
+
+
+def _cu(lens):
+    import numpy as np
+
+    return [0] + np.cumsum(lens).tolist()
+
+
+# bench.py's flash_varlen_8k documents (bench.py:545-547): 8192 tokens
+VARLEN_8K_LENS = [2048, 1536, 1024, 512, 512, 512, 512, 256, 256, 64, 32,
+                  16, 8, 8, 8] + [8] * 111
+
+# (name, q lengths, k lengths (None: the q lengths), tokens past cu[-1]
+# on both sides, H, KVH, D, causal, keyword arguments of varlen_case)
+VARLEN_CASES = [
+    # the varlen path: Qwen2-0.5B's attention on one 16384-token pack
+    ("varlen_train", pack_lengths(0), None, 0, 14, 2, 64, True, {}),
+    ("varlen_8k", VARLEN_8K_LENS, None, 0, 16, 16, 128, True, {"seed": 1}),
+    ("varlen_noncausal", [700, 1500, 300, 1596], None, 0, 16, 4, 128, False,
+     {"seed": 2}),
+    ("varlen_gqa_d128", [1000, 2000, 1096], None, 0, 8, 2, 128, True,
+     {"seed": 3}),
+    ("varlen_tile_edges", [64, 128, 64, 192, 576], None, 0, 8, 2, 64, True,
+     {"seed": 4}),
+    ("varlen_tiny_docs", [8] * 256, None, 0, 8, 2, 64, True, {"seed": 5}),
+    ("varlen_cu_q_ne_k", [300, 500, 224], [600, 100, 324], 0, 8, 2, 64, True,
+     {"seed": 6}),
+    ("varlen_tail", [700, 900], None, 400, 8, 2, 64, True, {"seed": 7}),
+    # the middle q segment's 300 rows see no key
+    ("varlen_empty_k", [200, 300, 100], [400, 0, 200], 0, 8, 2, 64, True,
+     {"seed": 8}),
+    ("varlen_float32", [100, 60, 96], None, 0, 4, 2, 64, True,
+     {"dtype": "float32", "seed": 9}),
+]
+
+
+def varlen_work(cu_q, cu_k, tq, tk, h, kvh, d, causal, itemsize):
+    """(kept (q, k) pairs over every head, {kernel: bytes}), as
+    flash_work counts them, over the segments of THESE boundaries:
+    causal keeps min(i + 1, keys) keys for a segment's row i."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.flash_varlen import _ranges
+
+    per_head = 0
+    for (qb, qe, _), (kb, ke, _) in zip(_ranges(torch.tensor(cu_q), tq),
+                                        _ranges(torch.tensor(cu_k), tk)):
+        nq, nk = qe - qb, ke - kb
+        if not causal:
+            per_head += nq * nk
+        elif nq <= nk:
+            per_head += nq * (nq + 1) // 2
+        else:
+            per_head += nk * (nk + 1) // 2 + (nq - nk) * nk
+    qb, kvb = tq * h * d * itemsize, tk * kvh * d * itemsize
+    rows, cu = h * tq * 4, 2 * len(cu_q) * 4
+    return h * per_head, {
+        "flash_varlen_fwd": 2 * qb + 2 * kvb + rows + cu,
+        "flash_varlen_bwd_dkdv": 2 * qb + 4 * kvb + 2 * rows + cu,
+        "flash_varlen_bwd_dq": 3 * qb + 2 * kvb + 2 * rows + cu,
+    }
+
+
+def _varlen_library(q, k, v, do, cu_q, cu_k, causal, scale, flush):
+    """Times of PyTorch calls that compute the same function, forward and
+    autograd backward (dq, dk and dv at once); timed only, never used by
+    the port: SDPA summed over one call per document, SDPA over the pack
+    with the block-diagonal boolean mask, and
+    ``torch.nn.attention.varlen.varlen_attn`` where that module imports
+    (the ``env`` line says whether it does), the inputs are bf16 and the
+    q and k boundaries agree."""
+    import inspect
+
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    tq, tk = q.shape[0], k.shape[0]
+    out = {}
+    pairs = [(slice(a, b), slice(c, e)) for (a, b, _), (c, e, _) in zip(
+        fv._ranges(cu_q, tq), fv._ranges(cu_k, tk)) if b > a and e > c]
+
+    def leaf(t, s):
+        return t[s].transpose(0, 1)[None].contiguous().requires_grad_()
+
+    docs = [(leaf(q, a), leaf(k, b), leaf(v, b), do[a].transpose(0, 1)[None])
+            for a, b in pairs]
+
+    def docs_fwd():
+        return [F.scaled_dot_product_attention(
+            dq_, dk_, dv_, is_causal=causal, scale=scale, enable_gqa=True)
+            for dq_, dk_, dv_, _ in docs]
+
+    outs = docs_fwd()
+    leaves = [t for doc in docs for t in doc[:3]]
+    out["sdpa_per_document"] = (cuda_time_ms(docs_fwd, flush=flush),
+                                cuda_time_ms(lambda: torch.autograd.grad(
+                                    outs, leaves, [d[3] for d in docs],
+                                    retain_graph=True), flush=flush))
+    del outs
+
+    seg_q, loc_q = fv.segments(cu_q, tq)
+    seg_k, loc_k = fv.segments(cu_k, tk)
+    keep = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        keep &= loc_q[:, None] >= loc_k[None, :]
+    qt, kt, vt = (t.transpose(0, 1)[None].detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(0, 1)[None]
+
+    def masked():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, scale=scale, enable_gqa=True)
+
+    o = masked()
+    out["sdpa_block_diagonal_mask"] = (
+        cuda_time_ms(masked, flush=flush),
+        cuda_time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), flush=flush))
+    del o, keep
+
+    try:
+        import torch.nn.attention.varlen as tv
+    except ImportError:
+        tv = None
+    # it runs FlashAttention's kernel: bf16 and fp16 only
+    if tv is not None and q.dtype == torch.bfloat16 and \
+            bool((cu_q == cu_k).all()) and tq == tk:
+        cu = cu_q.tolist()
+        if cu[-1] < tq:
+            cu.append(tq)  # the tokens past cu[-1]: one more sequence
+        cu = torch.tensor(cu, dtype=torch.int32, device=q.device)
+        mx = int((cu[1:] - cu[:-1]).max())
+        params = inspect.signature(tv.varlen_attn).parameters
+        kw = {"scale": scale}
+        if "window_size" in params:
+            kw["window_size"] = (-1, 0) if causal else (-1, -1)
+        else:
+            kw["is_causal"] = causal
+        kh, vh = k, v
+        if "enable_gqa" in params:
+            kw["enable_gqa"] = True
+        else:
+            g = q.shape[1] // k.shape[1]
+            kh, vh = (t.repeat_interleave(g, dim=1) for t in (k, v))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, kh, vh))
+
+        def library():
+            return tv.varlen_attn(ql, kl, vl, cu, cu, mx, mx, **kw)
+
+        o = library()
+        out["varlen_attn"] = (
+            cuda_time_ms(library, flush=flush),
+            cuda_time_ms(lambda: torch.autograd.grad(
+                o, (ql, kl, vl), do, retain_graph=True), flush=flush))
+    return out
+
+
+def varlen_case(name, lens_q, lens_k, tail, h, kvh, d, causal, flush,
+                dtype="bfloat16", seed=0):
+    """{kernel name: case result} for the three varlen kernels against
+    their plain versions, held like the flash cases (FLASH_TOL, relative
+    L2 over each tensor and each row of D values)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    lens_k = lens_q if lens_k is None else lens_k
+    tq, tk = sum(lens_q) + tail, sum(lens_k) + tail
+    g = torch.Generator(device="cuda").manual_seed(100 + seed)
+    dt = torch_dtype(dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    q, k, v, do = rnd(tq, h, d), rnd(tk, kvh, d), rnd(tk, kvh, d), \
+        rnd(tq, h, d)
+    cu_q = torch.tensor(_cu(lens_q), dtype=torch.int32, device="cuda")
+    cu_k = torch.tensor(_cu(lens_k), dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    tol = FLASH_TOL[dtype]
+    # the backward of both versions starts from the plain forward
+    ref_out, ref_lse = fv.flash_varlen_fwd_plain(q, k, v, cu_q, cu_k, causal,
+                                                 scale)
+    delta = fv._delta(do, ref_out)
+    bwd_args = (q, k, v, do, ref_lse, delta, cu_q, cu_k, causal, scale)
+    runs = {
+        "flash_varlen_fwd": (
+            lambda: fv.flash_varlen_fwd(q, k, v, cu_q, cu_k, causal, scale),
+            lambda: fv.flash_varlen_fwd_plain(q, k, v, cu_q, cu_k, causal,
+                                              scale)),
+        "flash_varlen_bwd_dkdv": (
+            lambda: fv.flash_varlen_bwd_dkdv(*bwd_args),
+            lambda: fv.flash_varlen_bwd_dkdv_plain(*bwd_args)),
+        "flash_varlen_bwd_dq": (
+            lambda: (fv.flash_varlen_bwd_dq(*bwd_args),),
+            lambda: (fv.flash_varlen_bwd_dq_plain(*bwd_args),)),
+    }
+    lib = _varlen_library(q, k, v, do, cu_q, cu_k, causal, scale, flush)
+    lib_name = "varlen_attn" if "varlen_attn" in lib else \
+        "sdpa_block_diagonal_mask"
+    pairs, nbytes = varlen_work(_cu(lens_q), _cu(lens_k), tq, tk, h, kvh, d,
+                                causal, q.element_size())
+    out = {}
+    for kname, (kern, plain) in runs.items():
+        b_ms, b_by = bound_ms(nbytes[kname], 2 * d * VARLEN_PRODUCTS[kname]
+                              * pairs, dtype)
+        out[kname] = {
+            "case": name, "Tq": tq, "Tk": tk, "H": h, "KVH": kvh, "D": d,
+            "causal": causal, "dtype": dtype, "docs": len(lens_q),
+            "longest": max(max(lens_q), max(lens_k)), "tail": tail,
+            "cu_q_equals_cu_k": lens_k == lens_q,
+            "kept_pairs": pairs,
+            "rows_without_key": int((ref_lse <= -1e29).sum()),
+            **hold_flash(kname == "flash_varlen_fwd", kern, plain, ref_out,
+                         ref_lse, tol, flush),
+            "library": lib_name,
+            "library_ms": lib[lib_name][kname != "flash_varlen_fwd"],
+            "library_ms_all": lib,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    return out
+
+
+VARLEN_PRODUCTS = {"flash_varlen_fwd": 2, "flash_varlen_bwd_dkdv": 4,
+                   "flash_varlen_bwd_dq": 3}
+
+
+def varlen_cases(flush, names=None):
+    """{kernel name: [case results]} over VARLEN_CASES (those in
+    ``names`` when given)."""
+    out = {name: [] for name in VARLEN}
+    for name, *shape, kw in VARLEN_CASES:
+        if names is None or name in names:
+            for kname, result in varlen_case(name, *shape, flush,
+                                             **kw).items():
+                out[kname].append(result)
+    return out
+
+
 # Faults that --fault-check plants, one at a time, in a copy of the
-# repository, each of which the flash gates must catch: (name, text of
-# csrc/flash_attention.cu, its replacement, the flash cases to run).
+# repository, each of which the flash gates must catch: (name, the CUDA
+# source, its text, the replacement, the flash and varlen cases to run).
 _LATE_ROW = "r >= p.Sq / 2 && c == r + p.Sk - p.Sq"
 FLASH_FAULTS = [
-    ("dq_drops_last_k_tile",
+    ("dq_drops_last_k_tile", _FLASH_CU,
      "float e = exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
      "float e = kt == t_hi ? 0.f : exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
      ("train", "gqa_d128")),
-    ("dkdv_drops_one_q_head", "const int n_steps = group * nqt;",
+    ("dkdv_drops_one_q_head", _FLASH_CU, "const int n_steps = group * nqt;",
      "const int n_steps = (group - 1) * nqt;", ("train", "gqa_d128")),
-    ("dkdv_drops_last_q_tile",
+    ("dkdv_drops_last_q_tile", _FLASH_CU,
      "const int nqt = qhi >= qlo ? qhi / BQ - t_lo + 1 : 0;",
      "const int nqt = qhi >= qlo ? qhi / BQ - t_lo : 0;", ("train",)),
     # the diagonal key of the late half of the rows (keys) only
-    ("dq_late_rows_drop_own_key",
+    ("dq_late_rows_drop_own_key", _FLASH_CU,
      "if (c >= p.Sk || !keep(p, r, c)) e = 0.f;",
      f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) e = 0.f;",
      ("train", "gqa_d128")),
-    ("dkdv_late_keys_drop_own_row",
+    ("dkdv_late_keys_drop_own_row", _FLASH_CU,
      "if (!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) e = 0.f;",
      "if ((!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) || "
      "(krow0 + (i >> 1) * 8 >= p.Sk / 2 && "
      "q0 + c == krow0 + (i >> 1) * 8 + p.Sq - p.Sk)) e = 0.f;",
      ("train", "gqa_d128")),
-    ("fwd_late_rows_drop_own_key",
+    ("fwd_late_rows_drop_own_key", _FLASH_CU,
      "if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;",
      f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) x = -INFINITY;",
      ("train",)),
+    # varlen: the forward and dQ walk skip each segment's first key tile
+    # unless the segment before already walked it
+    ("varlen_drops_key_tile_at_segment_start", _VARLEN_CU,
+     "nk = max(nk, lo / kBK);", "nk = max(nk, lo / kBK + 1);",
+     ("varlen_train", "varlen_tile_edges")),
+    # every row also keeps the last key of the segment before its own
+    ("varlen_segment_test_off_by_one", _VARLEN_CU,
+     "lo = seg_beg(p.cu_k, s, p.Tk);",
+     "lo = seg_beg(p.cu_k, s, p.Tk) - (s > 0 ? 1 : 0);",
+     ("varlen_train", "varlen_noncausal")),
+    # dK/dV's walk stops one q tile short of each segment's last row
+    ("varlen_dkdv_drops_last_q_tile", _VARLEN_CU,
+     "t_hi = hi / BQ;", "t_hi = hi / BQ - 1;",
+     ("varlen_train", "varlen_tile_edges")),
 ]
 
 
@@ -541,13 +992,13 @@ def fault_check_phase():
 
     root = os.path.dirname(os.path.abspath(__file__))
     results, missed = [], []
-    for name, old, new, cases in FLASH_FAULTS:
+    for name, source, old, new, cases in FLASH_FAULTS:
         tmp = tempfile.mkdtemp(prefix="flash_fault_")
         try:
             tree = os.path.join(tmp, "repo")
             shutil.copytree(root, tree, ignore=shutil.ignore_patterns(
                 ".git", "_build", "__pycache__"))
-            src = os.path.join(tree, _FLASH_CU)
+            src = os.path.join(tree, source)
             with open(src) as f:
                 text = f.read()
             if text.count(old) != 1:
@@ -614,21 +1065,176 @@ def kernels_phase():
         attn_case("no_key_rows", [5, 40, 12, 1], None, 16, 0, flush,
                   seed=6),
     ]
+    # LayerNorm at GPT-2 / BERT-base and BERT-large widths, a wide short
+    # block, a width the TPU kernel cannot take, no affine, float32
+    ln = [ln_case(16384, 768, flush), ln_case(16384, 1024, flush),
+          ln_case(8, 4096, flush), ln_case(2048, 1000, flush),
+          ln_case(2048, 768, flush, affine=False),
+          ln_case(2048, 768, flush, dtype="float32")]
+    fused = [fused_step_case(flush)]
     flash = flash_cases(flush)
+    varlen = varlen_cases(flush)
     del flush
-    bad = [c["case"] for c in rms + attn if not c["ok"]] + [
-        f"{name}:{c['case']}" for name in FLASH for c in flash[name]
-        if not c["ok"]]
+    cases = {"rms_norm": rms, "layer_norm_fused": ln,
+             "paged_ragged_attention": attn,
+             "paged_ragged_fused_step": fused, **flash, **varlen}
+    bad = [f"{name}:{c['case']}" for name, cs in cases.items() for c in cs
+           if not c["ok"]]
     emit("kernels", failed=bad, kernels=[
         {"name": name, "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "cases": cases}
-        for name, cases in (("rms_norm", rms),
-                            ("paged_ragged_attention", attn),
-                            *flash.items())])
+         "replaces": KERNELS[name][1], "cases": cs}
+        for name, cs in cases.items()])
     if bad:
         raise RuntimeError(f"kernel cases disagree with their plain "
                            f"versions: {bad}")
-    return {"rms_norm": rms, "paged_ragged_attention": attn, **flash}
+    return cases
+
+
+# ----------------------------------------------------------------- varlen
+def varlen_phase(seed):
+    """The packed-attention path: the public ``flash_attn_unpadded`` at
+    Qwen2-0.5B's attention width (14 q and 2 kv heads of 64, bf16,
+    causal) on one pack of the train cell's 8 x 2048 token budget
+    (``pack_lengths(seed)``), forward and backward through autograd. The
+    launch counters are reset just before one forward + backward and read
+    just after; out, dq, dk and dv are held against the plain
+    segment-by-segment version. Also times PR 2's dense kernels on the
+    same documents padded to the longest, as a reference point."""
+    import torch
+    from paddle_tpu_torch.nn.functional import (flash_attention,
+                                                flash_attn_unpadded)
+    from paddle_tpu_torch.ops.kernels import flash_varlen as fv
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    h, kvh, d = 14, 2, 64
+    lens = pack_lengths(seed)
+    t = sum(lens)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(t, h, d), rnd(t, kvh, d), rnd(t, kvh, d), rnd(t, h, d)
+    cu = torch.tensor(_cu(lens), dtype=torch.int32, device="cuda")
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        out, _ = flash_attn_unpadded(*leaves, cu, cu, max(lens), max(lens),
+                                     causal=True)
+        return (out,) + torch.autograd.grad(out, leaves, do)
+
+    torch.cuda.synchronize()
+    kernel_launch_stats(reset=True)
+    got = [x.detach() for x in fwd_bwd()]
+    torch.cuda.synchronize()
+    launches = kernel_launch_stats(reset=True)
+    # out against the plain forward; the gradients against the plain
+    # backward from the path's own forward (its out, and its lse from one
+    # more forward launch after the counters were read), as the kernels
+    # phase feeds both versions the same forward: a bf16 out enters delta,
+    # and on a row with few keys dp - delta cancels, so gradients from two
+    # forwards differ there by that rounding, not by the kernels
+    scale = d ** -0.5
+    ref_out, _ = fv.flash_varlen_fwd_plain(q, k, v, cu, cu, True, scale)
+    _, lse = fv.flash_varlen_fwd(q, k, v, cu, cu, True, scale)
+    bwd = (q, k, v, do, lse, fv._delta(do, got[0]), cu, cu, True, scale)
+    ref = (ref_out, fv.flash_varlen_bwd_dq_plain(*bwd),
+           *fv.flash_varlen_bwd_dkdv_plain(*bwd))
+    tol = FLASH_TOL["bfloat16"]
+    rel = {n: rel_l2_errors(a, r) for n, a, r in
+           zip(("out", "dq", "dk", "dv"), got, ref)}
+    problems = [f"{n}: relative L2 {e} over the {w} above {tol[w]}"
+                for n, e2 in rel.items()
+                for e, w in zip(e2, ("tensor", "row")) if e > tol[w]]
+    problems += [f"{n} launches {launches.get(n, 0)} != 1" for n in VARLEN
+                 if launches.get(n, 0) != 1]
+    problems += [f"{n} launched on the varlen path" for n in launches
+                 if n not in VARLEN]
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: flash_attn_unpadded(
+            q, k, v, cu, cu, causal=True))
+    fwd_bwd_ms = cuda_time_ms(fwd_bwd)
+
+    # PR 2's dense kernels on the same documents padded to the longest
+    s_max = max(lens)
+    pad = [torch.zeros(len(lens), s_max, x.shape[1], d, dtype=x.dtype,
+                       device="cuda") for x in (q, k, v, do)]
+    for i, (a, b) in enumerate(zip(_cu(lens), _cu(lens)[1:])):
+        for dst, src in zip(pad, (q, k, v, do)):
+            dst[i, :b - a] = src[a:b]
+    dense = [x.requires_grad_() for x in pad[:3]]
+
+    def dense_fwd_bwd():
+        out, _ = flash_attention(*dense, causal=True)
+        return torch.autograd.grad(out, dense, pad[3])
+
+    with torch.no_grad():
+        dense_fwd_ms = cuda_time_ms(lambda: flash_attention(
+            *pad[:3], causal=True))
+    dense_fwd_bwd_ms = cuda_time_ms(dense_fwd_bwd)
+    pairs, _ = varlen_work(_cu(lens), _cu(lens), t, t, h, kvh, d, True, 2)
+    emit("varlen", api="paddle_tpu_torch.nn.functional.flash_attn_unpadded",
+         heads=h, kv_heads=kvh, head_dim=d, dtype="bfloat16", causal=True,
+         tokens=t, documents=lens, kept_pairs=pairs,
+         dense_padded_pairs=len(lens) * h * s_max * (s_max + 1) // 2,
+         fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+         dense_padded_shape=[len(lens), s_max, h, d],
+         dense_padded_fwd_ms=dense_fwd_ms,
+         dense_padded_fwd_bwd_ms=dense_fwd_bwd_ms,
+         rel_l2_err=rel, tolerance=tol, launches=launches,
+         problems=problems)
+    if problems:
+        raise RuntimeError("varlen phase failed: " + "; ".join(problems))
+    return launches
+
+
+def layer_norm_phase():
+    """The LayerNorm path: ``layer_norm_fused`` forward and backward
+    through autograd at [16384, 768] bf16 (GPT-2 / BERT-base width) with
+    weight and bias, the launch counters reset just before and read just
+    after one forward + backward."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import (kernel_launch_stats,
+                                              layer_norm_fused,
+                                              layer_norm_plain)
+    from paddle_tpu_torch.ops.kernels.rms_norm import layer_norm_bwd
+
+    n, h = 16384, 768
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = (0.3 + 1.5 * torch.randn(n, h, generator=g, device="cuda")).to(
+        torch.bfloat16).requires_grad_()
+    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
+        torch.bfloat16).requires_grad_()
+    b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(n, h, generator=g, device="cuda").to(torch.bfloat16)
+
+    def fwd_bwd():
+        y = layer_norm_fused(x, w, b)
+        return (y,) + torch.autograd.grad(y, (x, w, b), dy)
+
+    torch.cuda.synchronize()
+    kernel_launch_stats(reset=True)
+    y, dx, dw, db = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = kernel_launch_stats(reset=True)
+    problems = []
+    if not within_tolerance(y, layer_norm_plain(x, w, b)):
+        problems.append("the output is outside the tolerance")
+    want = layer_norm_bwd(x, w, b, dy, 1e-5)
+    if not all(torch.equal(a, r) for a, r in zip((dx, dw, db), want)):
+        problems.append("the gradients differ from layer_norm_bwd")
+    if launches != {"layer_norm_fused": 1}:
+        problems.append(f"launches {launches} != one layer_norm_fused")
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: layer_norm_fused(x, w, b))
+    emit("layer_norm", shape=[n, h], dtype="bfloat16",
+         fwd_ms=fwd_ms, fwd_bwd_ms=cuda_time_ms(fwd_bwd),
+         launches=launches, problems=problems)
+    if problems:
+        raise RuntimeError("layer_norm phase failed: " + "; ".join(problems))
+    return launches
 
 
 # ------------------------------------------------------------------ serve
@@ -876,9 +1482,6 @@ def profile_phase(adapter, prompts):
 
 # ------------------------------------------------------------------ train
 PEAK_BF16_TFLOPS = PEAK_FLOPS_PER_S["bfloat16"] / 1e12
-# bench.py's traffic: batch 8 x 2048; 2 warm-up and 5 timed steps (the
-# step count is what to cut first if the run outgrows its time limit)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 
 
 def build_trainer(seed):
@@ -1070,8 +1673,8 @@ def main(argv=None):
                     help="cut the served model's depth (never its width)")
     ap.add_argument("--flash-cases", default=None, metavar="NAMES",
                     help="only build and hold these flash cases "
-                    "(comma-separated names of FLASH_CASES) against "
-                    "their plain versions")
+                    "(comma-separated names of FLASH_CASES and "
+                    "VARLEN_CASES) against their plain versions")
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the flash gates fail each "
                     "fault of FLASH_FAULTS, planted in a copy")
@@ -1092,7 +1695,9 @@ def main(argv=None):
     smi = nvidia_smi_line()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         device_count=torch.cuda.device_count(), nvidia_smi=smi)
+         device_count=torch.cuda.device_count(), nvidia_smi=smi,
+         varlen_attn=importlib.util.find_spec(
+             "torch.nn.attention.varlen") is not None)
     if args.fault_check:
         fault_check_phase()
         return 0
@@ -1104,15 +1709,22 @@ def main(argv=None):
          nvcc_flags=" ".join(_build.NVCC_FLAGS),
          sources=list(_build.SOURCES))
     if args.flash_cases:
+        names = args.flash_cases.split(",")
+        known = {c[0] for c in FLASH_CASES + VARLEN_CASES}
+        if set(names) - known:
+            raise ValueError(f"unknown flash cases {set(names) - known}")
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        flash = flash_cases(flush, args.flash_cases.split(","))
-        bad = [f"{k}:{c['case']}" for k in FLASH for c in flash[k]
+        flash = {**flash_cases(flush, names), **varlen_cases(flush, names)}
+        bad = [f"{k}:{c['case']}" for k, cs in flash.items() for c in cs
                if not c["ok"]]
         emit("flash_cases", failed=bad, kernels=[
-            {"name": k, "cases": v} for k, v in flash.items()])
+            {"name": k, "cases": v} for k, v in flash.items() if v])
         return 1 if bad else 0
 
     cases = kernels_phase()
+    varlen_launches = varlen_phase(args.seed)
+    ln_launches = layer_norm_phase()
+    torch.cuda.empty_cache()
     serve_launches, adapter, prompts = serve_phase(args.seed, args.layers)
     profile_phase(adapter, prompts)
     del adapter, prompts
@@ -1127,7 +1739,9 @@ def main(argv=None):
     def summary(name, main_case):
         c = next(x for x in cases[name] if x["case"] == main_case)
         by_path = {path: launches[name] for path, launches in
-                   (("serve", serve_launches), ("train", train_launches))
+                   (("serve", serve_launches), ("train", train_launches),
+                    ("varlen", varlen_launches),
+                    ("layer_norm", ln_launches))
                    if launches.get(name)}
         return {"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1],
@@ -1139,8 +1753,10 @@ def main(argv=None):
                 "library_ms": c["library_ms"], "case": main_case}
 
     kernels = [summary("rms_norm", "rows256"),
+               summary("layer_norm_fused", "rows16384_h768"),
                summary("paged_ragged_attention", "mixed")] + [
-        summary(name, "train") for name in FLASH]
+        summary(name, "train") for name in FLASH] + [
+        summary(name, "varlen_train") for name in VARLEN]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")

@@ -1,3 +1,7 @@
-from .flash_attention import flash_attention  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attn_unpadded,
+    flash_attn_varlen_func,
+)
 from .loss import cross_entropy  # noqa: F401
 from .norm import rms_norm  # noqa: F401

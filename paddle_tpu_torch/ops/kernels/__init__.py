@@ -30,15 +30,22 @@ def record_launch(kernel: str) -> None:
 def kernel_launch_stats(reset: bool = False) -> dict:
     """``{'rms_norm': n, 'paged_ragged_attention': m,
     'flash_attention_fwd': ..., 'flash_attention_bwd_dkdv': ...,
-    'flash_attention_bwd_dq': ...}`` — CUDA kernel launches since the
-    last reset."""
+    'flash_attention_bwd_dq': ..., 'flash_varlen_fwd': ...,
+    'flash_varlen_bwd_dkdv': ..., 'flash_varlen_bwd_dq': ...,
+    'layer_norm_fused': ...}`` — CUDA kernel launches since the last
+    reset."""
     out = dict(_LAUNCHES)
     if reset:
         _LAUNCHES.clear()
     return out
 
 
-from .rms_norm import rms_norm, rms_norm_plain  # noqa: E402,F401
+from .rms_norm import (  # noqa: E402,F401
+    layer_norm_fused,
+    layer_norm_plain,
+    rms_norm,
+    rms_norm_plain,
+)
 from .rope import apply_rotary_emb, build_rope_cache  # noqa: E402,F401
 from .paged_attention import (  # noqa: E402,F401
     packed_position_index,

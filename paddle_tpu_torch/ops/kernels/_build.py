@@ -26,8 +26,9 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu",
+           "flash_varlen.cu")
+HEADERS = ("common.cuh", "flash_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
@@ -44,6 +45,8 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     # x, w, y, rows, hidden, eps, dtype, stream
     "ptt_rms_norm": (_P, _P, _P, _I64, _I64, _F32, _I32, _P),
+    # x, w, b, y, rows, hidden, eps, dtype, stream
+    "ptt_layer_norm": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _P),
     # q, k_pages, v_pages, page_table, seq_lens, q_lens, out,
     # B, T, H, KVH, D, NP, P, MP, scale, window, dtype, stream
     "ptt_paged_ragged_attention": (
@@ -65,6 +68,21 @@ _SIGNATURES = {
     "ptt_flash_bwd_dq": (
         _P, _P, _P, _P, _P, _P, _P,
         _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I64, _I32, _P),
+    # q, k, v, cu_q, cu_k, out, lse, B, H, KVH, Tq, Tk, D, scale, causal,
+    # dtype, stream
+    "ptt_flash_varlen_fwd": (
+        _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I32, _P),
+    # q, k, v, dout, lse, delta, cu_q, cu_k, dk, dv, B, H, KVH, Tq, Tk, D,
+    # scale, causal, dtype, stream
+    "ptt_flash_varlen_bwd_dkdv": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I32, _P),
+    # q, k, v, dout, lse, delta, cu_q, cu_k, dq, B, H, KVH, Tq, Tk, D,
+    # scale, causal, dtype, stream
+    "ptt_flash_varlen_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

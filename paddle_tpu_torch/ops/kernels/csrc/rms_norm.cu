@@ -1,7 +1,9 @@
-// RMSNorm forward for Hopper (sm_90a).
+// RMSNorm and LayerNorm forward for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/kernels/rms_norm.py::_rms_kernel (the Pallas
-// row-tiled RMSNorm forward behind rms_norm()).
+// row-tiled RMSNorm forward behind rms_norm()) and ::_ln_kernel (the
+// LayerNorm forward behind layer_norm_fused(); see layer_norm_kernel
+// below).
 //
 // Computes, per row of x [rows, hidden]:
 //   y = cast((x * rsqrt(mean(x^2) + eps)) * w)
@@ -95,6 +97,81 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// LayerNorm, per row of x [rows, hidden]:
+//   y = cast((x - mean) * rsqrt(var + eps) * w + b),
+// mean and var = mean((x - mean)^2) in float32 (two passes over the row,
+// the reference's order, rms_norm.py:130-139), the weight and bias
+// applied in float32 and one cast last; w and b may each be null. Bound
+// by bytes like RMSNorm; it reads the row three times, the second and
+// third from L1/L2.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const T* __restrict__ b, T* __restrict__ y,
+                      int64_t hidden, float eps) {
+  __shared__ float red[2][32];
+  constexpr int N = ptt::Vec16<T>::N;
+  const T* xr = x + (int64_t)blockIdx.x * hidden;
+  T* yr = y + (int64_t)blockIdx.x * hidden;
+  const int64_t nv = hidden / N;
+
+  float sum = 0.f;
+  if (kVec) {
+    for (int64_t i = threadIdx.x; i < nv; i += blockDim.x) {
+      float f[N];
+      ptt::load16(xr + i * N, f);
+#pragma unroll
+      for (int k = 0; k < N; ++k) sum += f[k];
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hidden; i += blockDim.x)
+      sum += ptt::to_f32(xr[i]);
+  }
+  const float mean = block_sum(sum, red[0]) / (float)hidden;
+
+  float ss = 0.f;
+  if (kVec) {
+    for (int64_t i = threadIdx.x; i < nv; i += blockDim.x) {
+      float f[N];
+      ptt::load16(xr + i * N, f);
+#pragma unroll
+      for (int k = 0; k < N; ++k) ss += (f[k] - mean) * (f[k] - mean);
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hidden; i += blockDim.x) {
+      const float c = ptt::to_f32(xr[i]) - mean;
+      ss += c * c;
+    }
+  }
+  const float inv = rsqrtf(block_sum(ss, red[1]) / (float)hidden + eps);
+
+  if (kVec) {
+    for (int64_t i = threadIdx.x; i < nv; i += blockDim.x) {
+      float fx[N], fw[N], fb[N];
+      ptt::load16(xr + i * N, fx);
+      if (w != nullptr) ptt::load16(w + i * N, fw);
+      if (b != nullptr) ptt::load16(b + i * N, fb);
+      uint4 raw;
+      T* o = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float v = (fx[k] - mean) * inv;
+        if (w != nullptr) v *= fw[k];
+        if (b != nullptr) v += fb[k];
+        o[k] = ptt::from_f32<T>(v);
+      }
+      *reinterpret_cast<uint4*>(yr + i * N) = raw;
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hidden; i += blockDim.x) {
+      float v = (ptt::to_f32(xr[i]) - mean) * inv;
+      if (w != nullptr) v *= ptt::to_f32(w[i]);
+      if (b != nullptr) v += ptt::to_f32(b[i]);
+      yr[i] = ptt::from_f32<T>(v);
+    }
+  }
+}
+
 template <typename T>
 void launch(const void* x, const void* w, void* y, int64_t rows,
             int64_t hidden, float eps, cudaStream_t stream) {
@@ -110,6 +187,25 @@ void launch(const void* x, const void* w, void* y, int64_t rows,
   } else {
     rms_norm_kernel<T, false>
         <<<(unsigned)rows, kThreads, 0, stream>>>(xp, wp, yp, hidden, eps);
+  }
+}
+
+template <typename T>
+void launch_ln(const void* x, const void* w, const void* b, void* y,
+               int64_t rows, int64_t hidden, float eps, cudaStream_t stream) {
+  const bool vec = (hidden % ptt::Vec16<T>::N) == 0 &&
+                   ((uintptr_t)x % 16) == 0 && ((uintptr_t)y % 16) == 0 &&
+                   ((uintptr_t)w % 16) == 0 && ((uintptr_t)b % 16) == 0;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const T* bp = static_cast<const T*>(b);
+  T* yp = static_cast<T*>(y);
+  if (vec) {
+    layer_norm_kernel<T, true><<<(unsigned)rows, kThreads, 0, stream>>>(
+        xp, wp, bp, yp, hidden, eps);
+  } else {
+    layer_norm_kernel<T, false><<<(unsigned)rows, kThreads, 0, stream>>>(
+        xp, wp, bp, yp, hidden, eps);
   }
 }
 
@@ -129,6 +225,27 @@ extern "C" int ptt_rms_norm(const void* x, const void* w, void* y,
       break;
     case ptt::kBFloat16:
       launch<__nv_bfloat16>(x, w, y, rows, hidden, eps, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, y: [rows, hidden] contiguous; w, b: [hidden] or null. Returns the
+// launch's cudaGetLastError() (0 on success).
+extern "C" int ptt_layer_norm(const void* x, const void* w, const void* b,
+                              void* y, int64_t rows, int64_t hidden,
+                              float eps, int dtype, void* stream) {
+  if (rows <= 0 || hidden <= 0) return 0;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kFloat32:
+      launch_ln<float>(x, w, b, y, rows, hidden, eps, s);
+      break;
+    case ptt::kBFloat16:
+      launch_ln<__nv_bfloat16>(x, w, b, y, rows, hidden, eps, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

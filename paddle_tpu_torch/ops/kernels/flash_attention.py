@@ -56,15 +56,15 @@ def _ungrouped(x):
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
 
 
-def _probs(q, k, causal, scale, window, lse=None):
-    """float32 (p, keep, lse): p [B, KVH, G, Sq, Sk] = exp(s - lse) with
-    masked pairs exactly 0; lse [B, KVH, G, Sq] (NO_KEY_LSE on rows that
-    see no key). Given ``lse``, p is recomputed against it."""
-    sq, sk, kvh = q.shape[1], k.shape[1], k.shape[2]
+def _probs(q, k, keep, scale, lse=None):
+    """float32 (p, lse): p [B, KVH, G, Sq, Sk] = exp(s - lse) with pairs
+    outside ``keep`` ([Sq, Sk] bool, or None for no mask) exactly 0; lse
+    [B, KVH, G, Sq] (NO_KEY_LSE on rows that see no key). Given ``lse``,
+    p is recomputed against it."""
+    kvh = k.shape[2]
     qg = _grouped(q.float(), kvh)                       # B KVH G Sq D
     kf = k.float().permute(0, 2, 1, 3)                  # B KVH Sk D
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
-    keep = _keep_mask(sq, sk, causal, window, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     if lse is None:
@@ -77,40 +77,41 @@ def _probs(q, k, causal, scale, window, lse=None):
     return p, lse
 
 
-def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, window=0):
-    """Plain forward in float32 (the arithmetic of the reference's
-    ``_flash_fwd_ref``): returns (out in q's dtype, lse float32
-    [B, H, Sq])."""
-    scale = _scale(q, scale)
-    b, sq, h, d = q.shape
-    kvh = k.shape[2]
-    p, lse = _probs(q, k, causal, scale, window)
+def _fwd_plain(q, k, v, keep, scale):
+    """float32 forward under the mask ``keep``: (out in q's dtype, lse
+    float32 [B, H, Sq])."""
+    b, sq, h, _ = q.shape
+    p, lse = _probs(q, k, keep, scale)
     vf = v.float().permute(0, 2, 1, 3)                  # B KVH Sk D
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
     return (_ungrouped(out).to(q.dtype),
             lse.reshape(b, h, sq).contiguous())
 
 
-def _bwd_plain(q, k, v, do, lse, delta, causal, scale, window):
-    """float32 (p, ds) [B, KVH, G, Sq, Sk] of the backward, the
-    arithmetic of the reference's ``_flash_bwd_chunked``."""
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, window=0):
+    """Plain forward in float32 (the arithmetic of the reference's
+    ``_flash_fwd_ref``): returns (out in q's dtype, lse float32
+    [B, H, Sq])."""
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return _fwd_plain(q, k, v, keep, _scale(q, scale))
+
+
+def _bwd_plain(q, k, v, do, lse, delta, keep, scale):
+    """float32 (p, ds) [B, KVH, G, Sq, Sk] of the backward under the mask
+    ``keep``, the arithmetic of the reference's ``_flash_bwd_chunked``."""
     b, sq, h, _ = q.shape
     kvh = k.shape[2]
     shape = (b, kvh, h // kvh, sq)
-    p, _ = _probs(q, k, causal, _scale(q, scale), window,
-                  lse=lse.float().reshape(shape))
+    p, _ = _probs(q, k, keep, scale, lse=lse.float().reshape(shape))
     dp = torch.einsum("bhgqd,bhkd->bhgqk", _grouped(do.float(), kvh),
                       v.float().permute(0, 2, 1, 3))
-    ds = p * (dp - delta.float().reshape(shape)[..., None]) * _scale(
-        q, scale)
+    ds = p * (dp - delta.float().reshape(shape)[..., None]) * scale
     return p, ds
 
 
-def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal=False,
-                                   scale=None, window=0):
-    """Plain (dk, dv) in float32, cast to k's and v's dtypes. ``delta``
-    is float32 [B, H, Sq] (:func:`_delta`)."""
-    p, ds = _bwd_plain(q, k, v, do, lse, delta, causal, scale, window)
+def _dkdv_plain(q, k, v, do, p, ds):
+    """(dk, dv) from the backward's p and ds, cast to k's and v's
+    dtypes."""
     kvh = k.shape[2]
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, _grouped(do.float(), kvh))
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, _grouped(q.float(), kvh))
@@ -118,13 +119,28 @@ def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal=False,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
-                                 scale=None, window=0):
-    """Plain dq in float32, cast to q's dtype."""
-    _, ds = _bwd_plain(q, k, v, do, lse, delta, causal, scale, window)
+def _dq_plain(q, k, ds):
+    """dq from the backward's ds, cast to q's dtype."""
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds,
                       k.float().permute(0, 2, 1, 3))
     return _ungrouped(dq).to(q.dtype)
+
+
+def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal=False,
+                                   scale=None, window=0):
+    """Plain (dk, dv) in float32, cast to k's and v's dtypes. ``delta``
+    is float32 [B, H, Sq] (:func:`_delta`)."""
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    p, ds = _bwd_plain(q, k, v, do, lse, delta, keep, _scale(q, scale))
+    return _dkdv_plain(q, k, v, do, p, ds)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                 scale=None, window=0):
+    """Plain dq in float32, cast to q's dtype."""
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    _, ds = _bwd_plain(q, k, v, do, lse, delta, keep, _scale(q, scale))
+    return _dq_plain(q, k, ds)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,

@@ -1,6 +1,7 @@
-"""RMSNorm forward: a CUDA kernel for Hopper and its plain PyTorch
-version (the counterpart of the reference's ``ops/kernels/rms_norm.py``;
-the kernel replaces its Pallas ``_rms_kernel``).
+"""RMSNorm and LayerNorm forward: CUDA kernels for Hopper and their plain
+PyTorch versions (the counterpart of the reference's
+``ops/kernels/rms_norm.py``; the kernels replace its Pallas
+``_rms_kernel`` and ``_ln_kernel``).
 
 ``rms_norm`` dispatches on the tensor's device: a CPU tensor takes
 :func:`rms_norm_plain`, a CUDA tensor launches ``csrc/rms_norm.cu`` or
@@ -10,7 +11,12 @@ width is a multiple of 128, the kernel takes any width.
 The gradient is ``_RMSNormFn``: its forward is the same dispatch, its
 backward the closed form of the reference's ``_rms_bwd`` (the XLA vjp of
 ``_rms_ref``, not a Pallas kernel) in float32 torch code, with one cast
-each for dx and dw. ``layer_norm_fused`` waits for a later slice.
+each for dx and dw. ``layer_norm_fused`` is built the same way: its
+forward dispatches between ``csrc/rms_norm.cu``'s LayerNorm kernel and
+:func:`layer_norm_plain` (the reference's ``_ln_ref``; any width, where
+the reference's Pallas path needs a multiple of 128), and
+``_LayerNormFn``'s backward is the closed form of the reference's
+``_ln_bwd`` (an XLA vjp of ``_ln_ref``) in float32 torch code.
 """
 from __future__ import annotations
 
@@ -31,19 +37,26 @@ def rms_norm_plain(x, weight=None, eps=1e-6):
     return y.to(x.dtype)
 
 
+def _row_param(name, what, t, x):
+    """``t`` checked against x's dtype, device and width, contiguous (or
+    None)."""
+    if t is None:
+        return None
+    h = x.shape[-1]
+    if t.device != x.device or t.dtype != x.dtype:
+        raise TypeError(f"{name}: {what} must be {x.dtype} on {x.device}, "
+                        f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != (h,):
+        raise ValueError(
+            f"{name}: {what} shape {tuple(t.shape)} != ({h},)")
+    return t.contiguous()
+
+
 def _rms_norm_cuda(x, weight, eps):
     h = x.shape[-1]
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"rms_norm: unsupported dtype {x.dtype}")
-    if weight is not None:
-        if weight.device != x.device or weight.dtype != x.dtype:
-            raise TypeError(
-                f"rms_norm: weight must be {x.dtype} on {x.device}, got "
-                f"{weight.dtype} on {weight.device}")
-        if tuple(weight.shape) != (h,):
-            raise ValueError(
-                f"rms_norm: weight shape {tuple(weight.shape)} != ({h},)")
-        weight = weight.contiguous()
+    weight = _row_param("rms_norm", "weight", weight, x)
     x2 = x.reshape(-1, h).contiguous()
     y = torch.empty_like(x2)
     if x2.numel():
@@ -105,3 +118,94 @@ def rms_norm(x, weight=None, eps=1e-6):
             x.requires_grad or (weight is not None and weight.requires_grad)):
         return _RMSNormFn.apply(x, weight, eps)
     return _rms_norm_fwd(x, weight, eps)
+
+
+# ----------------------------------------------------------- LayerNorm
+def layer_norm_plain(x, weight=None, bias=None, eps=1e-5):
+    """Reference arithmetic in float32 (``_ln_ref``): ``(x - mean) *
+    rsqrt(var + eps)``, times the weight, plus the bias, then one cast
+    back to ``x``'s dtype."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def _layer_norm_cuda(x, weight, bias, eps):
+    h = x.shape[-1]
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"layer_norm_fused: unsupported dtype {x.dtype}")
+    weight = _row_param("layer_norm_fused", "weight", weight, x)
+    bias = _row_param("layer_norm_fused", "bias", bias, x)
+    x2 = x.reshape(-1, h).contiguous()
+    y = torch.empty_like(x2)
+    if x2.numel():
+        status = _build.library().ptt_layer_norm(
+            x2.data_ptr(),
+            weight.data_ptr() if weight is not None else None,
+            bias.data_ptr() if bias is not None else None,
+            y.data_ptr(), x2.shape[0], h, float(eps),
+            _build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(status, "layer_norm_fused")
+        record_launch("layer_norm_fused")
+    return y.reshape(x.shape)
+
+
+def _layer_norm_fwd(x, weight, bias, eps):
+    if x.device.type == "cuda":
+        return _layer_norm_cuda(x, weight, bias, eps)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"layer_norm_fused: unsupported device {x.device}")
+    return layer_norm_plain(x, weight, bias, eps)
+
+
+def layer_norm_bwd(x, weight, bias, g, eps):
+    """(dx, dw, db) of ``layer_norm_fused`` at x for the cotangent g, in
+    float32 and cast once each: with xhat = (x - mean) * r, r =
+    rsqrt(var + eps) and gw = g * w, dx = r * (gw - mean(gw) - xhat *
+    mean(gw * xhat)), dw = sum over rows of g * xhat, db = sum over rows
+    of g. dw (db) is None without a weight (bias)."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    r = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * r
+    gf = g.float()
+    gw = gf * weight.float() if weight is not None else gf
+    dx = r * (gw - gw.mean(dim=-1, keepdim=True)
+              - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    h = x.shape[-1]
+    dw = db = None
+    if weight is not None:
+        dw = (gf * xhat).reshape(-1, h).sum(0).to(weight.dtype)
+    if bias is not None:
+        db = gf.reshape(-1, h).sum(0).to(bias.dtype)
+    return dx.to(x.dtype), dw, db
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _layer_norm_fwd(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, bias, g, ctx.eps)
+        return dx, dw, db, None
+
+
+def layer_norm_fused(x, weight=None, bias=None, eps=1e-5):
+    """LayerNorm over the last axis. x: [..., H], weight and bias: [H] or
+    None. Differentiable in x, weight and bias when autograd records."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _LayerNormFn.apply(x, weight, bias, eps)
+    return _layer_norm_fwd(x, weight, bias, eps)

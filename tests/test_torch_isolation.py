@@ -30,6 +30,7 @@ def _forbidden(name):
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.testing\n"
             "import paddle_tpu_torch.inference, paddle_tpu_torch.models\n"
+            "import paddle_tpu_torch.ops.kernels.flash_varlen\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -118,6 +119,25 @@ def test_scan_covers_the_training_slice():
         assert f"paddle_tpu_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_varlen_and_layer_norm_slice():
+    """The packed-attention and LayerNorm modules are among the files the
+    AST scan checks, and the CUDA sources include only each other and
+    the toolkit's headers."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("ops/kernels/flash_varlen.py", "ops/kernels/rms_norm.py",
+                "nn/functional/flash_attention.py"):
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    csrc = ROOT / "paddle_tpu_torch" / "ops" / "kernels" / "csrc"
+    local = {p.name for p in csrc.iterdir()}
+    assert {"flash_varlen.cu", "flash_tiles.cuh"} <= local
+    for src in sorted(csrc.iterdir()):
+        for line in src.read_text().splitlines():
+            if line.startswith("#include"):
+                name = line.split()[1]
+                assert name.startswith("<") or name.strip('"') in local, \
+                    f"{src.name}: {line}"
+
+
 @pytest.mark.parametrize("call", [
     lambda: pt.nn.functional.cross_entropy(
         torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True),
@@ -126,7 +146,10 @@ def test_scan_covers_the_training_slice():
         weight=torch.ones(3)),
     lambda: pt.nn.functional.flash_attention(
         *[torch.zeros(1, 4, 2, 64)] * 3, dropout=0.5),
-], ids=["soft_label", "class_weight", "dropout"])
+    lambda: pt.nn.functional.flash_attn_unpadded(
+        *[torch.zeros(4, 2, 64)] * 3, *[torch.tensor([0, 4])] * 2,
+        dropout=0.5),
+], ids=["soft_label", "class_weight", "dropout", "varlen_dropout"])
 def test_unported_training_options_raise(call):
     with pytest.raises(NotImplementedError):
         call()
