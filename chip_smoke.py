@@ -18,9 +18,11 @@ It prints one JSON line per phase:
    (``torch.nn.functional.rms_norm`` and ``layer_norm``,
    ``scaled_dot_product_attention`` forward and its autograd backward,
    ``torch.nn.attention.varlen.varlen_attn`` where it imports; timed
-   only, never used by the port) times and the kernel's bound; also the
-   serving path's fused layer step (``paged_ragged_fused_step``)
-   against the same function built from ``torch.matmul`` and SDPA;
+   only, never used by the port) times and the kernel's bound; the paged
+   attention cases (``ATTN_CASES``) cover the ragged kernel on bf16,
+   float32 and int8 pages and the decode kernel; also the serving
+   path's fused layer step (``paged_ragged_fused_step``) against the
+   same function built from ``torch.matmul`` and SDPA;
 4. ``varlen``: the public ``flash_attn_unpadded`` forward and backward
    through autograd at Qwen2-0.5B's attention width (14 q and 2 kv
    heads of 64, bf16, causal) on one 16384-token pack of documents,
@@ -30,14 +32,18 @@ It prints one JSON line per phase:
    longest;
 5. ``layer_norm``: ``layer_norm_fused`` forward and backward at
    [16384, 768] bf16, with launch counts;
-6. ``serve``: serves 8 requests on Llama-3-8B's published shape (random
-   bf16 weights from the seed) through ``BatchScheduler`` ->
-   ``PagedLlamaAdapter`` -> the paged KV pool, with the kernel launch
-   counters reset just before and read just after, and holds the served
-   logits of two requests against the dense float32 oracle
-   (``paddle_tpu_torch.testing.dense_reference_logits``);
-7. ``profile``: a short serve under ``torch.profiler``: device time by
-   kernel and the device's busy share of the wall;
+6. ``serve``, ``serve_int8``, ``serve_off``, ``serve_off_int8``
+   (``SERVE_RUNS``): serve 8 requests on Llama-3-8B's published shape
+   (random bf16 weights from the seed) through ``BatchScheduler`` ->
+   ``PagedLlamaAdapter`` -> the paged KV pool, with bf16 or int8 pages
+   (the int8 pool sized by ``serve``'s pool bytes) under
+   ``FLAGS_ragged_attention=auto`` or ``off``; each with the kernel
+   launch counters reset just before and read just after, exact launch
+   counts, and the served logits of two requests held against the dense
+   float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``);
+7. ``profile`` and ``profile_int8``: ``serve`` and ``serve_int8`` served
+   again under ``torch.profiler``: device time by kernel class and the
+   device's busy share of the wall;
 8. ``train_check``: Qwen2-0.5B at its published shape (random bf16
    weights from the seed, fused CE head): the loss and every
    parameter's gradient on one 2048-token sequence against the float32
@@ -55,15 +61,18 @@ the per-kernel summary ``{"kernels": [...]}``, and last
 script exits non-zero without the last line. Without CUDA it exits 2
 before doing anything.
 
-Two narrower runs: ``--flash-cases NAMES`` builds the kernels and holds
+Narrower runs: ``--flash-cases NAMES`` builds the kernels and holds
 only those flash and varlen cases (names of ``FLASH_CASES`` and
-``VARLEN_CASES``) against their plain versions; ``--fault-check``
-plants each fault of ``FLASH_FAULTS`` in a copy of the repository and
-fails unless the flash and varlen gates catch every one.
+``VARLEN_CASES``) against their plain versions, ``--attn-cases NAMES``
+those paged attention cases (names of ``ATTN_CASES``);
+``--fault-check`` plants each fault of ``FLASH_FAULTS`` and
+``PAGED_FAULTS`` in a copy of the repository and fails unless the
+gates catch every one (a paged fault only in the kernel it broke).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -85,12 +94,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 _FLASH_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 _VARLEN_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
 _NORM_CU = "paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu"
+_PAGED_CU = "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 KERNELS = {
     "rms_norm": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:32"),
     "layer_norm_fused": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:120"),
     "paged_ragged_attention": (
-        "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
-        "paddle_tpu/ops/kernels/paged_attention.py:351"),
+        _PAGED_CU, "paddle_tpu/ops/kernels/paged_attention.py:351"),
+    "paged_decode_attention": (
+        _PAGED_CU, "paddle_tpu/ops/kernels/paged_attention.py:66"),
     # torch around paged_ragged_attention: no kernel of its own
     "paged_ragged_fused_step": (
         "paddle_tpu_torch/ops/kernels/paged_attention.py",
@@ -257,16 +268,21 @@ def ln_case(n, h, flush, dtype="bfloat16", affine=True):
     }
 
 
-def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize):
-    """Bytes the ragged attention must move and operations it must do,
+def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize,
+              kv_itemsize=None, scales=False):
+    """Bytes the paged attention must move and operations it must do,
     for THESE inputs: the real rows' q read once, the whole output
     written once (padded rows too: they are written as zeros), each K/V
-    row some real row needs read once, and QK^T and PV over the kept
+    row some real row needs read once (``kv_itemsize`` bytes an element,
+    q's by default), with ``scales`` the float32 K and V scale of every
+    page and kv head those rows lie in, and QK^T and PV over the kept
     keys. A real row that sees no key (qpos < 0) averages V over the
-    slots of the pages below seq_len."""
+    slots of the pages below seq_len. The decode kernel is the case
+    T = 1, every q_len 1."""
     b = len(seq_lens)
     if q_lens is None:
         q_lens = [t] * b
+    kv_itemsize = kv_itemsize or itemsize
     nbytes = b * t * h * d * itemsize
     flops = 0
     for s, ql in zip(seq_lens, q_lens):
@@ -275,10 +291,12 @@ def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize):
         nbytes += ql * h * d * itemsize
         qlo = s - ql
         lo = max(0, qlo - window + 1) if window else 0
-        nbytes += (s - lo) * kvh * d * itemsize * 2
+        nbytes += (s - lo) * kvh * d * kv_itemsize * 2
+        if scales:
+            nbytes += ((s - 1) // page - lo // page + 1) * kvh * 4 * 2
         if qlo < 0:
             slots = -(-s // page) * page
-            nbytes += (slots - s) * kvh * d * itemsize
+            nbytes += (slots - s) * kvh * d * kv_itemsize
             flops += -qlo * h * d * slots
         for qpos in range(max(qlo, 0), s):
             keys = qpos + 1 - (max(0, qpos - window + 1) if window else 0)
@@ -286,21 +304,51 @@ def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize):
     return nbytes, flops
 
 
+@contextlib.contextmanager
+def ragged_mode(mode):
+    """``FLAGS_ragged_attention`` set for a block, restored after."""
+    from paddle_tpu_torch.framework.flags import flag, set_flags
+
+    prev = flag("ragged_attention")
+    set_flags({"FLAGS_ragged_attention": mode})
+    try:
+        yield
+    finally:
+        set_flags({"FLAGS_ragged_attention": prev})
+
+
 def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
-              h=32, kvh=8, d=128, page=16, seed=0, dtype="bfloat16"):
+              h=32, kvh=8, d=128, page=16, seed=0, dtype="bfloat16",
+              kv_dtype=None, decode=False):
+    """One paged attention kernel against its plain version: the ragged
+    kernel, or with ``decode`` the decode kernel (``paged_attention``
+    under ``FLAGS_ragged_attention=off``: q (B, H, D), one token a row;
+    ``q_lens`` and ``t`` are then [1] * B and 1). ``kv_dtype="int8"``:
+    random int8 codes with random per-page, per-head scales in [0.005,
+    0.03), the serving path's bf16 q beside them."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.paged_attention import (
-        paged_ragged_attention, paged_ragged_attention_plain)
+        paged_attention, paged_attention_plain, paged_ragged_attention,
+        paged_ragged_attention_plain)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = len(seq_lens)
     dt = torch_dtype(dtype)
+    quant = kv_dtype == "int8"
     q = torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
-    kp = torch.randn(num_pages, page, kvh, d, generator=g,
-                     device="cuda").to(dt)
-    vp = torch.randn(num_pages, page, kvh, d, generator=g,
-                     device="cuda").to(dt)
+    shape = (num_pages, page, kvh, d)
+    if quant:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.empty(num_pages, kvh, device="cuda").uniform_(
+            0.005, 0.03, generator=g) for _ in range(2))
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        kp = torch.randn(*shape, generator=g, device="cuda").to(dt)
+        vp = torch.randn(*shape, generator=g, device="cuda").to(dt)
+        scales = {}
     mp = 1 << (max(1, max(-(-s // page) for s in seq_lens)) - 1).bit_length()
     perm = torch.randperm(num_pages, generator=g, device="cuda")
     tbl = torch.zeros(b, mp, dtype=torch.int32, device="cuda")
@@ -313,13 +361,25 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
     ql = None if q_lens is None else torch.tensor(
         q_lens, dtype=torch.int32, device="cuda")
 
-    def kernel():
-        return paged_ragged_attention(q, kp, vp, tbl, lens, ql,
-                                      window=window)
+    if decode:
+        qd1 = q[:, 0]
 
-    def plain():
-        return paged_ragged_attention_plain(q, kp, vp, tbl, lens, ql,
-                                            window=window)
+        def kernel():
+            with ragged_mode("off"):
+                return paged_attention(qd1, kp, vp, tbl, lens,
+                                       window=window, **scales)[:, None]
+
+        def plain():
+            return paged_attention_plain(qd1, kp, vp, tbl, lens,
+                                         window=window, **scales)[:, None]
+    else:
+        def kernel():
+            return paged_ragged_attention(q, kp, vp, tbl, lens, ql,
+                                          window=window, **scales)
+
+        def plain():
+            return paged_ragged_attention_plain(q, kp, vp, tbl, lens, ql,
+                                                window=window, **scales)
 
     got = kernel()
     torch.cuda.synchronize()
@@ -332,9 +392,14 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
         if pad > 0 and bool((got[i, :pad] != 0).any()):
             pad_zero = False
     # the library yardstick: SDPA over the already-gathered dense K/V of
-    # the same rows with the same boolean mask (gathering not timed)
-    kd = kp[tbl.long()].reshape(b, mp * page, kvh, d).transpose(1, 2)
-    vd = vp[tbl.long()].reshape(b, mp * page, kvh, d).transpose(1, 2)
+    # the same rows (int8 pages dequantized to q's type beforehand) with
+    # the same boolean mask; gathering and dequantizing are not timed
+    kd, vd = (pages[tbl.long()] for pages in (kp, vp))
+    if quant:
+        kd = kd.float() * ks[tbl.long()][:, :, None, :, None]
+        vd = vd.float() * vs[tbl.long()][:, :, None, :, None]
+    kd = kd.to(dt).reshape(b, mp * page, kvh, d).transpose(1, 2)
+    vd = vd.to(dt).reshape(b, mp * page, kvh, d).transpose(1, 2)
     qd = q.transpose(1, 2)
     kpos = torch.arange(mp * page, device="cuda")
     rows = torch.arange(t, device="cuda")
@@ -348,12 +413,14 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
         lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=keep, enable_gqa=True), flush=flush)
     nbytes, flops = attn_work(seq_lens, q_lens, t, h, kvh, d, window,
-                              page, q.element_size())
+                              page, q.element_size(), kp.element_size(),
+                              scales=quant)
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
     return {
         "case": name, "B": b, "T": t, "H": h, "KVH": kvh, "D": d,
         "page_size": page, "max_pages": mp, "window": window,
         "seq_lens": seq_lens, "q_lens": q_lens, "dtype": dtype,
+        "kv_dtype": kv_dtype or dtype,
         "max_abs_err": float(d_err.max()),
         "max_rel_err": float(
             (d_err / ref.float().abs().clamp_min(1e-6)).max()),
@@ -362,8 +429,85 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
         "kernel_ms": cuda_time_ms(kernel, flush=flush),
         "plain_ms": cuda_time_ms(plain, flush=flush),
         "library_ms": library_ms,
+        "library": "SDPA over the gathered pages"
+        + (", dequantized beforehand (not timed)" if quant else ""),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+# the paged attention cases: (kernel, case name, attn_case arguments).
+# DECODE_LENS is the serving batch's decode rows; the decode kernel's
+# cases call paged_attention under FLAGS_ragged_attention=off.
+DECODE_LENS = [1056, 64, 300, 777, 1000, 129, 512, 16]
+_RAGGED = "paged_ragged_attention"
+_DECODE = "paged_decode_attention"
+_D1 = dict(q_lens=[1] * 8, t=1, window=0)
+ATTN_CASES = [
+    (_RAGGED, "decode", dict(seq_lens=DECODE_LENS, seed=1, **_D1)),
+    (_RAGGED, "decode_float32", dict(seq_lens=DECODE_LENS, seed=1,
+                                     dtype="float32", **_D1)),
+    (_RAGGED, "prefill_chunk", dict(seq_lens=[1000], q_lens=[248], t=256,
+                                    window=0, seed=2)),
+    # the serving path's largest bucket: 7 decode rows + one 248-token
+    # prefill chunk in one (8, 256) right-aligned block
+    (_RAGGED, "mixed", dict(seq_lens=[900, 640, 333, 1056, 71, 512, 1001,
+                                      496],
+                            q_lens=[1, 1, 1, 1, 1, 1, 1, 248], t=256,
+                            window=0, seed=3)),
+    (_RAGGED, "seq_len0_rows", dict(seq_lens=[300, 17, 0, 0],
+                                    q_lens=[1, 1, 0, 0], t=1, window=0,
+                                    seed=4)),
+    (_RAGGED, "window", dict(seq_lens=[900, 300, 64, 1000],
+                             q_lens=[64, 1, 64, 30], t=64, window=128,
+                             seed=5)),
+    # q_lens absent and seq_len < T: the leading rows see no key and
+    # average V over the visited pages' slots, as the TPU kernel does
+    (_RAGGED, "no_key_rows", dict(seq_lens=[5, 40, 12, 1], q_lens=None,
+                                  t=16, window=0, seed=6)),
+    # the int8 branch, bf16 q beside int8 pages as on the serving path
+    (_RAGGED, "mixed_int8", dict(seq_lens=[900, 640, 333, 1056, 71, 512,
+                                           1001, 496],
+                                 q_lens=[1, 1, 1, 1, 1, 1, 1, 248], t=256,
+                                 window=0, seed=3, kv_dtype="int8")),
+    (_RAGGED, "prefill_chunk_int8", dict(seq_lens=[1000], q_lens=[248],
+                                         t=256, window=0, seed=2,
+                                         kv_dtype="int8")),
+    (_RAGGED, "window_int8", dict(seq_lens=[900, 300, 64, 1000],
+                                  q_lens=[64, 1, 64, 30], t=64, window=128,
+                                  seed=5, kv_dtype="int8")),
+    (_RAGGED, "no_key_rows_int8", dict(seq_lens=[5, 40, 12, 1],
+                                       q_lens=None, t=16, window=0, seed=6,
+                                       kv_dtype="int8")),
+    # the decode kernel
+    (_DECODE, "decode", dict(seq_lens=DECODE_LENS, seed=1, **_D1)),
+    (_DECODE, "decode_int8", dict(seq_lens=DECODE_LENS, seed=1,
+                                  kv_dtype="int8", **_D1)),
+    (_DECODE, "decode_float32", dict(seq_lens=DECODE_LENS, seed=1,
+                                     dtype="float32", **_D1)),
+    (_DECODE, "decode_seq_len0_rows", dict(seq_lens=[300, 17, 0, 0],
+                                           q_lens=[1] * 4, t=1, window=0,
+                                           seed=4)),
+    # windows of 128 that start mid-page (872, 172, 1, 649, 392) and on
+    # a page edge (928), and rows shorter than the window
+    (_DECODE, "decode_window", dict(seq_lens=[1000, 300, 129, 777, 64, 16,
+                                              520, 1056],
+                                    q_lens=[1] * 8, t=1, window=128,
+                                    seed=5)),
+    # Qwen2-0.5B's heads: 14 q and 2 kv heads of 64 (group 7)
+    (_DECODE, "decode_group7_d64", dict(seq_lens=DECODE_LENS, seed=7, h=14,
+                                        kvh=2, d=64, **_D1)),
+]
+
+
+def attn_cases(flush, names=None):
+    """{kernel name: [case results]} over ATTN_CASES (those in ``names``
+    only, when given)."""
+    out = {_RAGGED: [], _DECODE: []}
+    for kernel, name, kw in ATTN_CASES:
+        if names is None or name in names:
+            out[kernel].append(attn_case(name, flush=flush,
+                                         decode=kernel == _DECODE, **kw))
+    return out
 
 
 def fused_step_case(flush, seq_lens=(900, 640, 333, 1056, 71, 512, 1001,
@@ -980,53 +1124,93 @@ FLASH_FAULTS = [
      "t_hi = hi / BQ;", "t_hi = hi / BQ - 1;",
      ("varlen_train", "varlen_tile_edges")),
 ]
+# faults of the paged attention kernels, each run against the decode
+# kernel's cases and the ragged kernel's int8 cases (``--attn-cases``):
+# (name, source, text, replacement, the one kernel it breaks)
+_PAGED_FAULT_CASES = ("decode", "decode_int8", "decode_float32",
+                      "decode_seq_len0_rows", "decode_window",
+                      "decode_group7_d64", "mixed_int8",
+                      "prefill_chunk_int8", "window_int8",
+                      "no_key_rows_int8")
+PAGED_FAULTS = [
+    ("decode_drops_last_page", _PAGED_CU,
+     "const int kend = min(seq_len, mp * page);",
+     "const int kend = min((seq_len - 1) / page * page, mp * page);",
+     _DECODE),
+    ("decode_int8_scales_v_by_k_scale", _PAGED_CU,
+     "sv[v] = vscale[srow];", "sv[v] = kscale[srow];", _DECODE),
+    ("ragged_int8_scale_of_logical_page", _PAGED_CU,
+     "const int64_t scale_row = (int64_t)pg * kvh_total + kvh;",
+     "const int64_t scale_row = (int64_t)(kpos / page) * kvh_total + kvh;",
+     _RAGGED),
+]
 
 
-def fault_check_phase():
-    """Plants each fault of FLASH_FAULTS in a copy of the repository in a
-    temporary directory, runs its flash cases there (``--flash-cases``,
-    a child process that builds the faulty kernels), and fails unless
-    every fault fails a gate."""
+def _run_with_fault(name, source, old, new, option, cases, phase):
+    """Plants one fault in a copy of the repository in a temporary
+    directory, runs the named cases there (a child process that builds
+    the faulty kernels) and returns the child's ``phase`` line."""
     import shutil
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kernel_fault_")
+    try:
+        tree = os.path.join(tmp, "repo")
+        shutil.copytree(root, tree, ignore=shutil.ignore_patterns(
+            ".git", "_build", "__pycache__"))
+        src = os.path.join(tree, source)
+        with open(src) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to replace occurs "
+                               f"{text.count(old)} times")
+        with open(src, "w") as f:
+            f.write(text.replace(old, new))
+        child = subprocess.run(
+            [sys.executable, os.path.join(tree, "chip_smoke.py"), option,
+             ",".join(cases)],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = next((json.loads(s) for s in child.stdout.splitlines()
+                 if s.startswith(f'{{"phase": "{phase}"')), None)
+    if line is None:
+        raise RuntimeError(f"{name}: the child printed no result "
+                           f"(exit {child.returncode}):\n"
+                           f"{child.stderr[-2000:]}")
+    return line
+
+
+def fault_check_phase():
+    """Plants each fault of FLASH_FAULTS and PAGED_FAULTS in a copy of
+    the repository and runs its cases there; fails unless every fault
+    fails a gate, and a paged fault only in the kernel it broke."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
-        tmp = tempfile.mkdtemp(prefix="flash_fault_")
-        try:
-            tree = os.path.join(tmp, "repo")
-            shutil.copytree(root, tree, ignore=shutil.ignore_patterns(
-                ".git", "_build", "__pycache__"))
-            src = os.path.join(tree, source)
-            with open(src) as f:
-                text = f.read()
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the text to replace occurs "
-                                   f"{text.count(old)} times")
-            with open(src, "w") as f:
-                f.write(text.replace(old, new))
-            child = subprocess.run(
-                [sys.executable, os.path.join(tree, "chip_smoke.py"),
-                 "--flash-cases", ",".join(cases)],
-                cwd=tree, capture_output=True, text=True, timeout=900)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        line = next((json.loads(s) for s in child.stdout.splitlines()
-                     if s.startswith('{"phase": "flash_cases"')), None)
-        if line is None:
-            raise RuntimeError(f"{name}: the child printed no result "
-                               f"(exit {child.returncode}):\n"
-                               f"{child.stderr[-2000:]}")
+        line = _run_with_fault(name, source, old, new, "--flash-cases",
+                               cases, "flash_cases")
         results.append({"fault": name, "failed": line["failed"],
                         "rel_l2_err": {
                             f"{k['name']}:{c['case']}": c["rel_l2_err"]
                             for k in line["kernels"] for c in k["cases"]}})
         if not line["failed"]:
             missed.append(name)
+    for name, source, old, new, broken in PAGED_FAULTS:
+        line = _run_with_fault(name, source, old, new, "--attn-cases",
+                               _PAGED_FAULT_CASES, "attn_cases")
+        results.append({"fault": name, "breaks": broken,
+                        "failed": line["failed"],
+                        "max_abs_err": {
+                            f"{k['name']}:{c['case']}": c["max_abs_err"]
+                            for k in line["kernels"] for c in k["cases"]}})
+        if not line["failed"] or any(
+                not f.startswith(broken + ":") for f in line["failed"]):
+            missed.append(name)
     emit("fault_check", tolerance=FLASH_TOL, faults=results, missed=missed)
     if missed:
-        raise RuntimeError(f"planted faults pass the flash gates: {missed}")
+        raise RuntimeError(f"planted faults pass the gates, or fail a "
+                           f"kernel they did not break: {missed}")
 
 
 def kernels_phase():
@@ -1046,25 +1230,7 @@ def kernels_phase():
            # the training path: Qwen2-0.5B at batch 8 x 2048, and the
            # gradient check's one sequence
            rms_case(16384, 896, flush), rms_case(2048, 896, flush)]
-    decode_lens = [1056, 64, 300, 777, 1000, 129, 512, 16]
-    attn = [
-        attn_case("decode", decode_lens, [1] * 8, 1, 0, flush, seed=1),
-        attn_case("decode_float32", decode_lens, [1] * 8, 1, 0, flush,
-                  seed=1, dtype="float32"),
-        attn_case("prefill_chunk", [1000], [248], 256, 0, flush, seed=2),
-        # the serving path's largest bucket: 7 decode rows + one
-        # 248-token prefill chunk in one (8, 256) right-aligned block
-        attn_case("mixed", [900, 640, 333, 1056, 71, 512, 1001, 496],
-                  [1, 1, 1, 1, 1, 1, 1, 248], 256, 0, flush, seed=3),
-        attn_case("seq_len0_rows", [300, 17, 0, 0], [1, 1, 0, 0], 1, 0,
-                  flush, seed=4),
-        attn_case("window", [900, 300, 64, 1000], [64, 1, 64, 30], 64,
-                  128, flush, seed=5),
-        # q_lens absent and seq_len < T: the leading rows see no key and
-        # average V over the visited pages' slots, as the TPU kernel does
-        attn_case("no_key_rows", [5, 40, 12, 1], None, 16, 0, flush,
-                  seed=6),
-    ]
+    attn = attn_cases(flush)
     # LayerNorm at GPT-2 / BERT-base and BERT-large widths, a wide short
     # block, a width the TPU kernel cannot take, no affine, float32
     ln = [ln_case(16384, 768, flush), ln_case(16384, 1024, flush),
@@ -1075,8 +1241,7 @@ def kernels_phase():
     flash = flash_cases(flush)
     varlen = varlen_cases(flush)
     del flush
-    cases = {"rms_norm": rms, "layer_norm_fused": ln,
-             "paged_ragged_attention": attn,
+    cases = {"rms_norm": rms, "layer_norm_fused": ln, **attn,
              "paged_ragged_fused_step": fused, **flash, **varlen}
     bad = [f"{name}:{c['case']}" for name, cs in cases.items() for c in cs
            if not c["ok"]]
@@ -1238,14 +1403,21 @@ def layer_norm_phase():
 
 
 # ------------------------------------------------------------------ serve
-def serve_phase(seed, layers):
+# the serving runs, all on one model and one traffic: (run, KV pages,
+# FLAGS_ragged_attention). serve_int8 and serve_off_int8 size their int8
+# pool by serve's pool bytes; serve_off keeps serve's 512 bf16 pages.
+SERVE_RUNS = [("serve", None, "auto"), ("serve_int8", "int8", "auto"),
+              ("serve_off", None, "off"), ("serve_off_int8", "int8", "off")]
+SERVE_PAGES = 512
+
+
+def build_server(seed, layers):
+    """Llama-3-8B's published shape (random bf16 weights from ``seed``;
+    ``layers`` cuts its depth, never its width) and the serve traffic's
+    8 prompts: lengths uniform in 64-1024 from ``seed``."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.inference import (BatchScheduler,
-                                            PagedLlamaAdapter, Request)
     from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b
-    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
-    from paddle_tpu_torch.testing import dense_reference_logits
 
     cfg = llama3_8b() if layers is None else llama3_8b(
         num_hidden_layers=layers)
@@ -1254,22 +1426,59 @@ def serve_phase(seed, layers):
                              seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    adapter = PagedLlamaAdapter(model, num_pages=512, page_size=16)
-
-    # served logits of the watched requests, by absolute position
     rng = np.random.RandomState(seed)
     prompt_lens = rng.randint(64, 1025, size=8).tolist()
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in prompt_lens]
+    return model, prompts, init_s
+
+
+def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
+              pool_bytes=None, base=None):
+    """Serves the 8 prompts (32 new tokens each, greedy,
+    ``max_batch_size=8``, ``prefill_chunk_tokens=248``) through
+    ``BatchScheduler`` -> ``PagedLlamaAdapter`` -> the paged KV pool
+    under ``FLAGS_ragged_attention=mode``, with the kernel launch
+    counters reset just before and read just after; checks the launch
+    counts and holds the served logits of two requests against the dense
+    float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``).
+    ``pool_bytes`` sizes the pool by bytes (else 512 pages); ``base``,
+    the ``serve`` run's result, is what top-1 agreement and the pool
+    ratio are read against. Emits the run's line; returns
+    ``(launches, adapter, result)``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+    from paddle_tpu_torch.testing import dense_reference_logits
+
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    if pool_bytes is None:
+        adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES,
+                                    page_size=16,
+                                    kv_cache_dtype=kv_cache_dtype)
+    else:
+        adapter = PagedLlamaAdapter(model, page_size=16,
+                                    kv_cache_dtype=kv_cache_dtype,
+                                    page_pool_bytes=pool_bytes)
+    prompt_lens = [len(p) for p in prompts]
+
+    # served logits of the watched requests, by absolute position, and
+    # the model calls that carry a single-token (decode) row and a
+    # multi-token (prefill) row
     watch = {"r0", "r1"}
     captured = {w: {} for w in watch}
+    row_kinds = {"single": 0, "multi": 0}
     serve_fn = adapter.prefill_chunk
 
     def recording_prefill_chunk(token_ids, seq_ids, start_positions=None,
                                 pad_to=None, logits_rows=None):
         out = serve_fn(token_ids, seq_ids, start_positions,
                        pad_to=pad_to, logits_rows=logits_rows)
+        row_kinds["single"] += any(len(t) == 1 for t in token_ids)
+        row_kinds["multi"] += any(len(t) > 1 for t in token_ids)
         for i, s in enumerate(seq_ids):
             if s in watch:
                 p = int(start_positions[i]) + len(token_ids[i]) - 1
@@ -1277,43 +1486,49 @@ def serve_phase(seed, layers):
         return out
 
     adapter.prefill_chunk = recording_prefill_chunk
+    with ragged_mode(mode):
+        # warm-up: one short request (cuBLAS handles, GEMM heuristics)
+        warm = BatchScheduler(adapter, max_batch_size=8,
+                              prefill_chunk_tokens=248)
+        warm.submit(Request("warm", prompts[0][:16], max_new_tokens=2))
+        warm.run_until_complete()
 
-    # warm-up: one short request (cuBLAS handles and GEMM heuristics)
-    warm = BatchScheduler(adapter, max_batch_size=8,
-                          prefill_chunk_tokens=248)
-    warm.submit(Request("warm", prompts[0][:16], max_new_tokens=2))
-    warm.run_until_complete()
+        sched = BatchScheduler(adapter, max_batch_size=8,
+                               prefill_chunk_tokens=248)
+        # host clock of every generated token (the scheduler reads each
+        # step's logits back to the host before it commits a token, so
+        # this is when the token existed for a client)
+        tok_times = {}
 
-    sched = BatchScheduler(adapter, max_batch_size=8,
-                           prefill_chunk_tokens=248)
-    # host clock of every generated token (the scheduler reads each
-    # step's logits back to the host before it commits a token, so this
-    # is when the token existed for a client)
-    tok_times = {}
+        def on_token(req, tok, is_prompt):
+            if not is_prompt:
+                tok_times.setdefault(req.req_id, []).append(
+                    time.perf_counter())
 
-    def on_token(req, tok, is_prompt):
-        if not is_prompt:
-            tok_times.setdefault(req.req_id, []).append(time.perf_counter())
-
-    for i, p in enumerate(prompts):
-        sched.submit(Request(f"r{i}", p, max_new_tokens=32,
-                             on_token=on_token))
-    calls0 = adapter.chunk_stats["calls"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    steps = []
-    kernel_launch_stats(reset=True)
-    t0 = time.perf_counter()
-    while sched.num_active or sched.num_queued:
-        ts = time.perf_counter()
-        ev = sched.step()
-        steps.append({"ms": (time.perf_counter() - ts) * 1e3,
-                      "prefill": ev["prefill_tokens"],
-                      "decode": ev["decode_tokens"],
-                      "util": ev.get("chunk_utilization")})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_launch_stats(reset=True)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(f"r{i}", p, max_new_tokens=32,
+                                 on_token=on_token))
+        calls0 = adapter.chunk_stats["calls"]
+        for k in row_kinds:
+            row_kinds[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        while sched.num_active or sched.num_queued:
+            ts = time.perf_counter()
+            ev = sched.step()
+            steps.append({"ms": (time.perf_counter() - ts) * 1e3,
+                          "prefill": ev["prefill_tokens"],
+                          "decode": ev["decode_tokens"]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    # back to the class's method: an instance attribute holding the
+    # adapter's own bound method is a reference cycle that would keep a
+    # finished run's pool alive until the next garbage collection
+    del adapter.prefill_chunk
     calls = adapter.chunk_stats["calls"] - calls0
     done = {r: sched.result(r) for r in (f"r{i}" for i in range(8))}
     ttft = sorted((v[0] - t0) * 1e3 for v in tok_times.values())
@@ -1323,22 +1538,36 @@ def serve_phase(seed, layers):
     total = gen + sum(prompt_lens)
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.num_hidden_layers
-    want_attn = n_layers * calls
-    want_rms = (2 * n_layers + 1) * calls
-    problems = []
-    if launches.get("paged_ragged_attention", 0) != want_attn:
-        problems.append(f"ragged attention launches "
-                        f"{launches.get('paged_ragged_attention', 0)} != "
-                        f"{n_layers} x {calls} model calls")
-    if launches.get("rms_norm", 0) != want_rms:
-        problems.append(f"rms_norm launches {launches.get('rms_norm', 0)}"
-                        f" != {2 * n_layers + 1} x {calls} model calls")
+    pool = adapter.caches[0]
+    # exact launch counts: one RMSNorm per layer norm and the final one
+    # per model call; under auto/on one ragged launch per layer and call;
+    # under off one decode launch per layer and call with a decode row,
+    # one ragged launch per layer and call with a multi-token row
+    want = {"rms_norm": (2 * n_layers + 1) * calls}
+    if mode == "off":
+        want["paged_decode_attention"] = n_layers * row_kinds["single"]
+        want["paged_ragged_attention"] = n_layers * row_kinds["multi"]
+    else:
+        want["paged_ragged_attention"] = n_layers * calls
+        want["paged_decode_attention"] = 0
+    problems = [f"{k} launches {launches.get(k, 0)} != {v}"
+                for k, v in want.items() if launches.get(k, 0) != v]
+    kinds = sorted(set().union(*map(set, adapter.attend_kinds_by_bucket
+                                    .values())))
+    want_kinds = {"off": ["decode", "prefill"], "on": ["ragged"],
+                  "auto": ["ragged"] if pool.quantized
+                  else ["ragged_fused"]}[mode]
+    if kinds != want_kinds:
+        problems.append(f"attention kinds {kinds} != {want_kinds}")
+    if kv_cache_dtype == "int8" and pool.k_pages.dtype != torch.int8:
+        problems.append(f"pool pages are {pool.k_pages.dtype}, not int8")
     if any(len(r.generated_ids) != 32 for r in done.values()):
         problems.append("a request did not generate 32 tokens")
 
     # oracle: teacher-forced dense float32 forward over prompt + the
     # generated tokens that were fed back; its logits at each sampled
     # position against the served ones
+    gate = COSINE_GATE if kv_cache_dtype is None else INT8_COSINE_GATE
     oracle = {}
     for rid in sorted(watch):
         r = done[rid]
@@ -1347,10 +1576,10 @@ def serve_phase(seed, layers):
         # and every decode row (mid-prompt chunk ends sample nothing)
         positions = sorted(p for p in captured[rid]
                            if p >= len(r.prompt_ids) - 1)
-        want = list(range(len(r.prompt_ids) - 1, len(seq)))
-        if positions != want:
+        want_pos = list(range(len(r.prompt_ids) - 1, len(seq)))
+        if positions != want_pos:
             problems.append(f"{rid}: captured positions {positions[:3]}.. "
-                            f"!= sampled positions {want[:3]}..")
+                            f"!= sampled positions {want_pos[:3]}..")
             continue
         ref = dense_reference_logits(model, seq, positions=positions)[0]
         served = torch.stack([captured[rid][p] for p in positions])
@@ -1370,23 +1599,36 @@ def serve_phase(seed, layers):
                        "max_abs_logit_err": float(
                            (served - ref).abs().max()),
                        "max_abs_logit": float(ref.abs().max())}
-        if float(cos.min()) < COSINE_GATE:
+        if float(cos.min()) < gate:
             problems.append(f"{rid}: min cosine {float(cos.min()):.6f} "
-                            f"< {COSINE_GATE}")
-    emit("serve", model="llama3_8b", layers=n_layers,
+                            f"< {gate}")
+    streams = {r: d.generated_ids for r, d in done.items()}
+    vs_serve = None
+    if base is not None:
+        same = [a == b for r in streams
+                for a, b in zip(streams[r], base["streams"][r])]
+        vs_serve = {"same_token_share": sum(same) / len(same),
+                    "identical_requests": sum(
+                        streams[r] == base["streams"][r] for r in streams),
+                    "pool_pages_ratio": pool.num_pages / base["num_pages"]}
+    emit(run, model="llama3_8b", layers=n_layers,
          depth_cut=None if layers is None else
          f"{layers} of 32 layers (--layers)",
          hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
          heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
          vocab=cfg.vocab_size, params=n_params, dtype="bfloat16",
-         init_s=init_s, num_pages=512, page_size=16,
+         kv_cache_dtype=kv_cache_dtype or "bfloat16",
+         ragged_attention=mode, init_s=init_s, num_pages=pool.num_pages,
+         page_size=16, page_pool_bytes=pool_bytes,
          kv_pool_bytes=sum(c.pool_nbytes for c in adapter.caches),
          max_batch_size=8, prefill_chunk_tokens=248,
          prompt_lens=prompt_lens, new_tokens=32, steps=len(steps),
-         model_calls=calls, wall_s=wall,
+         model_calls=calls, calls_with_decode_rows=row_kinds["single"],
+         calls_with_prefill_rows=row_kinds["multi"], wall_s=wall,
          generated_tok_per_s=gen / wall, total_tok_per_s=total / wall,
          generated_tokens=gen, prompt_tokens=sum(prompt_lens),
          max_memory_allocated=peak, launches=launches,
+         attention_kinds=kinds,
          ttft_ms={"median": float(np.median(ttft)), "max": ttft[-1],
                   "n": len(ttft)},
          tpot_ms={"median": float(np.median(tpot)),
@@ -1395,16 +1637,46 @@ def serve_phase(seed, layers):
          padded_tokens=sched.chunk_stats["padded_tokens"],
          step_ms=[round(s["ms"], 3) for s in steps],
          step_tokens=[[s["prefill"], s["decode"]] for s in steps],
-         oracle=oracle, cosine_gate=COSINE_GATE, problems=problems)
+         oracle=oracle, cosine_gate=gate, versus_serve=vs_serve,
+         problems=problems)
     if problems:
-        raise RuntimeError("serve phase failed: " + "; ".join(problems))
-    adapter.prefill_chunk = serve_fn
-    return launches, adapter, prompts
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
+    return launches, adapter, {"streams": streams,
+                               "num_pages": pool.num_pages,
+                               "kv_pool_bytes": sum(
+                                   c.pool_nbytes for c in adapter.caches)}
+
+
+def serve_phase(seed, layers):
+    """The four serving runs of SERVE_RUNS on one model, each followed
+    by nothing but its release; ``serve`` and ``serve_int8`` are also
+    served again under the profiler. Returns {run: launches}."""
+    import torch
+
+    model, prompts, init_s = build_server(seed, layers)
+    out, base = {}, None
+    for run, kv, mode in SERVE_RUNS:
+        launches, adapter, result = serve_run(
+            run, model, prompts, init_s, layers, kv, mode,
+            pool_bytes=None if kv is None else base["kv_pool_bytes"],
+            base=base)
+        out[run] = launches
+        if base is None:
+            base = result
+        if run in ("serve", "serve_int8"):
+            with ragged_mode(mode):
+                profile_phase(adapter, prompts,
+                              "profile" if run == "serve"
+                              else "profile_int8")
+        del adapter
+        torch.cuda.empty_cache()
+    return out
 
 
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ragged_kernel", "paged_ragged_attention"),
+                     ("decode_kernel", "paged_decode_attention"),
                      ("rms_norm_kernel", "rms_norm"),
                      ("flash_fwd", "flash_attention_fwd"),
                      ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
@@ -1454,8 +1726,8 @@ def device_summary(prof, wall_us):
                           for us, k, n in rows[:15]]}
 
 
-def profile_phase(adapter, prompts):
-    """Where the serve phase's time goes: the same 8 requests served
+def profile_phase(adapter, prompts, phase="profile"):
+    """Where a serving run's time goes: the same 8 requests served
     again under ``torch.profiler``; reports device time by kernel (GPU
     kernel events only, so no time is counted twice under the op that
     launched it) and the device's busy share of the wall."""
@@ -1477,7 +1749,7 @@ def profile_phase(adapter, prompts):
             steps += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    emit("profile", steps=steps, **device_summary(prof, wall_us))
+    emit(phase, steps=steps, **device_summary(prof, wall_us))
 
 
 # ------------------------------------------------------------------ train
@@ -1664,6 +1936,12 @@ TRAIN_GRAD_COS_GATE = 0.995
 # rounding alone. Top-1 agreement is reported, not gated: random
 # weights give near-ties.
 COSINE_GATE = 0.999
+# The int8 runs' gate: int8 K/V codes add each page's quantization error
+# (up to half a code, 1/254 of the page's absmax per head) to the bf16
+# rounding. On an H100 (700 W) the lowest cosine of the first reading
+# was 0.999724 (serve_int8 and serve_off_int8, 64 positions each), so
+# 0.997 leaves 10x headroom in 1 - cosine, as COSINE_GATE does.
+INT8_COSINE_GATE = 0.997
 
 
 def main(argv=None):
@@ -1675,9 +1953,14 @@ def main(argv=None):
                     help="only build and hold these flash cases "
                     "(comma-separated names of FLASH_CASES and "
                     "VARLEN_CASES) against their plain versions")
+    ap.add_argument("--attn-cases", default=None, metavar="NAMES",
+                    help="only build and hold these paged attention "
+                    "cases (comma-separated names of ATTN_CASES, in "
+                    "whichever kernel has them) against their plain "
+                    "versions")
     ap.add_argument("--fault-check", action="store_true",
-                    help="only show that the flash gates fail each "
-                    "fault of FLASH_FAULTS, planted in a copy")
+                    help="only show that the gates fail each fault of "
+                    "FLASH_FAULTS and PAGED_FAULTS, planted in a copy")
     args = ap.parse_args(argv)
 
     import torch
@@ -1720,14 +2003,24 @@ def main(argv=None):
         emit("flash_cases", failed=bad, kernels=[
             {"name": k, "cases": v} for k, v in flash.items() if v])
         return 1 if bad else 0
+    if args.attn_cases:
+        names = args.attn_cases.split(",")
+        known = {c[1] for c in ATTN_CASES}
+        if set(names) - known:
+            raise ValueError(f"unknown attention cases {set(names) - known}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        attn = attn_cases(flush, names)
+        bad = [f"{k}:{c['case']}" for k, cs in attn.items() for c in cs
+               if not c["ok"]]
+        emit("attn_cases", failed=bad, kernels=[
+            {"name": k, "cases": v} for k, v in attn.items() if v])
+        return 1 if bad else 0
 
     cases = kernels_phase()
     varlen_launches = varlen_phase(args.seed)
     ln_launches = layer_norm_phase()
     torch.cuda.empty_cache()
-    serve_launches, adapter, prompts = serve_phase(args.seed, args.layers)
-    profile_phase(adapter, prompts)
-    del adapter, prompts
+    serve_launches = serve_phase(args.seed, args.layers)
     torch.cuda.empty_cache()
 
     model, opt = build_trainer(args.seed)
@@ -1739,7 +2032,7 @@ def main(argv=None):
     def summary(name, main_case):
         c = next(x for x in cases[name] if x["case"] == main_case)
         by_path = {path: launches[name] for path, launches in
-                   (("serve", serve_launches), ("train", train_launches),
+                   (*serve_launches.items(), ("train", train_launches),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}
@@ -1754,7 +2047,8 @@ def main(argv=None):
 
     kernels = [summary("rms_norm", "rows256"),
                summary("layer_norm_fused", "rows16384_h768"),
-               summary("paged_ragged_attention", "mixed")] + [
+               summary("paged_ragged_attention", "mixed"),
+               summary("paged_decode_attention", "decode")] + [
         summary(name, "train") for name in FLASH] + [
         summary(name, "varlen_train") for name in VARLEN]
     idle = [k["name"] for k in kernels if k["launches"] == 0]

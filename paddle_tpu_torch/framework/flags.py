@@ -55,17 +55,11 @@ def flag(name: str):
 
 
 def ragged_attention_mode() -> str:
-    """``FLAGS_ragged_attention`` as the port serves it: ``auto`` or
-    ``on``. ``off`` selects the legacy dedicated decode kernel, which is
-    not ported yet, so it raises instead of silently serving another
-    lowering."""
+    """``FLAGS_ragged_attention``, checked: ``auto``, ``on`` or ``off``
+    (the legacy two-kernel routing through the dedicated decode
+    kernel)."""
     mode = str(flag("ragged_attention"))
-    if mode == "off":
-        raise NotImplementedError(
-            "FLAGS_ragged_attention=off selects the legacy paged decode "
-            "kernel, which the PyTorch port does not have yet; use "
-            "'auto' or 'on'")
-    if mode not in ("auto", "on"):
+    if mode not in ("auto", "on", "off"):
         raise ValueError(
             f"FLAGS_ragged_attention must be auto|on|off, got {mode!r}")
     return mode
@@ -83,7 +77,9 @@ define_flag("ragged_attention", "auto",
             "eligible (float KV pages, plain projection weights), runs "
             "the fused step (qkv + RoPE + page scatter, the kernel, "
             "o_proj); 'on' forces the unified kernel without the fused "
-            "step; 'off' (the legacy decode kernel) is not ported")
+            "step; 'off' restores the historical two-kernel routing: "
+            "decode rows through the dedicated paged decode kernel, "
+            "prefill rows through the q_lens-masked ragged kernel")
 define_flag("serving_buckets", "8,16,32,64,128,256",
             "comma-separated packed-token buckets for the chunked-"
             "prefill ragged dispatch: the per-step packed token count is "

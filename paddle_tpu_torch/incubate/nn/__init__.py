@@ -1,1 +1,1 @@
-from .paged_cache import PagedKVCacheManager  # noqa: F401
+from .paged_cache import PagedKVCacheManager, paged_attention  # noqa: F401

@@ -1,9 +1,10 @@
 """Incubating fused functionals of the port (counterpart of the
-reference's ``incubate/nn/functional.py``); only the fused linear
-cross-entropy head is ported."""
+reference's ``incubate/nn/functional.py``); the fused linear
+cross-entropy head and paged decode attention are ported."""
 from __future__ import annotations
 
 from ...ops.kernels.fused_loss import fused_linear_cross_entropy as _core
+from .paged_cache import paged_attention  # noqa: F401
 
 
 def fused_linear_cross_entropy(h, w, labels, ignore_index=-100,

@@ -1,5 +1,5 @@
 """Paged KV-cache manager of the port (counterpart of the reference's
-``incubate/nn/paged_cache.py``, float pools only).
+``incubate/nn/paged_cache.py``).
 
 The manager is host-side bookkeeping (a page free list, reference
 counts and per-sequence page tables); the pages are two device tensors
@@ -8,10 +8,19 @@ whose arrays are immutable and rebuilt on every write, the port writes
 the pages IN PLACE (``index_put_``): at Llama-3-8B shapes one layer's K
 and V pages are 33.5 MB.
 
+Int8 pools (``kv_dtype="int8"``) store int8 codes with per-page,
+per-head float32 scale sidecars ``k_scales``/``v_scales``
+``(num_pages, kv_heads)`` (``ops/kernels/quant.py``); the attention
+kernels dequantize after the load. A write grows each written page's
+scale to cover the token, requantizes the page's stored codes by
+``round(q * old/new)`` and stores the token against the new scale, in
+the reference's per-token order, so the pages and scales are the
+reference's bit for bit (:meth:`PagedKVCacheManager._quant_write`).
+
 Not ported yet: ``attach``/copy-on-write and the prefix-cache hooks,
-``HostKVSwapSpace`` and swap, int8 pages with scale sidecars, the page
-sanitizer and telemetry. Without ``attach`` no page is ever shared, so
-every write lands on a page its sequence owns alone.
+``HostKVSwapSpace`` and swap, ``dense_kv``, the page sanitizer and
+telemetry. Without ``attach`` no page is ever shared, so every write
+lands on a page its sequence owns alone.
 """
 from __future__ import annotations
 
@@ -21,12 +30,16 @@ import numpy as np
 import torch
 
 from ...device import copy_to_device, resolve_device
-from ...ops.kernels.paged_attention import (
+from ...ops.kernels.paged_attention import (  # noqa: F401 (re-exported)
+    paged_attention,
+    paged_prefill_attention as _prefill_kernel,
     paged_ragged_attention as _ragged_kernel_fn,
     paged_ragged_fused_step as _fused_step_fn,
 )
+from ...ops.kernels.quant import kv_head_scale, quantize_kv
 
-_KV_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+_KV_DTYPES = {"int8": torch.int8,
+              "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32,
               "fp16": torch.float16, "float16": torch.float16}
 
@@ -36,11 +49,13 @@ class RaggedStepInputs(NamedTuple):
     ragged_step_inputs`): ``slots`` (2, n) int64, the page and slot of
     each of the step's n new tokens in packed order; ``page_table``
     (rows, max_pages), ``seq_lens`` and ``q_lens`` (rows,) int32, the
-    ragged kernel's operands."""
+    attention kernel's operands; for an int8 pool, ``passes``, the
+    write's pass plan (:meth:`PagedKVCacheManager._pass_plan`)."""
     slots: torch.Tensor
     page_table: torch.Tensor
     seq_lens: torch.Tensor
     q_lens: torch.Tensor
+    passes: tuple = None
 
 
 class PagedKVCacheManager:
@@ -56,6 +71,8 @@ class PagedKVCacheManager:
     * ``free(seq_id)`` drops the sequence's references; pages return to
       the pool when their refcount hits zero.
 
+    ``kv_dtype="int8"`` (or ``dtype=torch.int8``) makes an int8 pool
+    with scale sidecars ``k_scales``/``v_scales`` (``quantized``).
     ``device`` defaults to the card and raises without CUDA unless
     ``device="cpu"`` is passed.
     """
@@ -63,25 +80,34 @@ class PagedKVCacheManager:
     def __init__(self, num_pages, page_size, kv_heads, head_dim,
                  dtype=torch.bfloat16, kv_dtype=None, device=None):
         if kv_dtype is not None:
-            if kv_dtype == "int8":
-                raise NotImplementedError(
-                    "int8 KV pages are not ported yet")
             if kv_dtype not in _KV_DTYPES:
                 raise ValueError(
                     f"kv_dtype must be one of {sorted(_KV_DTYPES)}, got "
                     f"{kv_dtype!r}")
             dtype = _KV_DTYPES[kv_dtype]
-        if not dtype.is_floating_point:
-            raise NotImplementedError(
-                f"{dtype} KV pages are not ported yet (float pools only)")
+        if not (dtype.is_floating_point or dtype == torch.int8):
+            raise ValueError(f"KV pages must be float or int8, got {dtype}")
         self.device = resolve_device(device)
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
         self.kv_dtype = str(dtype).replace("torch.", "")
-        self.k_pages = torch.zeros(
-            (self.num_pages, self.page_size, int(kv_heads), int(head_dim)),
-            dtype=dtype, device=self.device)
-        self.v_pages = torch.zeros_like(self.k_pages)
+        self.quantized = dtype == torch.int8
+        shape = (self.num_pages, self.page_size, int(kv_heads),
+                 int(head_dim))
+        if self.quantized:
+            # K and V (and their scales) as the two halves of one tensor,
+            # so that each write pass updates both with one op each
+            self._kv = torch.zeros((2,) + shape, dtype=dtype,
+                                   device=self.device)
+            self.k_pages, self.v_pages = self._kv[0], self._kv[1]
+            self._scales = torch.zeros((2, self.num_pages, int(kv_heads)),
+                                       dtype=torch.float32,
+                                       device=self.device)
+            self.k_scales, self.v_scales = self._scales[0], self._scales[1]
+        else:
+            self.k_pages = torch.zeros(shape, dtype=dtype,
+                                       device=self.device)
+            self.v_pages = torch.zeros_like(self.k_pages)
         self._free = list(range(self.num_pages))[::-1]
         self._tables = {}   # seq_id -> [page ids]
         self._lens = {}     # seq_id -> token count
@@ -123,6 +149,10 @@ class PagedKVCacheManager:
         used = self.num_pages - len(self._free)
         if used > self.peak_used_pages:
             self.peak_used_pages = used
+        if self.quantized:
+            # a drawn page restarts its calibration: the first write
+            # must not inherit a dead page's scales
+            self._scales[:, p] = 0.0
         return p
 
     def seq_len(self, seq_id):
@@ -181,6 +211,41 @@ class PagedKVCacheManager:
                                    pos % self.page_size]))
         return np.concatenate(parts, axis=1)
 
+    @staticmethod
+    def _pass_plan(slot_plan):
+        """The int8 write's pass plan, host int64 (3, n): the token row,
+        page and slot of each write, ordered by pass, and the passes'
+        (start, end) column bounds. Pass k holds the k-th write of this
+        call to every page it touches. Without ``attach`` a page has one
+        writer, whose tokens are consecutive in the packed order, and
+        pages do not interact, so these passes give each page the writes
+        of the reference's waves (the j-th token of every chunk) in the
+        same order: at most ``page_size`` passes instead of
+        ``max(counts)``."""
+        n = slot_plan.shape[1]
+        pages = slot_plan[0]
+        idx = np.arange(n)
+        opens = np.ones(n, bool)
+        opens[1:] = pages[1:] != pages[:-1]
+        k = idx - np.maximum.accumulate(np.where(opens, idx, 0))
+        order = np.argsort(k, kind="stable")
+        ends = np.cumsum(np.bincount(k)) if n else np.zeros(0, np.int64)
+        bounds = tuple(zip([0, *ends[:-1].tolist()], ends.tolist()))
+        return np.stack([order, slot_plan[0][order], slot_plan[1][order]]), \
+            bounds
+
+    def _write_inputs(self, seq_ids, counts):
+        """Device write plan of booked tokens, in one copy: the (2, n)
+        slots and, for an int8 pool, the pass plan."""
+        plan = self._slot_plan(seq_ids, counts)
+        if not self.quantized:
+            slots, = copy_to_device([plan], self.device, torch.int64)
+            return slots, None
+        passes, bounds = self._pass_plan(plan)
+        slots, passes = copy_to_device([plan, passes], self.device,
+                                       torch.int64)
+        return slots, (passes, bounds)
+
     def _write(self, slots, k_toks, v_toks):
         """In-place page write; ``slots`` (2, n) int64 (page, slot) on
         the pool's device."""
@@ -188,6 +253,35 @@ class PagedKVCacheManager:
                                 k_toks.to(self.k_pages.dtype))
         self.v_pages.index_put_((slots[0], slots[1]),
                                 v_toks.to(self.v_pages.dtype))
+
+    def _quant_write(self, passes, k_toks, v_toks):
+        """Quantized write of (n, KVH, D) tokens by the pass plan
+        :meth:`_pass_plan` gives (device (3, n) int64 and host bounds).
+
+        Each pass updates pages it touches once, K and V together: each
+        page's per-head scale grows to cover its token, ``max(old,
+        absmax / 127)``, the page's stored codes are requantized by
+        ``round(q * old/new)``, and the token is quantized against the
+        new scale, the reference's calibration (``_quant_write`` there).
+        The reference requantizes only when some scale of the wave grew,
+        a host sync per wave; here the requantize always runs, with a
+        ratio of exactly 1.0 where a scale did not grow, and
+        ``round(q * 1.0)`` is ``q``, so no host sync is needed and the
+        bits are the same."""
+        plan, bounds = passes
+        toks = torch.stack([k_toks, v_toks]).float()[:, plan[0]]
+        for a, b in bounds:
+            pg, of = plan[1, a:b], plan[2, a:b]
+            x = toks[:, a:b]                             # (2, m, KVH, D)
+            old = self._scales[:, pg]                    # (2, m, KVH)
+            new = torch.maximum(old, kv_head_scale(x, keep_leading=2))
+            ratio = torch.where(new > old, old / new.clamp_min(1e-20), 1.0)
+            body = torch.round(self._kv[:, pg].float()
+                               * ratio[:, :, None, :, None]).to(torch.int8)
+            body[:, torch.arange(b - a, device=self.device), of] = \
+                quantize_kv(x, new)
+            self._kv[:, pg] = body
+            self._scales[:, pg] = new
 
     def append_batch(self, seq_ids, k_toks, v_toks):
         """Write one token's K/V for EVERY listed sequence in one scatter
@@ -209,15 +303,18 @@ class PagedKVCacheManager:
                 f"{k_toks.shape[0]} token rows were passed")
         if step is None:
             self.book_ragged(seq_ids, counts)
-            slots, = copy_to_device([self._slot_plan(seq_ids, counts)],
-                                    self.device, torch.int64)
+            slots, passes = self._write_inputs(seq_ids, counts)
         else:
-            slots = step.slots
+            slots, passes = step.slots, step.passes
             if slots.shape[1] != k_toks.shape[0]:
                 raise ValueError(
                     f"append_ragged: the step books {slots.shape[1]} "
                     f"slots for {k_toks.shape[0]} token rows")
-        if slots.shape[1]:
+        if not slots.shape[1]:
+            return
+        if self.quantized:
+            self._quant_write(passes, k_toks, v_toks)
+        else:
             self._write(slots, k_toks, v_toks)
 
     # -- kernel inputs -----------------------------------------------------
@@ -246,17 +343,33 @@ class PagedKVCacheManager:
         return copy_to_device([tbl, lens, ql], self.device, torch.int32)
 
     def ragged_step_inputs(self, seq_ids, counts, rows_pad=None,
-                           max_pages=None):
+                           max_pages=None, groups=None):
         """The device inputs of one packed step over the listed
         sequences, whose ``counts[i]`` new tokens are booked already
-        (:meth:`book_ragged`): their write slots and the ragged kernel's
-        padded page table, seq_lens and q_lens. Every layer's pool of an
-        adapter goes through the same bookkeeping calls, so one pool's
-        inputs serve all the layers of a step."""
-        slots, = copy_to_device([self._slot_plan(seq_ids, counts)],
-                                self.device, torch.int64)
-        return RaggedStepInputs(slots, *self._attend_inputs(
-            seq_ids, counts, rows_pad, max_pages))
+        (:meth:`book_ragged`): their write plan and the attention
+        kernel's padded page table, seq_lens and q_lens. Every layer's
+        pool of an adapter goes through the same bookkeeping calls, so
+        one pool's inputs serve all the layers of a step.
+
+        ``groups``: ``[(row indices into seq_ids, rows_pad), ...]`` gives
+        a list, one :class:`RaggedStepInputs` per group with the kernel
+        inputs of the group's rows alone (the two-kernel routing of
+        ``FLAGS_ragged_attention=off``), all sharing the write plan of
+        every row and built in the same two copies."""
+        slots, passes = self._write_inputs(seq_ids, counts)
+        if groups is None:
+            return RaggedStepInputs(slots, *self._attend_inputs(
+                seq_ids, counts, rows_pad, max_pages), passes)
+        host = []
+        for rows, pad in groups:
+            tbl, lens = self._padded_kernel_inputs(
+                [seq_ids[i] for i in rows], pad, max_pages)
+            ql = np.zeros(lens.shape, np.int32)
+            ql[:len(rows)] = [int(counts[i]) for i in rows]
+            host += [tbl, lens, ql]
+        dev = copy_to_device(host, self.device, torch.int32)
+        return [RaggedStepInputs(slots, *dev[3 * g:3 * g + 3], passes)
+                for g in range(len(groups))]
 
     def page_table(self, seq_ids, max_pages=None):
         tbl, _ = self._padded_kernel_inputs(seq_ids, len(seq_ids), max_pages)
@@ -266,12 +379,56 @@ class PagedKVCacheManager:
         return torch.tensor([self._lens[s] for s in seq_ids],
                             dtype=torch.int32, device=self.device)
 
-    def attend(self, q, seq_ids, sm_scale=None, window=0):
-        """q: (B, H, D), one decode token per listed sequence, through
-        the unified ragged kernel at T=1. ``window`` > 0: sliding-window
-        attention over the last ``window`` cached tokens."""
-        return self.attend_ragged(q[:, None], seq_ids, [1] * len(seq_ids),
-                                  sm_scale=sm_scale, window=window)[:, 0]
+    @property
+    def _scale_args(self):
+        """The attention kernels' ``k_scales``/``v_scales`` keywords."""
+        if self.quantized:
+            return {"k_scales": self.k_scales, "v_scales": self.v_scales}
+        return {}
+
+    def attend(self, q, seq_ids, sm_scale=None, window=0, step=None):
+        """q: (B, H, D), one decode token per listed sequence.
+        ``window`` > 0: sliding-window attention over the last
+        ``window`` cached tokens. Through :func:`paged_attention`: the
+        ragged kernel at T=1, or under ``FLAGS_ragged_attention=off`` the
+        decode kernel; ``step`` carries the kernel's inputs when the
+        caller built them."""
+        return self.attend_padded(q, seq_ids, sm_scale=sm_scale,
+                                  window=window, step=step)
+
+    def attend_padded(self, q, seq_ids, rows_pad=None, max_pages=None,
+                      sm_scale=None, window=0, step=None):
+        """Decode attend over a row/column-padded batch: ``q`` is
+        (rows_pad, H, D) whose first ``len(seq_ids)`` rows are real
+        decode tokens; padding rows return exact zeros. ``max_pages``
+        pads the page-table width. ``step`` carries the page table and
+        seq_lens when the caller built them (:meth:`ragged_step_inputs`).
+        """
+        if step is None:
+            tbl, lens = copy_to_device(
+                self._padded_kernel_inputs(seq_ids, rows_pad, max_pages),
+                self.device, torch.int32)
+        else:
+            tbl, lens = step.page_table, step.seq_lens
+        return paged_attention(q, self.k_pages, self.v_pages, tbl, lens,
+                               sm_scale=sm_scale, window=window,
+                               **self._scale_args)
+
+    def attend_prefill(self, q, seq_ids, q_lens, rows_pad=None,
+                       max_pages=None, sm_scale=None, window=0, step=None):
+        """Chunked-prefill attend over a padded ragged batch: ``q`` is
+        (rows_pad, T, H, D); row i's last ``q_lens[i]`` rows are the
+        newest tokens of seq_ids[i] (K/V already appended); earlier rows
+        and batch-padding rows return exact zeros. The ragged kernel,
+        as the reference's alias of :meth:`attend_ragged`."""
+        if step is None:
+            tbl, lens, ql = self._attend_inputs(seq_ids, q_lens, rows_pad,
+                                                max_pages)
+        else:
+            tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
+        return _prefill_kernel(q, self.k_pages, self.v_pages, tbl, lens,
+                               sm_scale=sm_scale, window=window, q_lens=ql,
+                               **self._scale_args)
 
     def attend_ragged(self, q, seq_ids, q_lens, rows_pad=None,
                       max_pages=None, sm_scale=None, window=0, step=None):
@@ -287,7 +444,8 @@ class PagedKVCacheManager:
         else:
             tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
         return _ragged_kernel_fn(q, self.k_pages, self.v_pages, tbl, lens,
-                                 q_lens=ql, sm_scale=sm_scale, window=window)
+                                 q_lens=ql, sm_scale=sm_scale, window=window,
+                                 **self._scale_args)
 
     def fused_ragged_step(self, x, weights, rope, positions, seq_ids,
                           counts, gather_map, scatter_plan,
@@ -308,7 +466,13 @@ class PagedKVCacheManager:
         each row; ``scatter_plan`` = (rows, cols, flat) of the real-token
         length, or the reference's plans padded to n_pad (only their
         real leading entries are read). Returns the o_proj output
-        (n_pad, E)."""
+        (n_pad, E). Float pools only: an int8 pool calibrates each page
+        per token, which the fused step does not express (use
+        :meth:`append_ragged` + :meth:`attend_ragged`)."""
+        if self.quantized:
+            raise ValueError(
+                "fused_ragged_step: int8 KV pools calibrate per token; "
+                "use append_ragged + attend_ragged")
         counts = [int(c) for c in counts]
         n_pad = x.shape[0]
         n_real = sum(counts)
@@ -344,15 +508,16 @@ class PagedKVCacheManager:
     @staticmethod
     def page_bytes(page_size, kv_heads, head_dim, dtype=torch.bfloat16,
                    kv_dtype=None) -> int:
-        """Device bytes one page costs (K + V payload) — pure
-        arithmetic, usable for pool sizing before allocating."""
+        """Device bytes one page costs (K + V payload plus, when
+        quantized, its two float32 scale rows) — pure arithmetic, usable
+        for pool sizing before allocating."""
         if kv_dtype is not None:
-            if kv_dtype == "int8":
-                raise NotImplementedError(
-                    "int8 KV pages are not ported yet")
             dtype = _KV_DTYPES[kv_dtype]
         itemsize = torch.empty((), dtype=dtype).element_size()
-        return page_size * kv_heads * head_dim * itemsize * 2
+        per = page_size * kv_heads * head_dim * itemsize * 2
+        if dtype == torch.int8:
+            per += kv_heads * 4 * 2
+        return per
 
     @property
     def page_nbytes(self) -> int:
@@ -363,3 +528,4 @@ class PagedKVCacheManager:
     @property
     def pool_nbytes(self) -> int:
         return self.page_nbytes * self.num_pages
+

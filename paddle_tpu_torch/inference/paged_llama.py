@@ -9,8 +9,13 @@ copy): embed -> per layer (rms_norm kernel -> qkv -> RoPE at each
 token's own position -> paged append + the ragged attention kernel ->
 o_proj -> mlp) -> final norm -> LM head.
 
-Not ported yet: ``decode_window`` (legacy speculative verify), the
-``FLAGS_ragged_attention=off`` two-kernel routing, int8 KV pages,
+``kv_cache_dtype="int8"`` serves from int8 pages with per-page, per-head
+scales (half the page bytes, so a byte budget holds about twice the
+sequences). ``FLAGS_ragged_attention=off`` takes the historical
+two-kernel routing: decode rows through the dedicated paged decode
+kernel, prefill rows through the q_lens-masked ragged kernel.
+
+Not ported yet: ``decode_window`` (legacy speculative verify),
 weight-only quantized serving, the prefix-cache and swap hooks.
 """
 from __future__ import annotations
@@ -54,7 +59,8 @@ def _right_align_plan(row_indices, starts, counts, t_pad, rows_pad):
 class PagedLlamaAdapter:
     """Serve a LlamaForCausalLM from a paged KV pool on the model's
     device. ``num_pages`` x ``page_size`` tokens per layer (or
-    ``page_pool_bytes`` to size the pool by bytes); ``max_length``
+    ``page_pool_bytes`` to size the pool by bytes: at a fixed budget an
+    int8 ``kv_cache_dtype`` changes capacity, not spend); ``max_length``
     bounds RoPE positions."""
 
     def __init__(self, model, num_pages=256, page_size=16,
@@ -63,8 +69,6 @@ class PagedLlamaAdapter:
         if weight_dtype is not None:
             raise NotImplementedError(
                 "weight-only quantized serving is not ported yet")
-        if kv_cache_dtype == "int8":
-            raise NotImplementedError("int8 KV pages are not ported yet")
         if sanitizer not in (None, "off"):
             raise NotImplementedError(
                 "the page sanitizer is not ported yet")
@@ -101,9 +105,11 @@ class PagedLlamaAdapter:
         # chunked-prefill dispatch accounting: _dispatch_shapes holds the
         # distinct bucketed packed token counts prefill_chunk was fed;
         # _kernel_shapes the (kind, rows, T, max_pages[, bucket])
-        # signatures of the padded attention calls underneath
+        # signatures of the padded attention calls underneath, and
+        # _bucket_programs those signatures by bucket
         self._dispatch_shapes = set()
         self._kernel_shapes = set()
+        self._bucket_programs = {}
         self._fused_ok = None
         self.chunk_stats = {"calls": 0, "packed_tokens": 0,
                             "padded_tokens": 0, "attend_calls": 0}
@@ -117,16 +123,31 @@ class PagedLlamaAdapter:
 
     @property
     def attend_program_count(self) -> int:
-        """Distinct padded attention-call signatures of the packed
-        step."""
+        """Distinct padded attention-call signatures of the packed step:
+        one per packed config under ``auto``/``on``, a decode and a
+        prefill one for a mixed config under ``off``."""
         return len(self._kernel_shapes)
 
+    @property
+    def attend_kinds_by_bucket(self) -> dict:
+        """Per packed bucket (pad_to): the sorted attention kernel kinds
+        its steps launched — ``['ragged']`` or ``['ragged_fused']`` under
+        the unified routing, ``['decode', 'prefill']`` on a mixed bucket
+        under ``off``."""
+        return {b: sorted({k for k, *_ in shapes})
+                for b, shapes in self._bucket_programs.items()}
+
+    def _note_program(self, pad_to, shape):
+        self._kernel_shapes.add(shape)
+        self._bucket_programs.setdefault(pad_to, set()).add(shape)
+
     def _fusion_eligible(self) -> bool:
-        """Fused-step gate, computed once: the fused step consumes raw
+        """Fused-step gate, computed once: the fused step writes float
+        pages (an int8 pool calibrates per token) and consumes raw
         [in, out] q/k/v/o weights, so q/k/v biases must be all-or-none
         and o_proj bias-free."""
         if self._fused_ok is None:
-            ok = True
+            ok = not self.caches[0].quantized
             for layer in self.model.model.layers:
                 att = layer.self_attn
                 has = [p.bias is not None
@@ -159,17 +180,21 @@ class PagedLlamaAdapter:
                 f"{self.max_length}; positions beyond it cannot be "
                 "rotary-encoded")
 
-    def _book_step(self, seq_ids, counts, rows_pad=None, max_pages=None):
+    def _book_step(self, seq_ids, counts, rows_pad=None, max_pages=None,
+                   groups=None):
         """Book one step's new tokens in every layer's pool, then build
-        the step's device inputs ONCE for all layers. Every pool goes
-        through the same alloc/append/free calls, so their page tables
-        agree; the pages each draws are checked to be the same."""
+        the step's device inputs ONCE for all layers (per row group with
+        ``groups``, :meth:`PagedKVCacheManager.ragged_step_inputs`).
+        Every pool goes through the same alloc/append/free calls, so
+        their page tables agree; the pages each draws are checked to be
+        the same."""
         drawn = self.caches[0].book_ragged(seq_ids, counts)
         for c in self.caches[1:]:
             if c.book_ragged(seq_ids, counts) != drawn:
                 raise AssertionError("the layers' KV page pools diverged")
         return self.caches[0].ragged_step_inputs(
-            seq_ids, counts, rows_pad=rows_pad, max_pages=max_pages)
+            seq_ids, counts, rows_pad=rows_pad, max_pages=max_pages,
+            groups=groups)
 
     @torch.inference_mode()
     def decode_token(self, token_ids, seq_ids):
@@ -197,8 +222,8 @@ class PagedLlamaAdapter:
             cache = self.caches[li]
             cache.append_ragged(seq_ids, [1] * b, kh[:, 0], vh[:, 0],
                                 step=step)
-            attn = cache.attend_ragged(qh, seq_ids, [1] * b,
-                                       window=self._window, step=step)
+            attn = cache.attend(qh[:, 0], seq_ids, window=self._window,
+                                step=step)
             x = x + att.o_proj(attn.reshape(b, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.model._head(self.model.model.norm(x))
@@ -223,8 +248,11 @@ class PagedLlamaAdapter:
         kernel call per layer for the whole mixed batch, rows
         right-aligned, padded to power-of-two row/length/page-table
         shapes. Under ``FLAGS_ragged_attention=auto`` the layer step is
-        the fused one (qkv + RoPE + page writes, the kernel, o_proj);
-        ``on`` runs the same kernel unfused."""
+        the fused one (qkv + RoPE + page writes, the kernel, o_proj)
+        where the pool is float; ``on`` runs the same kernel unfused;
+        ``off`` routes decode rows through the decode kernel and prefill
+        rows through the ragged kernel, two calls per layer
+        (:meth:`_attend_rows_two_kernel`)."""
         mode = ragged_attention_mode()
         cfg = self.cfg
         b = len(seq_ids)
@@ -271,33 +299,74 @@ class PagedLlamaAdapter:
         page_size = self.caches[0].page_size
         mp_pad = _pow2(max(-(-(n + c) // page_size)
                            for n, c in zip(lens0, counts)))
-        # ONE right-aligned ragged block for EVERY row: decode rows are
-        # q_lens=1 rows of the same kernel call
-        t_pad = _pow2(max(counts))
-        b_pad = _pow2(b)
-        gm, mr, mc, m_flat = _right_align_plan(
-            range(b), starts, counts, t_pad, b_pad)
-        fuse = mode == "auto" and self._fusion_eligible()
-        shape = ("ragged_fused", b_pad, t_pad, mp_pad, pad_to) \
-            if fuse else ("ragged", b_pad, t_pad, mp_pad)
-        self._kernel_shapes.add(shape)
         # the step's plans go over in one copy, its pool inputs in one
         # more, and every layer reuses them
-        host = [flat, pos_np, gm, np.stack([mr, mc, m_flat]), last_idx]
+        host = [flat, pos_np, last_idx]
         if logits_rows is not None:
             host.append(_packed_position_index(starts, counts, logits_rows))
-        ids, pos, gm_d, sc, last_d, *vidx = copy_to_device(
-            host, self.device, torch.int64)
-        step = self._book_step(seq_ids, counts, rows_pad=b_pad,
-                               max_pages=mp_pad)
+        fuse = False
+        if mode != "off":
+            # ONE right-aligned ragged block for EVERY row: decode rows
+            # are q_lens=1 rows of the same kernel call
+            t_pad = _pow2(max(counts))
+            b_pad = _pow2(b)
+            gm, mr, mc, m_flat = _right_align_plan(
+                range(b), starts, counts, t_pad, b_pad)
+            fuse = mode == "auto" and self._fusion_eligible()
+            self._note_program(pad_to, ("ragged_fused", b_pad, t_pad,
+                                        mp_pad, pad_to) if fuse else
+                               ("ragged", b_pad, t_pad, mp_pad))
+            host += [gm, np.stack([mr, mc, m_flat])]
+            groups = [(range(b), b_pad)]
+        else:
+            # the historical routing: single-token rows through the
+            # decode kernel, multi-token rows right-aligned through the
+            # ragged kernel
+            singles = [i for i, c in enumerate(counts) if c == 1]
+            multis = [i for i, c in enumerate(counts) if c > 1]
+            groups = []
+            if singles:
+                bs_pad = _pow2(len(singles))
+                self._note_program(pad_to, ("decode", bs_pad, 1, mp_pad))
+                host.append(np.concatenate([
+                    last_idx[singles],
+                    np.zeros(bs_pad - len(singles), np.int64)]))
+                groups.append((singles, bs_pad))
+            if multis:
+                t_pad = _pow2(max(counts[i] for i in multis))
+                bm_pad = _pow2(len(multis))
+                gm, mr, mc, m_flat = _right_align_plan(
+                    multis, starts, counts, t_pad, bm_pad)
+                self._note_program(pad_to, ("prefill", bm_pad, t_pad,
+                                            mp_pad))
+                host += [gm, np.stack([mr, mc, m_flat])]
+                groups.append((multis, bm_pad))
+        ids, pos, last_d, *rest = copy_to_device(host, self.device,
+                                                 torch.int64)
+        vidx = rest.pop(0) if logits_rows is not None else None
+        steps = self._book_step(seq_ids, counts, max_pages=mp_pad,
+                                groups=groups)
+        step = steps[0]  # its write plan covers every row
+        if mode != "off":
+            gm_d, sc = rest
+        else:
+            # (kind, device plan, sequences, q_lens, kernel inputs)
+            plans = []
+            for (rows, _), st in zip(groups, steps):
+                seqs = [seq_ids[i] for i in rows]
+                if counts[rows[0]] == 1:
+                    plans.append(("decode", rest.pop(0), seqs, None, st))
+                else:
+                    plans.append(("prefill", (rest.pop(0), rest.pop(0)),
+                                  seqs, [counts[i] for i in rows], st))
 
         x = self.model.model.embed_tokens(ids)              # (N, E)
         for li, layer in enumerate(self.model.model.layers):
             cache = self.caches[li]
             att = layer.self_attn
             xi = layer.input_layernorm(x)
-            self.chunk_stats["attend_calls"] += 1
             if fuse:
+                self.chunk_stats["attend_calls"] += 1
                 biases = None
                 if att.q_proj.bias is not None:
                     biases = (att.q_proj.bias, att.k_proj.bias,
@@ -319,16 +388,38 @@ class PagedLlamaAdapter:
                                       position_ids=pos)[0]
                 cache.append_ragged(seq_ids, counts, kh[:n_real],
                                     vh[:n_real], step=step)
-                out = cache.attend_ragged(
-                    qh[gm_d], seq_ids, counts, window=self._window,
-                    step=step)
                 attn = torch.zeros((pad_to, nh, hd), dtype=qh.dtype,
                                    device=self.device)
-                attn[sc[2]] = out[sc[0], sc[1]]
+                if mode != "off":
+                    self.chunk_stats["attend_calls"] += 1
+                    out = cache.attend_ragged(
+                        qh[gm_d], seq_ids, counts, window=self._window,
+                        step=step)
+                    attn[sc[2]] = out[sc[0], sc[1]]
+                else:
+                    self._attend_rows_two_kernel(cache, qh, attn, plans)
                 x = x + att.o_proj(attn.reshape(pad_to, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         last = self.model._head(self.model.model.norm(x[last_d]))
         if logits_rows is None:
             return last
-        full = self.model._head(self.model.model.norm(x[vidx[0]]))
+        full = self.model._head(self.model.model.norm(x[vidx]))
         return last, full
+
+    def _attend_rows_two_kernel(self, cache, qh, attn, plans):
+        """``FLAGS_ragged_attention=off``: decode rows through the decode
+        kernel (:meth:`PagedKVCacheManager.attend_padded`), prefill rows
+        right-aligned through the ragged kernel
+        (:meth:`PagedKVCacheManager.attend_prefill`), each written into
+        ``attn`` (pad_to, H, D) at its packed rows."""
+        for kind, idx, seqs, q_lens, step in plans:
+            self.chunk_stats["attend_calls"] += 1
+            if kind == "decode":
+                out = cache.attend_padded(qh[idx], seqs,
+                                          window=self._window, step=step)
+                attn[idx[:len(seqs)]] = out[:len(seqs)]
+            else:
+                gm, sc = idx
+                out = cache.attend_prefill(qh[gm], seqs, q_lens,
+                                           window=self._window, step=step)
+                attn[sc[2]] = out[sc[0], sc[1]]

@@ -32,8 +32,8 @@ def kernel_launch_stats(reset: bool = False) -> dict:
     'flash_attention_fwd': ..., 'flash_attention_bwd_dkdv': ...,
     'flash_attention_bwd_dq': ..., 'flash_varlen_fwd': ...,
     'flash_varlen_bwd_dkdv': ..., 'flash_varlen_bwd_dq': ...,
-    'layer_norm_fused': ...}`` — CUDA kernel launches since the last
-    reset."""
+    'layer_norm_fused': ..., 'paged_decode_attention': ...}`` — CUDA
+    kernel launches since the last reset."""
     out = dict(_LAUNCHES)
     if reset:
         _LAUNCHES.clear()
@@ -50,7 +50,16 @@ from .rope import apply_rotary_emb, build_rope_cache  # noqa: E402,F401
 from .paged_attention import (  # noqa: E402,F401
     packed_position_index,
     pad_plan_i32,
+    paged_attention,
+    paged_attention_plain,
+    paged_prefill_attention,
     paged_ragged_attention,
     paged_ragged_attention_plain,
     paged_ragged_fused_step,
+)
+from .quant import (  # noqa: E402,F401
+    INT8_QMAX,
+    dequantize_kv,
+    kv_head_scale,
+    quantize_kv,
 )

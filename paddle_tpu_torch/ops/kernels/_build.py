@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
 
-# dtype codes of the C entry points (csrc/common.cuh, ptt::DType)
+# dtype codes of the C entry points (csrc/common.cuh, ptt::DType): the
+# compute types, and the KV page types (those, or int8 codes)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 2}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -47,12 +49,19 @@ _SIGNATURES = {
     "ptt_rms_norm": (_P, _P, _P, _I64, _I64, _F32, _I32, _P),
     # x, w, b, y, rows, hidden, eps, dtype, stream
     "ptt_layer_norm": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _P),
-    # q, k_pages, v_pages, page_table, seq_lens, q_lens, out,
-    # B, T, H, KVH, D, NP, P, MP, scale, window, dtype, stream
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
+    # q_lens, out, B, T, H, KVH, D, NP, P, MP, scale, window, dtype,
+    # kv_dtype, stream
     "ptt_paged_ragged_attention": (
-        _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-        _F32, _I64, _I32, _P),
+        _F32, _I64, _I32, _I32, _P),
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens, out,
+    # B, H, KVH, D, NP, P, MP, scale, window, dtype, kv_dtype, stream
+    "ptt_paged_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _F32, _I64, _I32, _I32, _P),
     # q, k, v, out, lse, B, H, KVH, Sq, Sk, D, scale, causal, window,
     # dtype, stream
     "ptt_flash_fwd": (

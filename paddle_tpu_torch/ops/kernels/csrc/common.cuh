@@ -1,6 +1,6 @@
 // Shared device helpers of the port's CUDA kernels: conversions between
-// the storage types (float, bfloat16) and float32, 16-byte vector
-// loads, and warp reductions.
+// the storage types (float, bfloat16, and int8 for quantized KV pages)
+// and float32, 16-byte vector loads, and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,12 +10,14 @@
 namespace ptt {
 
 // dtype codes shared with the Python wrappers
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// an int8 KV code, before its page's scale multiplies it
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);

@@ -1,7 +1,7 @@
-"""Unified ragged paged attention: a CUDA kernel for Hopper and its
-plain PyTorch version (the counterpart of the reference's
-``ops/kernels/paged_attention.py``; the kernel replaces its Pallas
-``_ragged_kernel``).
+"""Paged attention: CUDA kernels for Hopper and their plain PyTorch
+versions (the counterpart of the reference's
+``ops/kernels/paged_attention.py``): the unified ragged kernel replaces
+its Pallas ``_ragged_kernel``, the decode kernel its ``_decode_kernel``.
 
 * The KV cache lives in device memory as fixed-size pages
   ``(num_pages, page_size, kv_heads, head_dim)``;
@@ -13,11 +13,16 @@ plain PyTorch version (the counterpart of the reference's
   ``seq_lens[b] - T + r``; padded leading rows return exact zeros.
 
 GQA maps q head h to kv head h // (H // KVH); K/V are never repeated.
-:func:`paged_ragged_attention` dispatches on the tensor's device: a CPU
-tensor takes :func:`paged_ragged_attention_plain`, a CUDA tensor
-launches ``csrc/paged_attention.cu`` or raises. Int8 pages (the
-reference's ``k_scales``/``v_scales``) and the legacy ``_decode_kernel``
-are not ported yet.
+Int8 pages carry per-page, per-kv-head float32 scales ``k_scales`` /
+``v_scales`` (NP, KVH) (``quant.py``); the kernels dequantize right
+after the load. Each entry dispatches on the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor launches
+``csrc/paged_attention.cu`` or raises.
+
+:func:`paged_attention` is the decode entry, one token per sequence.
+Under ``FLAGS_ragged_attention=auto|on`` it is the ragged kernel at T=1;
+under ``off`` it is the dedicated decode kernel (the historical
+two-kernel routing, kept for A/B against the unified path).
 
 :func:`paged_ragged_fused_step` is one packed attention layer step:
 qkv projection + RoPE + the K/V page scatter, the ragged kernel, then
@@ -33,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from ...framework.flags import ragged_attention_mode
 from . import _build, record_launch
 from .rope import apply_rotary_emb
 
@@ -44,12 +50,38 @@ def _scale(sm_scale, d):
     return float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
 
 
+def _check_scales(name, k_pages, k_scales, v_scales):
+    """The reference's pairing rule, and int8 pages exactly when scales
+    are given (raw int8 codes attended without them are meaningless)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: pass both k_scales and v_scales or "
+                         "neither")
+    if (k_pages.dtype == torch.int8) != (k_scales is not None):
+        raise ValueError(
+            f"{name}: int8 pages need k_scales/v_scales and float pages "
+            f"take none (pages {k_pages.dtype}, scales "
+            f"{'given' if k_scales is not None else 'absent'})")
+
+
+def _gather_kv(pages, scales, tbl):
+    """(B, MP * P, KVH, D) float32 keys or values of each row's pages,
+    int8 codes multiplied by their page's scales."""
+    b, mp = tbl.shape
+    _, page_size, kvh, d = pages.shape
+    out = pages[tbl].float()                           # (B, MP, P, KVH, D)
+    if scales is not None:
+        out = out * scales.float()[tbl][:, :, None, :, None]
+    return out.reshape(b, mp * page_size, kvh, d)
+
+
 def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
                                  seq_lens, q_lens=None, sm_scale=None,
-                                 window=0):
-    """Gather each sequence's pages, then one dense masked softmax in
-    float32. Same contract as :func:`paged_ragged_attention`; returns
-    (B, T, H, D) in q's dtype."""
+                                 window=0, k_scales=None, v_scales=None):
+    """Gather each sequence's pages (dequantized when scales are given),
+    then one dense masked softmax in float32. Same contract as
+    :func:`paged_ragged_attention`; returns (B, T, H, D) in q's
+    dtype."""
+    _check_scales("paged_ragged_attention", k_pages, k_scales, v_scales)
     b, t, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     group = h // kvh
@@ -57,8 +89,8 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
     scale = _scale(sm_scale, d)
     tbl = page_table.long()
     lens = seq_lens.long()
-    kd = k_pages[tbl].reshape(b, mp * page_size, kvh, d).float()
-    vd = v_pages[tbl].reshape(b, mp * page_size, kvh, d).float()
+    kd = _gather_kv(k_pages, k_scales, tbl)
+    vd = _gather_kv(v_pages, v_scales, tbl)
     qf = q.float().reshape(b, t, kvh, group, d)
     s = torch.einsum("btkgd,bskd->bkgts", qf, kd) * scale
     kpos = torch.arange(mp * page_size, device=q.device)
@@ -91,63 +123,77 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def _check_cuda_operands(q, k_pages, v_pages, page_table, seq_lens,
-                         q_lens):
+def _check_cuda_operands(name, q, k_pages, v_pages, page_table, seq_lens,
+                         q_lens, k_scales, v_scales):
+    """What the C entries take: q (B, T, H, D), contiguous operands on
+    q's device, pages of q's dtype or int8 codes with contiguous float32
+    (NP, KVH) scales, int32 index operands."""
     b, t, h, d = q.shape
     np_, page_size, kvh, d2 = k_pages.shape
     dev = q.device
-    for name, a in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("seq_lens", seq_lens)) + (
-                        (("q_lens", q_lens),) if q_lens is not None else ()):
+    opt = tuple((n, a) for n, a in (("q_lens", q_lens),
+                                    ("k_scales", k_scales),
+                                    ("v_scales", v_scales))
+                if a is not None)
+    for n, a in (("k_pages", k_pages), ("v_pages", v_pages),
+                 ("page_table", page_table), ("seq_lens", seq_lens)) + opt:
         if a.device != dev:
-            raise ValueError(f"paged_ragged_attention: {name} is on "
-                             f"{a.device}, q on {dev}")
+            raise ValueError(f"{name}: {n} is on {a.device}, q on {dev}")
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"paged_ragged_attention: unsupported dtype "
-                        f"{q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    if v_pages.dtype != k_pages.dtype or k_pages.dtype not in (
+            q.dtype, torch.int8):
         raise TypeError(
-            "paged_ragged_attention: q and the pages must share one "
-            f"dtype, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+            f"{name}: the pages must be of q's dtype or int8, got "
+            f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    _check_scales(name, k_pages, k_scales, v_scales)
+    for n, a in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if a is not None and (a.dtype != torch.float32
+                              or tuple(a.shape) != (np_, kvh)
+                              or not a.is_contiguous()):
+            raise ValueError(
+                f"{name}: {n} must be contiguous float32 ({np_}, {kvh}), "
+                f"got {a.dtype} {tuple(a.shape)}")
     if tuple(v_pages.shape) != tuple(k_pages.shape) or d2 != d:
         raise ValueError(
-            f"paged_ragged_attention: pages {tuple(k_pages.shape)} / "
+            f"{name}: pages {tuple(k_pages.shape)} / "
             f"{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
     if d not in (64, 128):
-        raise ValueError(f"paged_ragged_attention: head_dim {d} not in "
-                         "(64, 128)")
+        raise ValueError(f"{name}: head_dim {d} not in (64, 128)")
     if h % kvh or h // kvh > _MAX_GROUP:
-        raise ValueError(f"paged_ragged_attention: {h} q heads over {kvh} "
-                         f"kv heads (group <= {_MAX_GROUP})")
+        raise ValueError(f"{name}: {h} q heads over {kvh} kv heads "
+                         f"(group <= {_MAX_GROUP})")
     if page_table.dim() != 2 or page_table.shape[0] != b:
-        raise ValueError(f"paged_ragged_attention: page_table "
+        raise ValueError(f"{name}: page_table "
                          f"{tuple(page_table.shape)} for {b} rows")
-    for name, a in (("page_table", page_table), ("seq_lens", seq_lens)) + (
+    for n, a in (("page_table", page_table), ("seq_lens", seq_lens)) + (
             (("q_lens", q_lens),) if q_lens is not None else ()):
         if a.dtype != torch.int32:
-            raise TypeError(f"paged_ragged_attention: {name} must be "
-                            f"int32, got {a.dtype}")
+            raise TypeError(f"{name}: {n} must be int32, got {a.dtype}")
     if tuple(seq_lens.shape) != (b,) or (
             q_lens is not None and tuple(q_lens.shape) != (b,)):
-        raise ValueError("paged_ragged_attention: seq_lens/q_lens must "
-                         f"be ({b},)")
-    for name, a in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        raise ValueError(f"{name}: seq_lens/q_lens must be ({b},)")
+    for n, a in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if a.data_ptr() % 16:
-            raise ValueError(f"paged_ragged_attention: {name} is not "
-                             "16-byte aligned")
+            raise ValueError(f"{name}: {n} is not 16-byte aligned")
+
+
+def _contiguous(*tensors):
+    return [None if a is None else a.contiguous() for a in tensors]
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
 
 
 def _paged_ragged_attention_cuda(q, k_pages, v_pages, page_table,
-                                 seq_lens, q_lens, sm_scale, window):
-    q = q.contiguous()
-    k_pages = k_pages.contiguous()
-    v_pages = v_pages.contiguous()
-    page_table = page_table.contiguous()
-    seq_lens = seq_lens.contiguous()
-    if q_lens is not None:
-        q_lens = q_lens.contiguous()
-    _check_cuda_operands(q, k_pages, v_pages, page_table, seq_lens,
-                         q_lens)
+                                 seq_lens, q_lens, sm_scale, window,
+                                 k_scales, v_scales):
+    (q, k_pages, v_pages, page_table, seq_lens, q_lens, k_scales,
+     v_scales) = _contiguous(q, k_pages, v_pages, page_table, seq_lens,
+                             q_lens, k_scales, v_scales)
+    _check_cuda_operands("paged_ragged_attention", q, k_pages, v_pages,
+                         page_table, seq_lens, q_lens, k_scales, v_scales)
     b, t, h, d = q.shape
     np_, page_size, kvh, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -156,11 +202,11 @@ def _paged_ragged_attention_cuda(q, k_pages, v_pages, page_table,
     lib = _build.library()
     status = lib.ptt_paged_ragged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(),
-        q_lens.data_ptr() if q_lens is not None else None,
-        out.data_ptr(), b, t, h, kvh, d, np_, page_size,
-        page_table.shape[1], _scale(sm_scale, d), int(window or 0),
-        _build.DTYPE_CODES[q.dtype],
+        _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
+        seq_lens.data_ptr(), _ptr(q_lens), out.data_ptr(), b, t, h, kvh,
+        d, np_, page_size, page_table.shape[1], _scale(sm_scale, d),
+        int(window or 0), _build.DTYPE_CODES[q.dtype],
+        _build.KV_DTYPE_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_ragged_attention")
     record_launch("paged_ragged_attention")
@@ -180,22 +226,124 @@ def paged_ragged_attention(q, k_pages, v_pages, page_table, seq_lens,
     Without ``q_lens`` every row is real, and a row that then sees no
     key (``qpos < 0``) returns the mean of V over the slots of the pages
     below ``seq_len``, as the reference's kernel does. ``window`` > 0
-    keeps only keys with ``qpos - kpos < window``. Returns
-    (B, T, H, D)."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "paged_ragged_attention: int8 pages (k_scales/v_scales) are "
-            "not ported yet")
+    keeps only keys with ``qpos - kpos < window``. Int8 pages: pass
+    ``k_scales``/``v_scales`` (NP, KVH) float32. Returns (B, T, H, D)."""
     if q.device.type == "cuda":
         return _paged_ragged_attention_cuda(
             q, k_pages, v_pages, page_table, seq_lens, q_lens, sm_scale,
-            window)
+            window, k_scales, v_scales)
     if q.device.type != "cpu":
         raise RuntimeError(
             f"paged_ragged_attention: unsupported device {q.device}")
     return paged_ragged_attention_plain(
         q, k_pages, v_pages, page_table, seq_lens, q_lens=q_lens,
-        sm_scale=sm_scale, window=window)
+        sm_scale=sm_scale, window=window, k_scales=k_scales,
+        v_scales=v_scales)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, page_table, seq_lens,
+                            sm_scale=None, window=0, k_scales=None,
+                            v_scales=None, q_lens=None):
+    """Ragged chunked prefill over a paged KV cache: an alias of
+    :func:`paged_ragged_attention`, as in the reference (its q_lens-masked
+    prefill kernel was the unified ragged kernel all along, so ``off``
+    has no separate prefill lowering)."""
+    return paged_ragged_attention(
+        q, k_pages, v_pages, page_table, seq_lens, q_lens=q_lens,
+        sm_scale=sm_scale, window=window, k_scales=k_scales,
+        v_scales=v_scales)
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
+                          sm_scale=None, window=0, k_scales=None,
+                          v_scales=None):
+    """The decode kernel's plain version: gather each sequence's pages
+    (dequantized when scales are given), then one masked softmax over
+    its keys in float32. Same contract as :func:`paged_attention`;
+    returns (B, H, D) in q's dtype."""
+    _check_scales("paged_attention", k_pages, k_scales, v_scales)
+    b, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    group = h // kvh
+    mp = page_table.shape[1]
+    tbl = page_table.long()
+    lens = seq_lens.long()
+    kd = _gather_kv(k_pages, k_scales, tbl)
+    vd = _gather_kv(v_pages, v_scales, tbl)
+    qf = q.float().reshape(b, kvh, group, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, kd) * _scale(sm_scale, d)
+    kpos = torch.arange(mp * page_size, device=q.device)
+    keep = kpos[None, :] < lens[:, None]                       # (B, S)
+    if window:
+        keep = keep & (kpos[None, :] >= lens[:, None] - window)
+    keep = keep[:, None, None, :]
+    s = s.masked_fill(~keep, NEG_INF)
+    # a row with seq_len 0 keeps no key: p is all 0 and so is its output
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * keep
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgs,bskd->bkgd", p / l, vd)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
+                                 seq_lens, sm_scale, window, k_scales,
+                                 v_scales):
+    (q, k_pages, v_pages, page_table, seq_lens, k_scales,
+     v_scales) = _contiguous(q, k_pages, v_pages, page_table, seq_lens,
+                             k_scales, v_scales)
+    if q.dim() != 3:
+        raise ValueError(f"paged_attention: q must be (B, H, D), got "
+                         f"{tuple(q.shape)}")
+    _check_cuda_operands("paged_attention", q[:, None], k_pages, v_pages,
+                         page_table, seq_lens, None, k_scales, v_scales)
+    b, h, d = q.shape
+    np_, page_size, kvh, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    status = lib.ptt_paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), b, h, kvh, d, np_, page_size,
+        page_table.shape[1], _scale(sm_scale, d), int(window or 0),
+        _build.DTYPE_CODES[q.dtype], _build.KV_DTYPE_CODES[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "paged_attention")
+    record_launch("paged_decode_attention")
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                    sm_scale=None, window=0, k_scales=None, v_scales=None):
+    """Decode attention over a paged KV cache, one token per sequence.
+
+    q: (B, H, D); k_pages/v_pages: (NP, P, KVH, D); page_table
+    (B, max_pages) int32 physical page ids; seq_lens (B,) int32.
+    ``window`` > 0 keeps only the last ``window`` keys (pages wholly
+    outside are never read). Int8 pages: pass ``k_scales``/``v_scales``
+    (NP, KVH) float32. Returns (B, H, D); a row with seq_len 0 returns
+    zeros.
+
+    Under ``FLAGS_ragged_attention=auto|on`` this is the ragged kernel at
+    T=1 with every q_len 1; under ``off``, the dedicated decode kernel
+    (for a CPU tensor, :func:`paged_attention_plain`)."""
+    _check_scales("paged_attention", k_pages, k_scales, v_scales)
+    if ragged_attention_mode() != "off":
+        ones = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+        return paged_ragged_attention(
+            q[:, None], k_pages, v_pages, page_table, seq_lens,
+            q_lens=ones, sm_scale=sm_scale, window=window,
+            k_scales=k_scales, v_scales=v_scales)[:, 0]
+    if q.device.type == "cuda":
+        return _paged_decode_attention_cuda(
+            q, k_pages, v_pages, page_table, seq_lens, sm_scale, window,
+            k_scales, v_scales)
+    if q.device.type != "cpu":
+        raise RuntimeError(f"paged_attention: unsupported device {q.device}")
+    return paged_attention_plain(
+        q, k_pages, v_pages, page_table, seq_lens, sm_scale=sm_scale,
+        window=window, k_scales=k_scales, v_scales=v_scales)
 
 
 def pad_plan_i32(a, n, fill):

@@ -119,6 +119,23 @@ def test_scan_covers_the_training_slice():
         assert f"paddle_tpu_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_int8_and_decode_slice():
+    """The int8 KV helpers and the decode kernel's modules are among the
+    files the import check and the AST scan cover."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("ops/kernels/quant.py", "ops/kernels/paged_attention.py",
+                "incubate/nn/paged_cache.py", "inference/paged_llama.py"):
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    code = ("import sys, paddle_tpu_torch.ops.kernels.quant\n"
+            "print([m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_scan_covers_the_varlen_and_layer_norm_slice():
     """The packed-attention and LayerNorm modules are among the files the
     AST scan checks, and the CUDA sources include only each other and
@@ -155,20 +172,6 @@ def test_unported_training_options_raise(call):
         call()
 
 
-def test_ragged_attention_off_raises():
-    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-    a = PagedLlamaAdapter(m, num_pages=8, page_size=4)
-    a.alloc("s")
-    pt.set_flags({"FLAGS_ragged_attention": "off"})
-    try:
-        with pytest.raises(NotImplementedError):
-            a.prefill_chunk([[1, 2]], ["s"])
-        with pytest.raises(NotImplementedError):
-            a.decode_token([1], ["s"])
-    finally:
-        pt.set_flags({"FLAGS_ragged_attention": "auto"})
-
-
 @pytest.mark.parametrize("kwargs", [
     {"prefix_cache": True}, {"draft_model": object()},
     {"preempt": True}, {"swap_bytes": 1 << 20},
@@ -188,7 +191,5 @@ def test_unported_request_and_adapter_options_raise():
     s = BatchScheduler(a)
     with pytest.raises(NotImplementedError):
         s.submit(Request("r", [1, 2], deadline_s=1.0))
-    with pytest.raises(NotImplementedError):
-        PagedLlamaAdapter(m, kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError):
         PagedLlamaAdapter(m, weight_dtype="int8")

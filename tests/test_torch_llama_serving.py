@@ -7,10 +7,19 @@ the two packages seeding alike. The JAX adapter's paged kernel runs in
 Pallas interpret mode (its default off-TPU); the port's wrappers, handed
 CPU tensors, run their plain versions.
 
+Both adapters serve from float pools of the model's float32 (the card's
+serve runs use bf16 pools) or from int8 pools, whose pages and scales
+agree bit for bit (tests/test_torch_quant_kv.py), under each
+``FLAGS_ragged_attention`` mode: ``auto``/``on`` (the unified ragged
+kernel) and ``off`` (decode rows through the decode kernel, prefill rows
+through the ragged kernel).
+
 Tolerances: logits within 1e-4 absolute (float32 through a few layers,
 products summed in another order); greedy token streams identical;
 page-pool bookkeeping (tables, lengths, free list) identical.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -37,6 +46,18 @@ VARIANTS = {
 }
 
 _MODELS = {}
+
+
+@contextlib.contextmanager
+def ragged_mode(mode):
+    """FLAGS_ragged_attention set in both packages, restored after."""
+    pt.set_flags({"FLAGS_ragged_attention": mode})
+    paddle.set_flags({"FLAGS_ragged_attention": mode})
+    try:
+        yield
+    finally:
+        pt.set_flags({"FLAGS_ragged_attention": "auto"})
+        paddle.set_flags({"FLAGS_ragged_attention": "auto"})
 
 
 def _pair(variant):
@@ -70,13 +91,14 @@ def _pools_equal(jax_adapter, port_adapter):
         assert jc._free == tc._free
 
 
-def _serve_both(variant, chunked, budget=5):
+def _serve_both(variant, chunked, budget=5, kv_cache_dtype=None):
     """Step the two schedulers in lockstep over 4 interleaved requests
     (two submitted late), checking the pools after every step."""
     jm, tm = _pair(variant)
-    ja = JaxAdapter(jm, num_pages=64, page_size=PAGE, max_length=128)
+    ja = JaxAdapter(jm, num_pages=64, page_size=PAGE, max_length=128,
+                    kv_cache_dtype=kv_cache_dtype)
     ta = PagedLlamaAdapter(tm, num_pages=64, page_size=PAGE,
-                           max_length=128)
+                           max_length=128, kv_cache_dtype=kv_cache_dtype)
     js = JaxScheduler(ja, max_batch_size=3, chunked_prefill=chunked,
                       prefill_chunk_tokens=budget)
     ts = BatchScheduler(ta, max_batch_size=3, chunked_prefill=chunked,
@@ -118,24 +140,56 @@ def test_greedy_streams_identical(variant, chunked):
         assert ta.attend_program_count == ja.attend_program_count
 
 
-@pytest.mark.parametrize("mode", ["auto", "on"])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+@pytest.mark.parametrize("chunked", [True, False])
+def test_greedy_streams_identical_by_pool_and_mode(chunked, mode, kv):
+    """{float, int8} pools x {auto, on, off} x chunked on and off: the
+    same tokens, pools and (chunked) attention-program accounting as the
+    reference, per bucket too."""
+    with ragged_mode(mode):
+        jax_out, port_out, ja, ta, ts = _serve_both(
+            "base", chunked, kv_cache_dtype=None if kv == "float" else kv)
+    assert port_out == jax_out
+    assert all(len(port_out[r]) == N_NEW[r] for r in PROMPTS)
+    assert ta.caches[0].quantized == ja.caches[0].quantized
+    if chunked:
+        assert ta.compile_count == ja.compile_count
+        assert ta.attend_program_count == ja.attend_program_count
+        assert ta.attend_kinds_by_bucket == ja.attend_kinds_by_bucket
+        kinds = set().union(*map(set, ta.attend_kinds_by_bucket.values()))
+        want = {"off": {"decode", "prefill"}, "on": {"ragged"},
+                "auto": {"ragged" if kv == "int8" else "ragged_fused"}}
+        assert kinds == want[mode]
+
+
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_prefill_chunk_logits_match(variant, mode):
     """Mixed ragged chunks (multi-token prefill rows beside decode
-    rows, resuming mid-page) through the fused (auto) and unfused (on)
-    branches; plus the per-position logits epilogue."""
+    rows, resuming mid-page) through the fused (auto), unfused (on) and
+    two-kernel (off) branches; plus the per-position logits epilogue."""
+    _prefill_chunk_logits_match(variant, mode, None)
+
+
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+@pytest.mark.parametrize("variant", ["base", "window6"])
+def test_int8_prefill_chunk_logits_match(variant, mode):
+    _prefill_chunk_logits_match(variant, mode, "int8")
+
+
+def _prefill_chunk_logits_match(variant, mode, kv_cache_dtype):
     jm, tm = _pair(variant)
-    ja = JaxAdapter(jm, num_pages=32, page_size=PAGE, max_length=128)
+    ja = JaxAdapter(jm, num_pages=32, page_size=PAGE, max_length=128,
+                    kv_cache_dtype=kv_cache_dtype)
     ta = PagedLlamaAdapter(tm, num_pages=32, page_size=PAGE,
-                           max_length=128)
+                           max_length=128, kv_cache_dtype=kv_cache_dtype)
     for s in ("x", "y", "z"):
         ja.alloc(s)
         ta.alloc(s)
     rng = np.random.RandomState(5)
     chunks = [([5, 3, 7], None), ([1, 6, 2], [1]), ([1, 1, 9], [2, 0])]
-    pt.set_flags({"FLAGS_ragged_attention": mode})
-    paddle.set_flags({"FLAGS_ragged_attention": mode})
-    try:
+    with ragged_mode(mode):
         for counts, rows in chunks:
             toks = [rng.randint(0, 512, c).tolist() for c in counts]
             starts = [ta.caches[0].seq_len(s) for s in ("x", "y", "z")]
@@ -151,9 +205,8 @@ def test_prefill_chunk_logits_match(variant, mode):
                                            np.asarray(jj._data),
                                            atol=ATOL, rtol=0)
             _pools_equal(ja, ta)
-    finally:
-        pt.set_flags({"FLAGS_ragged_attention": "auto"})
-        paddle.set_flags({"FLAGS_ragged_attention": "auto"})
+    assert ta.attend_program_count == ja.attend_program_count
+    assert ta.attend_kinds_by_bucket == ja.attend_kinds_by_bucket
 
 
 def test_decode_token_logits_match():
@@ -171,6 +224,52 @@ def test_decode_token_logits_match():
         np.testing.assert_allclose(t.numpy(), np.asarray(j._data),
                                    atol=ATOL, rtol=0)
     _pools_equal(ja, ta)
+
+
+@pytest.mark.parametrize("mode", ["auto", "off"])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_decode_token_logits_match_by_pool_and_mode(kv, mode):
+    """decode_token through the pool's decode attend: the ragged kernel
+    at T=1, or under ``off`` the decode kernel, on float or int8 pages."""
+    jm, tm = _pair("window6")
+    kw = dict(num_pages=16, page_size=PAGE, max_length=64,
+              kv_cache_dtype=None if kv == "float" else kv)
+    ja, ta = JaxAdapter(jm, **kw), PagedLlamaAdapter(tm, **kw)
+    for s in ("p", "q"):
+        ja.alloc(s)
+        ta.alloc(s)
+    rng = np.random.RandomState(8)
+    with ragged_mode(mode):
+        for _ in range(9):
+            toks = rng.randint(0, 512, 2).tolist()
+            j = ja.decode_token(toks, ["p", "q"])
+            t = ta.decode_token(toks, ["p", "q"])
+            np.testing.assert_allclose(t.numpy(), np.asarray(j._data),
+                                       atol=ATOL, rtol=0)
+    _pools_equal(ja, ta)
+
+
+def test_equal_hbm_budget_doubles_capacity():
+    """At the byte budget of a bf16 pool, int8 pages (with their scale
+    rows) hold at least 1.8x the pages, and the port sizes the pool as
+    the reference does."""
+    jm, tm = _pair("base")
+    import jax.numpy as jnp
+    import torch
+
+    fp = PagedLlamaAdapter(tm, num_pages=32, page_size=PAGE,
+                           dtype=torch.bfloat16)
+    budget = sum(c.pool_nbytes for c in fp.caches)
+    q = PagedLlamaAdapter(tm, page_size=PAGE, kv_cache_dtype="int8",
+                          page_pool_bytes=budget)
+    jq = JaxAdapter(jm, page_size=PAGE, kv_cache_dtype="int8",
+                    page_pool_bytes=budget)
+    jfp = JaxAdapter(jm, num_pages=32, page_size=PAGE, dtype=jnp.bfloat16)
+    assert budget == sum(c.pool_nbytes for c in jfp.caches)
+    assert q.caches[0].num_pages == jq.caches[0].num_pages
+    assert sum(c.pool_nbytes for c in q.caches) <= budget
+    assert q.caches[0].num_pages / fp.caches[0].num_pages >= 1.8
+    assert q.caches[0].quantized and q.caches[0].k_pages.dtype == torch.int8
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

@@ -130,15 +130,6 @@ def test_cpu_path_launches_no_kernel():
     assert kernel_launch_stats() == {}
 
 
-def test_int8_scales_are_refused():
-    q, kp, vp, tbl, lens, ql = (torch.from_numpy(a) for a in
-                                _inputs([5], [1], 1, 4, 2))
-    with pytest.raises(NotImplementedError):
-        paged_ragged_attention(q, kp, vp, tbl, lens, ql,
-                               k_scales=torch.ones(48, 2),
-                               v_scales=torch.ones(48, 2))
-
-
 def test_plan_helpers_match_reference():
     a = np.asarray([3, 1, 2], np.int32)
     np.testing.assert_array_equal(pad_plan_i32(a, 6, 9),
