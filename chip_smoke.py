@@ -41,9 +41,10 @@ It prints one JSON line per phase:
    launch counters reset just before and read just after, exact launch
    counts, and the served logits of two requests held against the dense
    float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``);
-7. ``profile`` and ``profile_int8``: ``serve`` and ``serve_int8`` served
-   again under ``torch.profiler``: device time by kernel class and the
-   device's busy share of the wall;
+7. ``profile``, ``profile_int8`` and ``profile_off``: ``serve``,
+   ``serve_int8`` and ``serve_off`` served again under
+   ``torch.profiler``: device time by kernel class and the device's
+   busy share of the wall;
 8. ``train_check``: Qwen2-0.5B at its published shape (random bf16
    weights from the seed, fused CE head): the loss and every
    parameter's gradient on one 2048-token sequence against the float32
@@ -496,6 +497,10 @@ ATTN_CASES = [
     # Qwen2-0.5B's heads: 14 q and 2 kv heads of 64 (group 7)
     (_DECODE, "decode_group7_d64", dict(seq_lens=DECODE_LENS, seed=7, h=14,
                                         kvh=2, d=64, **_D1)),
+    # group 16: two blocks of 8 q heads a kv head and chunk (int8 pages)
+    (_DECODE, "decode_group16_int8", dict(seq_lens=DECODE_LENS, seed=8,
+                                          h=32, kvh=2, kv_dtype="int8",
+                                          **_D1)),
 ]
 
 
@@ -1100,10 +1105,14 @@ FLASH_FAULTS = [
      f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) e = 0.f;",
      ("train", "gqa_d128")),
     ("dkdv_late_keys_drop_own_row", _FLASH_CU,
-     "if (!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) e = 0.f;",
-     "if ((!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) || "
-     "(krow0 + (i >> 1) * 8 >= p.Sk / 2 && "
-     "q0 + c == krow0 + (i >> 1) * 8 + p.Sq - p.Sk)) e = 0.f;",
+     "if (q0 + c >= p.Sq || !keep(p, q0 + c, kr)) e = 0.f;",
+     "if (q0 + c >= p.Sq || !keep(p, q0 + c, kr) || "
+     "(kr >= p.Sk / 2 && q0 + c == kr + p.Sq - p.Sk)) e = 0.f;",
+     ("train", "gqa_d128")),
+    # the consumers skip the products of the last staged Q/dO tile
+    ("dkdv_skips_last_pipeline_stage", _FLASH_CU,
+     "const bool live = tile_live(p, q0, kw0);",
+     "const bool live = it + 1 < n_steps && tile_live(p, q0, kw0);",
      ("train", "gqa_d128")),
     ("fwd_late_rows_drop_own_key", _FLASH_CU,
      "if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;",
@@ -1129,16 +1138,22 @@ FLASH_FAULTS = [
 # (name, source, text, replacement, the one kernel it breaks)
 _PAGED_FAULT_CASES = ("decode", "decode_int8", "decode_float32",
                       "decode_seq_len0_rows", "decode_window",
-                      "decode_group7_d64", "mixed_int8",
+                      "decode_group7_d64", "decode_group16_int8",
+                      "mixed_int8",
                       "prefill_chunk_int8", "window_int8",
                       "no_key_rows_int8")
 PAGED_FAULTS = [
     ("decode_drops_last_page", _PAGED_CU,
-     "const int kend = min(seq_len, mp * page);",
-     "const int kend = min((seq_len - 1) / page * page, mp * page);",
-     _DECODE),
+     "kend = min(seq_len, mp * page);",
+     "kend = min((seq_len - 1) / page * page, mp * page);", _DECODE),
     ("decode_int8_scales_v_by_k_scale", _PAGED_CU,
-     "sv[v] = vscale[srow];", "sv[v] = kscale[srow];", _DECODE),
+     "vsc[i] = ok ? vscale[srow] : 1.f;",
+     "vsc[i] = ok ? kscale[srow] : 1.f;", _DECODE),
+    # the merge pass skips each row's last non-empty split partial
+    ("decode_merge_drops_last_split", _PAGED_CU,
+     "const int s_hi = kstart < kend ? (kend + chunk - 1) / chunk : s_lo;",
+     "const int s_hi = kstart < kend ? (kend + chunk - 1) / chunk - 1 "
+     ": s_lo;", _DECODE),
     ("ragged_int8_scale_of_logical_page", _PAGED_CU,
      "const int64_t scale_row = (int64_t)pg * kvh_total + kvh;",
      "const int64_t scale_row = (int64_t)(kpos / page) * kvh_total + kvh;",
@@ -1409,6 +1424,10 @@ def layer_norm_phase():
 SERVE_RUNS = [("serve", None, "auto"), ("serve_int8", "int8", "auto"),
               ("serve_off", None, "off"), ("serve_off_int8", "int8", "off")]
 SERVE_PAGES = 512
+# serving runs served again under the profiler: run -> its phase name
+# (serve_off: the decode kernel's device time on its path)
+PROFILED_RUNS = {"serve": "profile", "serve_int8": "profile_int8",
+                 "serve_off": "profile_off"}
 
 
 def build_server(seed, layers):
@@ -1649,7 +1668,7 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
 
 def serve_phase(seed, layers):
     """The four serving runs of SERVE_RUNS on one model, each followed
-    by nothing but its release; ``serve`` and ``serve_int8`` are also
+    by nothing but its release; the runs of PROFILED_RUNS are also
     served again under the profiler. Returns {run: launches}."""
     import torch
 
@@ -1663,11 +1682,9 @@ def serve_phase(seed, layers):
         out[run] = launches
         if base is None:
             base = result
-        if run in ("serve", "serve_int8"):
+        if run in PROFILED_RUNS:
             with ragged_mode(mode):
-                profile_phase(adapter, prompts,
-                              "profile" if run == "serve"
-                              else "profile_int8")
+                profile_phase(adapter, prompts, PROFILED_RUNS[run])
         del adapter
         torch.cuda.empty_cache()
     return out

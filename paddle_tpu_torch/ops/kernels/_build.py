@@ -28,7 +28,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu",
            "flash_varlen.cu")
-HEADERS = ("common.cuh", "flash_tiles.cuh")
+HEADERS = ("common.cuh", "flash_tiles.cuh", "hopper_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
@@ -57,10 +57,11 @@ _SIGNATURES = {
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _F32, _I64, _I32, _I32, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens, out,
-    # B, H, KVH, D, NP, P, MP, scale, window, dtype, kv_dtype, stream
+    # workspace, B, H, KVH, D, NP, P, MP, chunk_pages, scale, window,
+    # dtype, kv_dtype, stream
     "ptt_paged_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P,
-        _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _F32, _I64, _I32, _I32, _P),
     # q, k, v, out, lse, B, H, KVH, Sq, Sk, D, scale, causal, window,
     # dtype, stream

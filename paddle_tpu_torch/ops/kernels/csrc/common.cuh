@@ -1,6 +1,7 @@
 // Shared device helpers of the port's CUDA kernels: conversions between
 // the storage types (float, bfloat16, and int8 for quantized KV pages)
-// and float32, 16-byte vector loads, and warp reductions.
+// and float32, 16-byte vector loads, cp.async copies, and warp
+// reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +45,24 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int k = 0; k < Vec16<T>::N; ++k) dst[k] = to_f32(e[k]);
+}
+
+// 16 bytes global -> shared (dst 16-byte aligned), asynchronously, by
+// cp.async; bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

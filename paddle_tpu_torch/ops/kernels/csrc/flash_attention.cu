@@ -2,7 +2,7 @@
 //
 // Replaces three Pallas kernels of paddle_tpu/ops/kernels/flash_attention.py:
 //   * _flash_fwd_kernel      -> flash_fwd_bf16 / flash_fwd_f32
-//   * _flash_bwd_dkdv_kernel -> flash_bwd_dkdv_bf16 / flash_bwd_dkdv_f32
+//   * _flash_bwd_dkdv_kernel -> flash_bwd_dkdv_wgmma / flash_bwd_dkdv_f32
 //   * _flash_bwd_dq_kernel   -> flash_bwd_dq_bf16 / flash_bwd_dq_f32
 //
 // Computes, for q [B, Sq, H, D], k/v [B, Sk, KVH, D] (the reference's
@@ -26,9 +26,12 @@
 // What bounds it on the H100: operations. At the training shape (S = 2048,
 // D = 64 or 128) each K/V byte is used by 64-row q tiles for ~2*64 flops,
 // far above the ~295 flops per byte where the tensor cores become the
-// limit. The bf16 kernels therefore run their products on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, float32 accumulate). wgmma, TMA
-// and warp specialisation, which the card's full rate needs, come later.
+// limit. The bf16 forward and dQ kernels run their products on the tensor
+// cores with mma.sync m16n8k16 (bf16 in, float32 accumulate), which tops
+// out well below the card's rate; the bf16 dK/dV kernel runs them on
+// wgmma, the warpgroup products that reach it, fed by TMA through a ring
+// of stages that a producer warp keeps full (hopper_tiles.cuh). The
+// forward and dQ get the same treatment next.
 //
 // Design. The Pallas grids carry their accumulators across an innermost
 // sequential ("arbitrary") grid axis; CUDA blocks run in no order, so that
@@ -39,21 +42,22 @@
 //     offset = Sk - Sq and window (never by testing every tile). m, l and
 //     the output (or dQ) accumulator stay in registers in the mma
 //     accumulator layout, so the online softmax needs no shared memory.
-//   * dK/dV: one block per (64-key tile, kv head, batch), 4 warps of 16
-//     keys. The block loops over the group's q heads and, for each, over
-//     the q tiles in the band (the reference grid (bhkv, nk, group, nq) as
-//     a loop), accumulating dK and dV in float32 registers and writing
-//     them once. No atomics: two runs give equal gradients.
-//   * K/V (forward, dQ) or Q/dO (dK/dV) tiles are double-buffered in shared
-//     memory with cp.async, so the next tile loads while this one computes.
-//     Rows are padded by 8 elements so the ldmatrix row reads are free of
-//     bank conflicts. Ragged tails are zero-filled and masked.
-//   * Tiles wholly inside the band skip the mask; blocks are ordered so the
-//     longest causal rows (forward, dQ) or keys (dK/dV) start first.
+//     K/V tiles are double-buffered in shared memory with cp.async, rows
+//     padded by 8 elements so the ldmatrix row reads are free of bank
+//     conflicts; ragged tails are zero-filled and masked.
+//   * dK/dV (bf16): one block per (key tile, kv head, batch), the key tile
+//     the slowest grid axis so the longest causal keys start first. The
+//     block loops over the group's q heads and, for each, over the q
+//     tiles in the band (the reference grid (bhkv, nk, group, nq) as a
+//     loop), accumulating dK and dV in float32 registers and writing them
+//     once. No atomics: two runs give equal gradients. See
+//     flash_bwd_dkdv_wgmma for its pipeline.
+//   * Tiles wholly inside the band skip the mask.
 // Only D = 64 and D = 128 are instantiated (Qwen2-0.5B, Llama-3-8B,
 // Mistral); the wrapper refuses other head dims on the card.
 
 #include "flash_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -363,108 +367,273 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------- bf16 dK/dV
+// flash_bwd_dkdv_wgmma: one block per (key tile of BK = 64 * NWG keys, kv
+// head, batch). NWG consumer warpgroups of 64 keys each (2 at D = 64, 1 at
+// D = 128, where the four products' float32 accumulators take ~240
+// registers a thread) and one producer warp:
+//   * the producer's lane 0 loads the block's K and V once by TMA, then for
+//     each step (q head of the group, q tile of 64 rows in the band) the Q
+//     and dO tiles (128-byte swizzle) and the rows' lse and delta (1-D
+//     TMA) into a ring of kStages stages (6 at D = 64, 5 at D = 128), each
+//     completing on one mbarrier (`full`); it refills a stage once every
+//     consumer thread has arrived on its `empty`. On the H100, a ring of
+//     2 with the key tile the fastest grid axis took 0.92 ms at the
+//     training shape, 0.60 with both changed: causal Q/dO tiles miss L2,
+//     and one step's products do not cover the load;
+//   * each consumer warpgroup runs the step's four products on wgmma with
+//     float32 accumulators: S^T = K Q^T and dP^T = V dO^T (both operands
+//     in shared memory, K-major); then P^T, rounded to bf16, as the A
+//     operand from registers of dV += P^T dO, issued before dS^T is
+//     computed so that the two overlap; then dK += dS^T Q (B = dO, Q in
+//     shared memory, MN-major). The softmax takes one FFMA and one SFU
+//     ex2 an element, and the mask runs only on tiles that need it: with
+//     a branch and a denormal-safe exp2f on every element (and dV issued
+//     after dS) the kernel took 0.60 ms at the training shape, 0.39 now,
+//     the CUDA-core work between the products being what held the
+//     warpgroups back. A warpgroup skips the products of a tile its keys
+//     do not see.
+// Rows past Sq arrive as zeros (TMA fills out-of-bounds rows) and are
+// masked. dK and dV stay in registers and are written once.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_bf16(const Params p) {
-  constexpr int BQ = dkdv_bq<D>();
-  constexpr int SD = D + 8, NO = D / 8, NS = BQ / 8;
+struct Dkdv {
+  static constexpr int kStages = D == 64 ? 6 : 5;  // Q/dO ring depth
+  static constexpr int kNWG = D == 64 ? 2 : 1;  // consumer warpgroups
+  static constexpr int kBK = 64 * kNWG;         // keys a block
+  static constexpr int kSub = D / 64;           // 64-column tiles a row
+  static constexpr int kThreads = kNWG * 128 + 32;
+  // shared memory (bytes, from a 1024-aligned base): K, V, then the stages
+  static constexpr int kKV = kSub * kBK * 128;  // K or V
+  static constexpr int kTile = kSub * 64 * 128;  // a Q or dO tile
+  static constexpr int kStage = 2 * kTile + 1024;  // Q, dO, lse, delta
+  static constexpr int kBars = 2 * kKV + kStages * kStage;
+  static constexpr int kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
+  static constexpr uint32_t kStageTx = 2 * kTile + 2 * 64 * 4;
+};
+
+// some (q, k) pair of rows [q0, q0 + 63] x keys [k0, k0 + 63] is kept
+__device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0) {
+  if (q0 >= p.Sq || k0 >= p.Sk) return false;
+  int lo, hi;
+  key_band(p, q0, min(q0 + 63, p.Sq - 1), lo, hi);
+  return max(lo, k0) <= min(hi, k0 + 63);
+}
+
+// 2^x by the SFU (ex2.approx: ~2 ulp; denormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A B for one k-step of the dV / dK products (N = D)
+template <int D>
+__device__ __forceinline__ void dkdv_rs(float (&d)[D / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc_b) {
+  if constexpr (D == 64)
+    ptt::wgmma_m64n64k16_rs(d, a, desc_b, 1);
+  else
+    ptt::wgmma_m64n128k16_rs(d, a, desc_b, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmO,
+                         const __grid_constant__ CUtensorMap tmK,
+                         const __grid_constant__ CUtensorMap tmV,
+                         const __grid_constant__ CUtensorMap tmL,
+                         const __grid_constant__ CUtensorMap tmDelta,
+                         const Params p) {
+  using L = Dkdv<D>;
+  constexpr int BQ = 64;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBK * SD;
-  bf16* sQ = sV + kBK * SD;     // [2][BQ][SD]
-  bf16* sO = sQ + 2 * BQ * SD;  // [2][BQ][SD] dout
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * SD);  // [2][BQ]
-  float* sD = sL + 2 * BQ;                                 // [2][BQ]
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* sK = base;
+  unsigned char* sV = base + L::kKV;
+  auto stage = [&](int s) { return base + 2 * L::kKV + s * L::kStage; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kvbar = empty + L::kStages;
 
-  const int kt = blockIdx.x;  // the first keys see the most rows
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // the key tile is the slowest grid axis, so blocks start longest first
+  // (under causal the first keys see the most rows)
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
   const int group = p.H / p.KVH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kBK, k_last = min(k0 + kBK, p.Sk) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const int64_t koff = ((int64_t)b * p.Sk + k0) * ks + kvh * D;
-
+  const int k0 = kt * L::kBK, k_last = min(k0 + L::kBK, p.Sk) - 1;
   int qlo, qhi;
   query_band(p, k0, k_last, qlo, qhi);
   const int t_lo = qlo / BQ;
   const int nqt = qhi >= qlo ? qhi / BQ - t_lo + 1 : 0;
   const int n_steps = group * nqt;  // (q head of the group, q tile)
 
-  // stage step `it` (its q tile, dout tile, lse and delta) into buffer buf
-  auto stage = [&](int it, int buf) {
-    const int h = kvh * group + it / nqt;
-    const int q0 = (t_lo + it % nqt) * BQ;
-    const int64_t off = ((int64_t)b * p.Sq + q0) * qs + h * D;
-    load_rows<BQ, D>(sQ + buf * BQ * SD, static_cast<const bf16*>(p.q) + off,
-                     qs, p.Sq - q0);
-    load_rows<BQ, D>(sO + buf * BQ * SD,
-                     static_cast<const bf16*>(p.dout) + off, qs, p.Sq - q0);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int row = q0 + i;
-      const int64_t j = ((int64_t)b * p.H + h) * p.Sq + row;
-      // rows past the end: lse = +inf makes p = 0
-      sL[buf * BQ + i] = row < p.Sq ? p.lse_in[j] * kLog2e : INFINITY;
-      sD[buf * BQ + i] = row < p.Sq ? p.delta[j] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
     }
-  };
-
-  load_rows<kBK, D>(sK, static_cast<const bf16*>(p.k) + koff, ks, p.Sk - k0);
-  load_rows<kBK, D>(sV, static_cast<const bf16*>(p.v) + koff, ks, p.Sk - k0);
-  if (n_steps > 0) stage(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+    ptt::mbar_init(kvbar, 1);
+    ptt::mbar_fence_init();
+  }
   __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0 && n_steps > 0) {
+      ptt::mbar_arrive_expect_tx(kvbar, 2 * L::kKV);
+      for (int sub = 0; sub < L::kSub; ++sub) {
+        ptt::tma_load_4d(sK + sub * L::kBK * 128, &tmK, kvbar, sub * 64, kvh,
+                         k0, b);
+        ptt::tma_load_4d(sV + sub * L::kBK * 128, &tmV, kvbar, sub * 64, kvh,
+                         k0, b);
+      }
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % L::kStages;
+        if (it >= L::kStages)  // the consumers released this stage
+          ptt::mbar_wait(&empty[s], (it / L::kStages - 1) & 1);
+        const int h = kvh * group + it / nqt;
+        const int q0 = (t_lo + it % nqt) * BQ;
+        unsigned char* st = stage(s);
+        ptt::mbar_arrive_expect_tx(&full[s], L::kStageTx);
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          ptt::tma_load_4d(st + sub * 64 * 128, &tmQ, &full[s], sub * 64, h,
+                           q0, b);
+          ptt::tma_load_4d(st + L::kTile + sub * 64 * 128, &tmO, &full[s],
+                           sub * 64, h, q0, b);
+        }
+        const int row = (b * p.H + h) * p.Sq + q0;
+        ptt::tma_load_1d(st + 2 * L::kTile, &tmL, &full[s], row);
+        ptt::tma_load_1d(st + 2 * L::kTile + 512, &tmDelta, &full[s], row);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg;  // this warpgroup's 64 keys
+  const int kr0 = kw0 + 16 * wq + g;  // this thread's keys: kr0, kr0 + 8
   const float sl2 = p.scale * kLog2e;
-  const int krow0 = k0 + warp * 16 + g;  // this thread's keys: krow0, +8
-  float dk[NO][4] = {}, dv[NO][4] = {};
+  float sacc[32] = {}, dpacc[32] = {};
+  float dk[D / 2] = {}, dv[D / 2] = {};
+  if (n_steps > 0) ptt::mbar_wait(kvbar, 0);
 
   for (int it = 0; it < n_steps; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_steps) {
-      stage(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cQ = sQ + buf * BQ * SD;
-    const bf16* cO = sO + buf * BQ * SD;
-    const float* cL = sL + buf * BQ;
-    const float* cD = sD + buf * BQ;
+    const int s = it % L::kStages;
+    ptt::mbar_wait(&full[s], (it / L::kStages) & 1);
     const int q0 = (t_lo + it % nqt) * BQ;
-
-    // s^T = k q^T: this warp's 16 keys against the BQ rows
-    float s[NS][4] = {};
-    gemm_abt<D, NS>(s, sK, warp * 16, cQ, lane);
-    const bool full = tile_full(p, q0, q0 + BQ - 1, k0, k0 + kBK - 1);
+    const bool live = tile_live(p, q0, kw0);
+    if (live) {
+      unsigned char* sQ = stage(s);
+      unsigned char* sO = sQ + L::kTile;
+      const float* cL = reinterpret_cast<const float*>(sQ + 2 * L::kTile);
+      const float* cD = cL + 128;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows each
+      ptt::fence_regs(sacc);
+      ptt::fence_regs(dpacc);
+      ptt::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nt * 8 + 2 * t + (i & 1);
-        float e = exp2f(s[nt][i] * sl2 - cL[c]);
-        if (!full && !keep(p, q0 + c, krow0 + (i >> 1) * 8)) e = 0.f;
-        s[nt][i] = e;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * L::kBK * 128 + wg * 64 * 128 + kk % 4 * 32;
+        const int qoff = (kk / 4) * 64 * 128 + kk % 4 * 32;
+        ptt::wgmma_m64n64k16_ss(sacc, ptt::desc_sw128(sK + off, 16, 1024),
+                                ptt::desc_sw128(sQ + qoff, 16, 1024), kk);
       }
-    gemm_pb<D, BQ / 16>(dv, s, cO, lane);  // dv += p^T dout
-    float dp[NS][4] = {};
-    gemm_abt<D, NS>(dp, sV, warp * 16, cO, lane);  // (dout v^T)^T
+      ptt::wgmma_commit();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * L::kBK * 128 + wg * 64 * 128 + kk % 4 * 32;
+        const int qoff = (kk / 4) * 64 * 128 + kk % 4 * 32;
+        ptt::wgmma_m64n64k16_ss(dpacc, ptt::desc_sw128(sV + off, 16, 1024),
+                                ptt::desc_sw128(sO + qoff, 16, 1024), kk);
+      }
+      ptt::wgmma_commit();
+      // p = exp(s * scale - lse); sacc[4 j + i] is key kr0 + 8 (i / 2),
+      // row q0 + 8 j + 2 t + i % 2. Only a tile that crosses the band or
+      // the end of the rows is masked.
+      const bool full_tile = tile_full(p, q0, q0 + BQ - 1, kw0, kw0 + 63) &&
+                             q0 + BQ <= p.Sq;
+      ptt::wgmma_wait<1>();
+      ptt::fence_regs(sacc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dp[nt][i] =
-            s[nt][i] * (dp[nt][i] - cD[nt * 8 + 2 * t + (i & 1)]) * p.scale;
-    gemm_pb<D, BQ / 16>(dk, dp, cQ, lane);  // dk += ds^T q
-    __syncthreads();
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(cL + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sacc[4 * j + i] = exp2_approx(sacc[4 * j + i] * sl2 -
+                                        (i & 1 ? l2.y : l2.x) * kLog2e);
+      }
+      if (!full_tile) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 8 * j + 2 * t + (i & 1), kr = kr0 + (i >> 1) * 8;
+            float e = sacc[4 * j + i];
+            if (q0 + c >= p.Sq || !keep(p, q0 + c, kr)) e = 0.f;
+            sacc[4 * j + i] = e;
+          }
+      }
+      // dV += P^T dO (K = the tile's rows), running while dS is computed
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        acc_to_a<8>(reinterpret_cast<const float(*)[4]>(sacc), kk, pa[kk]);
+      ptt::fence_regs(dv);
+      ptt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        dkdv_rs<D>(dv, pa[kk], ptt::desc_sw128(sO + kk * 2048, 64 * 128, 1024));
+      ptt::wgmma_commit();
+      // ds = p * (dp - delta) * scale, then dK += dS^T Q
+      ptt::wgmma_wait<1>();
+      ptt::fence_regs(dpacc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(cD + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dpacc[4 * j + i] = sacc[4 * j + i] *
+                             (dpacc[4 * j + i] - (i & 1 ? dl.y : dl.x)) *
+                             p.scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        acc_to_a<8>(reinterpret_cast<const float(*)[4]>(dpacc), kk, da[kk]);
+      ptt::fence_regs(dk);
+      ptt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        dkdv_rs<D>(dk, da[kk], ptt::desc_sw128(sQ + kk * 2048, 64 * 128, 1024));
+      ptt::wgmma_commit();
+      ptt::wgmma_wait<0>();
+      ptt::fence_regs(dv);
+      ptt::fence_regs(dk);
+      ptt::fence_regs(pa);
+      ptt::fence_regs(da);
+    }
+    ptt::mbar_arrive(&empty[s]);
   }
-  store_rows<D>(static_cast<bf16*>(p.dk) + (int64_t)b * p.Sk * ks + kvh * D,
-                ks, k0 + warp * 16, p.Sk, dk, lane);
-  store_rows<D>(static_cast<bf16*>(p.dv) + (int64_t)b * p.Sk * ks + kvh * D,
-                ks, k0 + warp * 16, p.Sk, dv, lane);
+
+  // dK, dV: accumulator element 4 j + i is key kr0 + 8 (i / 2), column
+  // 8 j + 2 t + i % 2
+  const int64_t ks = (int64_t)p.KVH * D;
+  bf16* dkg = static_cast<bf16*>(p.dk) + (int64_t)b * p.Sk * ks + kvh * D;
+  bf16* dvg = static_cast<bf16*>(p.dv) + (int64_t)b * p.Sk * ks + kvh * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = kr0 + 8 * r;
+    if (kr >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int64_t o = kr * ks + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkg + o) =
+          pack2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + o) =
+          pack2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------------- float32 kernels
@@ -610,6 +779,80 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- launch
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a bf16 [B, S, heads, D] tensor in boxes of `rows` rows x 64 columns of
+// one head, 128-byte swizzled; rows past S read as zeros
+bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
+              int heads, int s, int b, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a float32 vector of n in boxes of 64; past n reads as zeros
+bool map_flat(EncodeTiled enc, CUtensorMap* m, const float* ptr, int64_t n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t box[1] = {64}, unit[1] = {1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor maps (built here, on the host, for each call), then the launch
+template <int D>
+int launch_dkdv_wgmma(const Params& p, cudaStream_t stream) {
+  using L = Dkdv<D>;
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mo, mk, mv, ml, md;
+  const int64_t rows = (int64_t)p.B * p.H * p.Sq;
+  if (!map_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, 64) ||
+      !map_rows(enc, &mo, p.dout, D, p.H, p.Sq, p.B, 64) ||
+      !map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, L::kBK) ||
+      !map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, L::kBK) ||
+      !map_flat(enc, &ml, p.lse_in, rows) ||
+      !map_flat(enc, &md, p.delta, rows))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_wgmma<D>
+      <<<dim3(p.KVH, p.B, blocks(p.Sk, L::kBK)), L::kThreads, L::kSmem,
+         stream>>>(mq, mo, mk, mv, ml, md, p);
+  return (int)cudaGetLastError();
+}
+
 int check(const Params& p, int64_t D, int dtype) {
   if (p.B <= 0 || p.H <= 0 || p.KVH <= 0 || p.Sq <= 0 || p.Sk <= 0 ||
       p.H % p.KVH != 0 || p.B > 65535 || p.H > 65535 ||
@@ -669,7 +912,8 @@ extern "C" int ptt_flash_bwd_dkdv(const void* q, const void* k,
                                   int64_t window, int dtype, void* stream) {
   Params p = make(B, H, KVH, Sq, Sk, scale, causal, window);
   if (int e = check(p, D, dtype)) return e;
-  if (p.KVH > 65535) return (int)cudaErrorInvalidValue;
+  if (p.KVH > 65535 || blocks(p.Sk, 64) > 65535)
+    return (int)cudaErrorInvalidValue;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -679,12 +923,9 @@ extern "C" int ptt_flash_bwd_dkdv(const void* q, const void* k,
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Sk, kBK), p.KVH, p.B),
-      gf(blocks(p.Sk, kWarps), p.KVH, p.B);
   if (dtype == ptt::kBFloat16)
-    return D == 64
-               ? launch(flash_bwd_dkdv_bf16<64>, gb, dkdv_smem<64>(), s, p)
-               : launch(flash_bwd_dkdv_bf16<128>, gb, dkdv_smem<128>(), s, p);
+    return D == 64 ? launch_dkdv_wgmma<64>(p, s) : launch_dkdv_wgmma<128>(p, s);
+  const dim3 gf(blocks(p.Sk, kWarps), p.KVH, p.B);
   return D == 64 ? launch(flash_bwd_dkdv_f32<64>, gf, 0, s, p)
                  : launch(flash_bwd_dkdv_f32<128>, gf, 0, s, p);
 }

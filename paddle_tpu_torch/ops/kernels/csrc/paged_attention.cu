@@ -3,8 +3,9 @@
 //
 // ragged_kernel replaces paddle_tpu/ops/kernels/paged_attention.py::
 // _ragged_kernel (the Pallas kernel behind paged_ragged_attention() and
-// the attention core of paged_ragged_fused_step()); decode_kernel, at the
-// end of this file, replaces its _decode_kernel.
+// the attention core of paged_ragged_fused_step()); decode_kernel_split
+// and decode_kernel_merge, at the end of this file, replace its
+// _decode_kernel.
 //
 // Both take K/V pages of q's type (float32, bfloat16) or int8 codes with
 // per-page, per-kv-head float32 scales k_scales/v_scales [NP, KVH]: a
@@ -54,6 +55,8 @@
 // the tile and dots it with the (pre-scaled) query row; for PV each
 // lane owns D/32 output columns. The online-softmax state (m, l, acc)
 // of each of a warp's row-heads lives in registers.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -263,168 +266,375 @@ __global__ void __launch_bounds__(D) no_key_rows_kernel(
 
 // ---------------------------------------------------------------- decode
 //
-// decode_kernel replaces paddle_tpu/ops/kernels/paged_attention.py::
-// _decode_kernel, the FLAGS_ragged_attention=off lowering of
-// paged_attention(): one query token per sequence, q [B, H, D], out
-// [B, H, D], over the pages of page_table[b, :] (same page layout and
-// int8 scales as above). For each sequence b and q head h:
+// decode_kernel_split and decode_kernel_merge replace
+// paddle_tpu/ops/kernels/paged_attention.py::_decode_kernel, the
+// FLAGS_ragged_attention=off lowering of paged_attention(): one query
+// token per sequence, q [B, H, D], out [B, H, D], over the pages of
+// page_table[b, :] (same page layout and int8 scales as above). For each
+// sequence b and q head h:
 //   * keys at pos < seq_lens[b] are kept, and with window > 0 only
-//     pos >= seq_len - window; the loop runs over [max(0, seq_len -
-//     window), seq_len), so no page wholly outside is ever loaded;
+//     pos >= seq_len - window; no page wholly outside is ever loaded;
 //   * q head h reads kv head h / (H / KVH);
 //   * softmax statistics and the output accumulate in float32; the
 //     output is divided by max(l, 1e-30), so a row with seq_len 0 (a
 //     page-table padding row) returns exactly 0.
 // Rounding: the Pallas float branch rounds p to the page type before PV
 // (pvals.astype(v.dtype)), its int8 branch does not (v is float32 there).
-// This kernel keeps p in float32 on both branches, as ragged_kernel does.
+// These kernels keep p in float32 on both branches, as ragged_kernel does.
 //
-// What bounds it: bytes. Each K/V byte serves the `group` q heads of its
-// kv head once (~2 * group flops per byte loaded), far below the card's
-// ~295 flops per byte. The Pallas grid (B, H, pages) reads every page
-// once per q head; here one block per (kv head, sequence) serves the
-// whole group, so each K/V byte is read once. Each thread keeps its
-// share of the NEXT 32-key tile in flight in registers while the block
-// computes on the current one from shared memory. At the serving batch
-// this makes B * KVH blocks (64 on 132 SMs); splitting a row's keys
-// over several blocks comes later.
+// What bounds it on the H100: bytes. Each K/V byte serves the `group` q
+// heads of its kv head once (~2 * group flops per byte), far below the
+// card's ~295 flops per byte, so the design's work is to fill the card
+// with loads (one block per (sequence, kv head) made 64 blocks on 132
+// SMs at the serving batch, and the longest row's tiles ran one after
+// another):
+//   * split-K: grid (splits, KVH * row-head batches, B). A block takes
+//     one chunk of a row's keys, chunk_pages whole pages (128 keys at
+//     pages of 16), for up to kDecRH q heads of one kv head: the whole
+//     group of every model the port serves (4 or 7), so each K/V byte is
+//     read once. splits = ceil(MP / chunk_pages) comes from the table's
+//     width on the host, never from seq_lens; a block whose chunk lies at
+//     or past seq_len, or wholly below the window, exits at once and
+//     writes nothing, since the merge reads only a row's non-empty chunks.
+//   * each block writes float32 partials (acc[D], m, l) per row-head to
+//     a workspace [B, KVH, splits, group, D + 2] that the wrapper
+//     allocates; decode_kernel_merge, launched right after on the same
+//     stream, combines a row's non-empty chunks in order (m = max m_i,
+//     l = sum l_i exp(m_i - m), acc likewise), so two runs give the same
+//     bits.
+//   * bytes in flight: the chunk's slice of the page table (and its int8
+//     scales) is read into shared memory once; each warp then streams its
+//     16-key tiles of K and V (tile i of the chunk goes to warp i % 4)
+//     through its own ring of kDecStages stages with 16-byte cp.async
+//     copies, kept in the page type and widened to float32 in registers.
+//     The key loop has no __syncthreads: a warp waits on its own copies.
+//     At 128-key chunks a warp's two tiles are in flight at once, and
+//     ~72 KB of shared memory a block (bf16, D = 128) leaves room for
+//     three blocks an SM: 256-key chunks with 3-stage rings (114 KB, two
+//     blocks an SM) ran 1.25-1.7x slower on the H100, held back by the
+//     latency of too few warps, not by bytes.
+//   * every warp serves every row-head of the block over its own keys, so
+//     group 7 (Qwen2) keeps all four warps busy; the warps' states merge
+//     in shared memory at the end of the block. QK^T takes two lanes a
+//     key, each dotting half its row with the pre-scaled q rows (shared
+//     memory, broadcast); for PV each lane owns D / 32 output columns and
+//     reads the tile's p back from shared memory. The 16-byte vectors of
+//     a staged row are XOR-swizzled by the row, so the lanes' reads are
+//     free of bank conflicts.
+
+constexpr int kDecTile = 16;            // keys a warp takes per step
+constexpr int kDecStages = 2;           // cp.async ring depth, per warp
+constexpr int kDecRH = 8;               // row-heads a block serves
+constexpr int kDecMaxChunkPages = 128;  // pages of a chunk's table slice
+
+// keys [kstart, kend) of a decode row with seq_len keys
+__device__ __forceinline__ void decode_range(int seq_len, int window, int mp,
+                                             int page, int& kstart,
+                                             int& kend) {
+  kend = min(seq_len, mp * page);
+  kstart = window > 0 ? max(0, seq_len - window) : 0;
+}
+
+// shared memory of decode_kernel_split (bytes): the pre-scaled q rows, the
+// chunk's page table slice and scales, the warps' p, and the warps'
+// cp.async rings, which the warps' final states reuse
+template <typename KT, int D>
+struct DecodeSmem {
+  static constexpr int kRow = D * (int)sizeof(KT);  // a staged key row
+  static constexpr int kQ = kDecRH * D * 4;
+  static constexpr int kTab = 3 * kDecMaxChunkPages * 4;
+  static constexpr int kP = kWarps * kDecRH * kDecTile * 4;
+  static constexpr int kRing = kWarps * kDecStages * 2 * kDecTile * kRow;
+  static constexpr int kState = kWarps * kDecRH * (D + 2) * 4;
+  static constexpr int bytes = kQ + kTab + kP + (kRing > kState ? kRing
+                                                                : kState);
+};
+
+// where 16-byte vector c of staged row j lies: vectors are XOR-swizzled
+// by the row, so lanes reading one vector of 8 rows hit 8 bank groups
+template <int VPR>
+__device__ __forceinline__ int swz(int j, int c) {
+  return c ^ (j & ((VPR < 8 ? VPR : 8) - 1));
+}
+
+// N elements of T from shared memory (N * sizeof(T) in {2, 4, 8, 16}
+// bytes, aligned to that), widened to float32
+template <typename T, int N>
+__device__ __forceinline__ void load_n(const T* src, float* dst) {
+  constexpr int B = N * (int)sizeof(T);
+  static_assert(B == 2 || B == 4 || B == 8 || B == 16, "unsupported width");
+  using V = typename std::conditional<
+      B == 16, uint4,
+      typename std::conditional<
+          B == 8, uint2,
+          typename std::conditional<B == 4, uint32_t,
+                                    uint16_t>::type>::type>::type;
+  const V raw = *reinterpret_cast<const V*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k] = ptt::to_f32(e[k]);
+}
 
 template <typename T, typename KT, int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
+__global__ void __launch_bounds__(kThreads) decode_kernel_split(
     const T* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ tbl,
-    const int* __restrict__ lens, T* __restrict__ out, int h_total,
-    int kvh_total, int np, int page, int mp, float scale, int window) {
-  constexpr int DPL = D / 32;
-  constexpr int VN = ptt::Vec16<KT>::N;
-  constexpr int VPR = D / VN;
-  constexpr int NV = kKT * VPR / kThreads;  // 16-byte vectors a thread stages
-  static_assert(kKT * VPR % kThreads == 0, "tile does not split evenly");
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [group][D], pre-scaled
-  float* kst = qs + kMaxRH * D;      // [kKT][D + 1]
-  float* vst = kst + kKT * (D + 1);  // [kKT][D]
-  float* ps = vst + kKT * D;         // [kWarps][kKT]
+    const int* __restrict__ lens, float* __restrict__ part, int h_total,
+    int kvh_total, int np, int page, int mp, int chunk_pages, float scale,
+    int window) {
+  using S = DecodeSmem<KT, D>;
+  constexpr int VN = ptt::Vec16<KT>::N;  // elements a 16-byte vector
+  constexpr int VPR = D / VN;            // 16-byte vectors a key row
+  constexpr int DPL = D / 32;            // output columns a lane
+  constexpr int kStage = 2 * kDecTile * S::kRow;  // a tile's K and V
+  static_assert(kDecTile * VPR % 32 == 0, "tile does not split evenly");
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* qs = reinterpret_cast<float*>(dsmem);  // [kDecRH][D], pre-scaled
+  int* ptab = reinterpret_cast<int*>(dsmem + S::kQ);
+  float* ksc = reinterpret_cast<float*>(ptab + kDecMaxChunkPages);
+  float* vsc = ksc + kDecMaxChunkPages;
+  float* pbuf = vsc + kDecMaxChunkPages;  // [kWarps][kDecRH][kDecTile]
+  unsigned char* ring = dsmem + S::kQ + S::kTab + S::kP;
 
   const int group = h_total / kvh_total;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int seq_len = lens[b];
-  const int kend = min(seq_len, mp * page);
-  const int kstart = window > 0 ? max(0, seq_len - window) : 0;
+  const int nrb = (group + kDecRH - 1) / kDecRH;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / nrb, rh0 = blockIdx.y % nrb * kDecRH;
+  const int nrh = min(kDecRH, group - rh0);
+  int kstart, kend;
+  decode_range(lens[b], window, mp, page, kstart, kend);
+  const int chunk = chunk_pages * page;
+  const int lo = max(split * chunk, kstart);
+  const int hi = min(split * chunk + chunk, kend);
+  if (lo >= hi) return;
+  const int p0 = split * chunk_pages;  // the chunk's first logical page
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int i = threadIdx.x; i < group * D; i += kThreads)
-    qs[i] = ptt::to_f32(q[((int64_t)b * h_total + kvh * group) * D + i]) *
+  for (int i = threadIdx.x; i < nrh * D; i += kThreads)
+    qs[i] = ptt::to_f32(
+                q[((int64_t)b * h_total + kvh * group + rh0) * D + i]) *
             scale;
+  // the pages the chunk's keys lie in, their physical ids and scales
+  for (int i = lo / page - p0 + threadIdx.x; i <= (hi - 1) / page - p0;
+       i += kThreads) {
+    const int pg = tbl[(int64_t)b * mp + p0 + i];
+    ptab[i] = pg;
+    if (kscale != nullptr) {  // a page out of range stages zeros
+      const bool ok = pg >= 0 && pg < np;
+      const int64_t srow = ok ? (int64_t)pg * kvh_total + kvh : 0;
+      ksc[i] = ok ? kscale[srow] : 1.f;
+      vsc[i] = ok ? vscale[srow] : 1.f;
+    }
+  }
+  __syncthreads();
 
-  // one tile's raw vectors, their keys' scales, and whether they exist
-  uint4 rk[NV], rv[NV];
-  float sk[NV], sv[NV];
-  bool ok[NV];
-  auto load_tile = [&](int kb) {
+  // this warp's tiles: t = warp, warp + kWarps, ... of the chunk's ntiles;
+  // lanes key and key + 16 own key `key` of each
+  const int ntiles = (hi - lo + kDecTile - 1) / kDecTile;
+  const int nmine = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps : 0;
+  const int key = lane % kDecTile, half = lane / kDecTile;
+  unsigned char* wring = ring + warp * kDecStages * kStage;
+  auto issue = [&](int i) {
+    // row of key `key` in the pool's [NP * P] rows, -1 past hi or for a
+    // page out of range (staged as zeros)
+    const int kpos = lo + (warp + kWarps * i) * kDecTile + key;
+    int row = -1;
+    if (kpos < hi) {
+      const int pg = ptab[kpos / page - p0];
+      if (pg >= 0 && pg < np) row = pg * page + kpos % page;
+    }
+    unsigned char* kdst = wring + i % kDecStages * kStage;
+    unsigned char* vdst = kdst + kDecTile * S::kRow;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int idx = threadIdx.x + v * kThreads;
-      const int kpos = kb + idx / VPR, c = (idx % VPR) * VN;
-      ok[v] = kpos < kend;
-      sk[v] = sv[v] = 1.f;
-      if (ok[v]) {
-        const int pg = tbl[(int64_t)b * mp + kpos / page];
-        ok[v] = pg >= 0 && pg < np;
-        if (ok[v]) {
-          const int64_t off =
-              (((int64_t)pg * page + kpos % page) * kvh_total + kvh) * D + c;
-          rk[v] = *reinterpret_cast<const uint4*>(kp + off);
-          rv[v] = *reinterpret_cast<const uint4*>(vp + off);
-          if (kscale != nullptr) {
-            const int64_t srow = (int64_t)pg * kvh_total + kvh;
-            sk[v] = kscale[srow];
-            sv[v] = vscale[srow];
+    for (int v = lane; v < kDecTile * VPR; v += 32) {
+      const int j = v / VPR, c = v % VPR;
+      const int rj = __shfl_sync(0xffffffffu, row, j);
+      const int64_t off =
+          rj >= 0 ? ((int64_t)rj * kvh_total + kvh) * D + c * VN : 0;
+      const int dst = j * S::kRow + swz<VPR>(j, c) * 16;
+      ptt::cp_async16(kdst + dst, kp + off, rj >= 0 ? 16 : 0);
+      ptt::cp_async16(vdst + dst, vp + off, rj >= 0 ? 16 : 0);
+    }
+  };
+
+  float m[kDecRH], l[kDecRH], acc[kDecRH][DPL];
+#pragma unroll
+  for (int r = 0; r < kDecRH; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+  }
+  float* pw = pbuf + warp * kDecRH * kDecTile;
+
+#pragma unroll
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < nmine) issue(i);
+    ptt::cp_async_commit();
+  }
+  for (int i = 0; i < nmine; ++i) {
+    if (i + kDecStages - 1 < nmine) issue(i + kDecStages - 1);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<kDecStages - 1>();
+    __syncwarp();
+    const unsigned char* kst = wring + i % kDecStages * kStage;
+    const unsigned char* vst = kst + kDecTile * S::kRow;
+    const int kpos = lo + (warp + kWarps * i) * kDecTile + key;
+    const bool valid = kpos < hi;
+
+    // s = q k^T over this lane's half of key `key`'s row
+    float s[kDecRH];
+#pragma unroll
+    for (int r = 0; r < kDecRH; ++r) s[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < VPR / 2; ++c) {
+      const int cl = half * (VPR / 2) + c;  // the logical vector
+      float kf[VN];
+      load_n<KT, VN>(reinterpret_cast<const KT*>(
+                         kst + key * S::kRow + swz<VPR>(key, cl) * 16),
+                     kf);
+#pragma unroll
+      for (int r = 0; r < kDecRH; ++r) {
+        if (r < nrh) {
+          const float4* qr =
+              reinterpret_cast<const float4*>(qs + r * D + cl * VN);
+#pragma unroll
+          for (int e = 0; e < VN / 4; ++e) {
+            const float4 qv = qr[e];
+            s[r] += qv.x * kf[4 * e] + qv.y * kf[4 * e + 1] +
+                    qv.z * kf[4 * e + 2] + qv.w * kf[4 * e + 3];
           }
         }
       }
     }
-  };
-  auto store_tile = [&]() {
+    float k_sc = 1.f, v_sc = 1.f;
+    if (kscale != nullptr && valid) {  // int8 codes: the key's own page
+      k_sc = ksc[kpos / page - p0];
+      v_sc = vsc[kpos / page - p0];
+    }
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int idx = threadIdx.x + v * kThreads;
-      const int j = idx / VPR, c = (idx % VPR) * VN;
-      const KT* ek = reinterpret_cast<const KT*>(&rk[v]);
-      const KT* ev = reinterpret_cast<const KT*>(&rv[v]);
+    for (int r = 0; r < kDecRH; ++r) {
+      if (r < nrh) {
+        float x = s[r] + __shfl_xor_sync(0xffffffffu, s[r], kDecTile);
+        x = valid ? x * k_sc : kNegInf;
+        float tmax = x;
 #pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        kst[j * (D + 1) + c + e] = ok[v] ? ptt::to_f32(ek[e]) * sk[v] : 0.f;
-        vst[j * D + c + e] = ok[v] ? ptt::to_f32(ev[e]) * sv[v] : 0.f;
+        for (int o = kDecTile / 2; o > 0; o >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+        // the tile's first key is kept, so tmax is a real score
+        const float m_new = fmaxf(m[r], tmax);
+        const float corr = expf(m[r] - m_new);
+        const float p = valid ? expf(x - m_new) : 0.f;
+        l[r] = l[r] * corr + (half == 0 ? p : 0.f);  // summed at the end
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
+        m[r] = m_new;
+        if (half == 0) pw[r * kDecTile + key] = p * v_sc;
       }
     }
-  };
+    __syncwarp();
 
-  float m[kRW], l[kRW], acc[kRW][DPL];
+    // acc += p v over the tile, lane `lane` owning columns lane * DPL..
+    constexpr int kLaneBytes = DPL * (int)sizeof(KT);
+    const int vc = lane * kLaneBytes / 16, vb = lane * kLaneBytes % 16;
 #pragma unroll
-  for (int i = 0; i < kRW; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    for (int j0 = 0; j0 < kDecTile; j0 += 4) {
+      float vf[4][DPL];
 #pragma unroll
-    for (int k = 0; k < DPL; ++k) acc[i][k] = 0.f;
-  }
-
-  if (kstart < kend) load_tile(kstart);
-  for (int kb = kstart; kb < kend; kb += kKT) {
-    store_tile();
-    __syncthreads();
-    if (kb + kKT < kend) load_tile(kb + kKT);  // in flight during compute
-
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        load_n<KT, DPL>(reinterpret_cast<const KT*>(
+                            vst + j * S::kRow + swz<VPR>(j, vc) * 16 + vb),
+                        vf[jj]);
+      }
 #pragma unroll
-    for (int i = 0; i < kRW; ++i) {
-      const int hh = warp + kWarps * i;  // warp-uniform
-      if (hh < group) {
-        const bool keep = kb + lane < kend;
-        float s = kNegInf;
-        if (keep) {
-          const float* qr = qs + hh * D;
-          const float* kr = kst + lane * (D + 1);
-          float dot = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
-          s = dot;
+      for (int r = 0; r < kDecRH; ++r) {
+        if (r < nrh) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(pw + r * kDecTile + j0);
+#pragma unroll
+          for (int c = 0; c < DPL; ++c)
+            acc[r][c] += p4.x * vf[0][c] + p4.y * vf[1][c] +
+                         p4.z * vf[2][c] + p4.w * vf[3][c];
         }
-        // key kb < kend is kept, so the tile's max is a real score
-        const float m_new = fmaxf(m[i], ptt::warp_max(s));
-        const float corr = expf(m[i] - m_new);
-        const float p = keep ? expf(s - m_new) : 0.f;
-        l[i] = l[i] * corr + ptt::warp_sum(p);
-        ps[warp * kKT + lane] = p;
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) {
-          float a = acc[i][k] * corr;
-#pragma unroll 8
-          for (int j = 0; j < kKT; ++j)
-            a += ps[warp * kKT + j] * vst[j * D + lane + 32 * k];
-          acc[i][k] = a;
-        }
-        __syncwarp();
-        m[i] = m_new;
       }
     }
-    __syncthreads();
+    __syncwarp();  // the stage and pw are rewritten later
   }
 
+  // merge the warps' states in shared memory (over the rings), one
+  // partial per row-head to the workspace
 #pragma unroll
-  for (int i = 0; i < kRW; ++i) {
-    const int hh = warp + kWarps * i;
-    if (hh < group) {
-      const float safe_l = fmaxf(l[i], 1e-30f);
-      T* o = out + ((int64_t)b * h_total + kvh * group + hh) * D;
+  for (int r = 0; r < kDecRH; ++r) l[r] = ptt::warp_sum(l[r]);
+  __syncthreads();
+  float* st = reinterpret_cast<float*>(ring);  // [kWarps][kDecRH][D + 2]
 #pragma unroll
-      for (int k = 0; k < DPL; ++k)
-        o[lane + 32 * k] = ptt::from_f32<T>(acc[i][k] / safe_l);
+  for (int r = 0; r < kDecRH; ++r) {
+    if (r < nrh) {
+      float* sw = st + (warp * kDecRH + r) * (D + 2);
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) sw[lane * DPL + c] = acc[r][c];
+      if (lane == 0) {
+        sw[D] = m[r];
+        sw[D + 1] = l[r];
+      }
     }
   }
+  __syncthreads();
+  const int64_t prow =
+      (((int64_t)b * kvh_total + kvh) * gridDim.x + split) * group + rh0;
+  for (int i = threadIdx.x; i < nrh * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mm = fmaxf(mm, st[(w * kDecRH + r) * (D + 2) + D]);
+    float a = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* sw = st + (w * kDecRH + r) * (D + 2);
+      const float wt = expf(sw[D] - mm);  // 0 for a warp without keys
+      a += sw[d] * wt;
+      ll += sw[D + 1] * wt;
+    }
+    float* dst = part + (prow + r) * (D + 2);
+    dst[d] = a;
+    if (d == 0) {
+      dst[D] = mm;
+      dst[D + 1] = ll;
+    }
+  }
+}
+
+// one block per (q head, sequence), one thread per output column: the
+// row's non-empty chunks [s_lo, s_hi) combined in order
+template <typename T, int D>
+__global__ void __launch_bounds__(D) decode_kernel_merge(
+    const float* __restrict__ part, const int* __restrict__ lens,
+    T* __restrict__ out, int h_total, int kvh_total, int page, int mp,
+    int chunk_pages, int splits, int window) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int group = h_total / kvh_total;
+  int kstart, kend;
+  decode_range(lens[b], window, mp, page, kstart, kend);
+  const int chunk = chunk_pages * page;
+  const int s_lo = kstart / chunk;
+  const int s_hi = kstart < kend ? (kend + chunk - 1) / chunk : s_lo;
+  const int64_t stride = (int64_t)group * (D + 2);  // one split to the next
+  const float* pr =
+      part + (((int64_t)b * kvh_total + h / group) * splits * group +
+              h % group) * (D + 2);
+  float m = kNegInf;
+  for (int s = s_lo; s < s_hi; ++s) m = fmaxf(m, pr[s * stride + D]);
+  float l = 0.f, a = 0.f;
+  for (int s = s_lo; s < s_hi; ++s) {
+    const float w = expf(pr[s * stride + D] - m);
+    l += pr[s * stride + D + 1] * w;
+    a += pr[s * stride + d] * w;
+  }
+  out[((int64_t)b * h_total + h) * D + d] =
+      ptt::from_f32<T>(a / fmaxf(l, 1e-30f));
 }
 
 // ---------------------------------------------------------------- host
@@ -434,6 +644,8 @@ struct Args {
   int64_t b, t, h, kvh, np, page, mp, window;
   float scale;
   cudaStream_t stream;
+  float* part;          // decode: the split partials' workspace
+  int64_t chunk_pages;  // decode: pages a split block takes
 };
 
 template <typename T, typename KT, int D>
@@ -466,21 +678,33 @@ int launch_ragged(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// the split pass, then the merge, on the same stream
 template <typename T, typename KT, int D>
 int launch_decode(const Args& a) {
-  const size_t smem = smem_bytes<D>();
+  const int group = (int)(a.h / a.kvh);
+  const int nrb = (group + kDecRH - 1) / kDecRH;
+  const int splits = (int)((a.mp + a.chunk_pages - 1) / a.chunk_pages);
+  const int smem = DecodeSmem<KT, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_kernel_split<T, KT, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_kernel<T, KT, D>
-      <<<dim3((unsigned)a.kvh, (unsigned)a.b), kThreads, smem, a.stream>>>(
+  decode_kernel_split<T, KT, D>
+      <<<dim3((unsigned)splits, (unsigned)(a.kvh * nrb), (unsigned)a.b),
+         kThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
           static_cast<const KT*>(a.vp), static_cast<const float*>(a.ks),
           static_cast<const float*>(a.vs), static_cast<const int*>(a.tbl),
-          static_cast<const int*>(a.lens), static_cast<T*>(a.out), (int)a.h,
-          (int)a.kvh, (int)a.np, (int)a.page, (int)a.mp, a.scale,
+          static_cast<const int*>(a.lens), a.part, (int)a.h, (int)a.kvh,
+          (int)a.np, (int)a.page, (int)a.mp, (int)a.chunk_pages, a.scale,
           (int)a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_kernel_merge<T, D>
+      <<<dim3((unsigned)a.h, (unsigned)a.b), D, 0, a.stream>>>(
+          a.part, static_cast<const int*>(a.lens), static_cast<T*>(a.out),
+          (int)a.h, (int)a.kvh, (int)a.page, (int)a.mp, (int)a.chunk_pages,
+          splits, (int)a.window);
   return (int)cudaGetLastError();
 }
 
@@ -539,22 +763,29 @@ extern "C" int ptt_paged_ragged_attention(
   if (b <= 0 || t <= 0) return 0;
   const Args a{q,   k_pages, v_pages, k_scales, v_scales, page_table,
                seq_lens, q_lens, out, b, t, h, kvh, np, page, mp, window,
-               scale, static_cast<cudaStream_t>(stream)};
+               scale, static_cast<cudaStream_t>(stream), nullptr, 0};
   return dispatch<false>(d, dtype, kv_dtype, a);
 }
 
 // q, out: [B, H, D] (dtype), one decode token per sequence; the pages,
-// scales, page_table and seq_lens as above. Returns the launch's
-// cudaGetLastError() (0 on success).
+// scales, page_table and seq_lens as above; workspace: float32
+// [B, KVH, ceil(MP / chunk_pages), H / KVH, D + 2], the split partials
+// (1 <= chunk_pages <= 256). Launches the split pass and the merge on
+// `stream`; returns their cudaGetLastError() (0 on success).
 extern "C" int ptt_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* page_table,
-    const void* seq_lens, void* out, int64_t b, int64_t h, int64_t kvh,
-    int64_t d, int64_t np, int64_t page, int64_t mp, float scale,
-    int64_t window, int dtype, int kv_dtype, void* stream) {
+    const void* seq_lens, void* out, void* workspace, int64_t b, int64_t h,
+    int64_t kvh, int64_t d, int64_t np, int64_t page, int64_t mp,
+    int64_t chunk_pages, float scale, int64_t window, int dtype,
+    int kv_dtype, void* stream) {
   if (b <= 0) return 0;
+  if (workspace == nullptr || chunk_pages < 1 ||
+      chunk_pages > kDecMaxChunkPages)
+    return (int)cudaErrorInvalidValue;
   const Args a{q,   k_pages, v_pages, k_scales, v_scales, page_table,
                seq_lens, nullptr, out, b, 1, h, kvh, np, page, mp, window,
-               scale, static_cast<cudaStream_t>(stream)};
+               scale, static_cast<cudaStream_t>(stream),
+               static_cast<float*>(workspace), chunk_pages};
   return dispatch<true>(d, dtype, kv_dtype, a);
 }

@@ -44,6 +44,9 @@ from .rope import apply_rotary_emb
 
 NEG_INF = -1e30
 _MAX_GROUP = 32  # q heads per kv head one kernel block serves
+# keys a block of the decode kernel's split pass takes: whole pages, at
+# most 128 of them (csrc/paged_attention.cu, kDecMaxChunkPages)
+DECODE_CHUNK_KEYS = 128
 
 
 def _scale(sm_scale, d):
@@ -285,6 +288,69 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def decode_split_plan(batch, kv_heads, group, head_dim, max_pages,
+                      page_size):
+    """``(chunk_pages, splits, workspace_shape)`` of the decode kernel's
+    split pass, from shapes the host knows (never from ``seq_lens``,
+    which live on the device): each block takes ``chunk_pages`` whole
+    pages (``DECODE_CHUNK_KEYS`` keys, at least one page) of a row's
+    keys, ``splits = ceil(max_pages / chunk_pages)`` blocks cover the
+    page table's width, and the float32 workspace holds one partial
+    ``(acc[D], m, l)`` per (row, kv head, split, q head of the group)."""
+    chunk_pages = max(1, DECODE_CHUNK_KEYS // page_size)
+    splits = -(-max_pages // chunk_pages)
+    return chunk_pages, splits, (batch, kv_heads, splits, group,
+                                 head_dim + 2)
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                chunk_pages, sm_scale=None, window=0,
+                                k_scales=None, v_scales=None):
+    """The decode kernel's two-pass arithmetic in plain PyTorch (used by
+    the tests): per chunk of ``chunk_pages`` pages of each row's keys, the
+    float32 partial ``(m, l, acc)`` of its kept keys, then the merge of a
+    row's non-empty chunks, ``m = max m_i``, ``l = sum l_i exp(m_i - m)``,
+    ``acc = sum acc_i exp(m_i - m)``, ``out = acc / max(l, 1e-30)``. Same
+    contract and result as :func:`paged_attention_plain`."""
+    _check_scales("paged_attention", k_pages, k_scales, v_scales)
+    b, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    group = h // kvh
+    mp = page_table.shape[1]
+    splits = -(-mp // chunk_pages)
+    chunk = chunk_pages * page_size
+    tbl = page_table.long()
+    lens = seq_lens.long()
+    kd = _gather_kv(k_pages, k_scales, tbl)
+    vd = _gather_kv(v_pages, v_scales, tbl)
+    pad = splits * chunk - mp * page_size  # keys past the table: masked
+    kd, vd = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (kd, vd))
+    qf = q.float().reshape(b, kvh, group, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, kd) * _scale(sm_scale, d)
+    kpos = torch.arange(splits * chunk, device=q.device)
+    keep = (kpos[None, :] < lens[:, None]) & (kpos[None, :] < mp * page_size)
+    if window:
+        keep = keep & (kpos[None, :] >= lens[:, None] - window)
+    # (B, KVH, G, splits, chunk)
+    s = s.reshape(b, kvh, group, splits, chunk)
+    keep = keep.reshape(b, 1, 1, splits, chunk)
+    s = s.masked_fill(~keep, NEG_INF)
+    m_i = s.amax(dim=-1)
+    p = torch.exp(s - m_i[..., None]) * keep
+    l_i = p.sum(dim=-1)
+    acc_i = torch.einsum("bkgnc,bnckd->bkgnd", p,
+                         vd.reshape(b, splits, chunk, kvh, d))
+    # the merge: only the chunks holding a kept key
+    full = keep.any(dim=-1)                               # (B, 1, 1, splits)
+    m = m_i.masked_fill(~full, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.exp(m_i - m) * full
+    l = (l_i * w).sum(dim=-1)
+    acc = (acc_i * w[..., None]).sum(dim=-2)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def _paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
                                  seq_lens, sm_scale, window, k_scales,
                                  v_scales):
@@ -298,15 +364,20 @@ def _paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
                          page_table, seq_lens, None, k_scales, v_scales)
     b, h, d = q.shape
     np_, page_size, kvh, _ = k_pages.shape
+    mp = page_table.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    chunk_pages, _, ws_shape = decode_split_plan(b, kvh, h // kvh, d, mp,
+                                                 page_size)
+    workspace = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     lib = _build.library()
     status = lib.ptt_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, h, kvh, d, np_, page_size,
-        page_table.shape[1], _scale(sm_scale, d), int(window or 0),
+        seq_lens.data_ptr(), out.data_ptr(), workspace.data_ptr(), b, h,
+        kvh, d, np_, page_size, mp, chunk_pages, _scale(sm_scale, d),
+        int(window or 0),
         _build.DTYPE_CODES[q.dtype], _build.KV_DTYPE_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_attention")
