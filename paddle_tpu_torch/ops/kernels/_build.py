@@ -28,7 +28,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu",
            "flash_varlen.cu")
-HEADERS = ("common.cuh", "flash_tiles.cuh", "hopper_tiles.cuh")
+HEADERS = ("common.cuh", "flash_tiles.cuh", "hopper_tiles.cuh",
+           "attn_fwd_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
@@ -50,11 +51,11 @@ _SIGNATURES = {
     # x, w, b, y, rows, hidden, eps, dtype, stream
     "ptt_layer_norm": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
-    # q_lens, out, B, T, H, KVH, D, NP, P, MP, scale, window, dtype,
-    # kv_dtype, stream
+    # q_lens, out, workspace, B, T, H, KVH, D, NP, P, MP, chunk_pages,
+    # scale, window, dtype, kv_dtype, stream
     "ptt_paged_ragged_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _F32, _I64, _I32, _I32, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens, out,
     # workspace, B, H, KVH, D, NP, P, MP, chunk_pages, scale, window,

@@ -1,7 +1,7 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
 // Replaces three Pallas kernels of paddle_tpu/ops/kernels/flash_attention.py:
-//   * _flash_fwd_kernel      -> flash_fwd_bf16 / flash_fwd_f32
+//   * _flash_fwd_kernel      -> flash_fwd_wgmma / flash_fwd_f32
 //   * _flash_bwd_dkdv_kernel -> flash_bwd_dkdv_wgmma / flash_bwd_dkdv_f32
 //   * _flash_bwd_dq_kernel   -> flash_bwd_dq_bf16 / flash_bwd_dq_f32
 //
@@ -26,25 +26,25 @@
 // What bounds it on the H100: operations. At the training shape (S = 2048,
 // D = 64 or 128) each K/V byte is used by 64-row q tiles for ~2*64 flops,
 // far above the ~295 flops per byte where the tensor cores become the
-// limit. The bf16 forward and dQ kernels run their products on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, float32 accumulate), which tops
-// out well below the card's rate; the bf16 dK/dV kernel runs them on
+// limit. The bf16 dQ kernel runs its products on the tensor cores with
+// mma.sync m16n8k16 (bf16 in, float32 accumulate), which tops out well
+// below the card's rate; the bf16 forward and dK/dV kernels run them on
 // wgmma, the warpgroup products that reach it, fed by TMA through a ring
-// of stages that a producer warp keeps full (hopper_tiles.cuh). The
-// forward and dQ get the same treatment next.
+// of stages that a producer warp keeps full (hopper_tiles.cuh; the
+// forward's consumer loop is attn_fwd_tiles.cuh, shared with the ragged
+// paged kernel). The dQ kernel gets the same treatment next.
 //
 // Design. The Pallas grids carry their accumulators across an innermost
 // sequential ("arbitrary") grid axis; CUDA blocks run in no order, so that
 // axis becomes a loop inside the block:
-//   * forward and dQ: one block per (q tile of 64 rows, q head, batch),
-//     4 warps of 16 rows each. The block loops over the 64-key tiles that
-//     the causal/window band lets through, bounds computed from
-//     offset = Sk - Sq and window (never by testing every tile). m, l and
-//     the output (or dQ) accumulator stay in registers in the mma
-//     accumulator layout, so the online softmax needs no shared memory.
-//     K/V tiles are double-buffered in shared memory with cp.async, rows
-//     padded by 8 elements so the ldmatrix row reads are free of bank
-//     conflicts; ragged tails are zero-filled and masked.
+//   * forward (bf16): see flash_fwd_wgmma. dQ: one block per (q tile of 64
+//     rows, q head, batch), 4 warps of 16 rows each. The block loops over
+//     the 64-key tiles that the causal/window band lets through, bounds
+//     computed from offset = Sk - Sq and window (never by testing every
+//     tile). The dQ accumulator stays in registers in the mma accumulator
+//     layout. K/V tiles are double-buffered in shared memory with
+//     cp.async, rows padded by 8 elements so the ldmatrix row reads are
+//     free of bank conflicts; ragged tails are zero-filled and masked.
 //   * dK/dV (bf16): one block per (key tile, kv head, batch), the key tile
 //     the slowest grid axis so the longest causal keys start first. The
 //     block loops over the group's q heads and, for each, over the q
@@ -56,6 +56,7 @@
 // Only D = 64 and D = 128 are instantiated (Qwen2-0.5B, Llama-3-8B,
 // Mistral); the wrapper refuses other head dims on the card.
 
+#include "attn_fwd_tiles.cuh"
 #include "flash_tiles.cuh"
 #include "hopper_tiles.cuh"
 
@@ -116,153 +117,164 @@ __device__ __forceinline__ bool tile_full(const Params& p, int q0, int q1,
 }
 
 // --------------------------------------------------------- bf16 forward
+// flash_fwd_wgmma: the forward on the core of attn_fwd_tiles.cuh. One
+// block per (kv head, batch, NWG M tiles), the M tiles the slowest grid
+// axis and walked last to first, so the blocks with the longest causal
+// key bands start first. NWG consumer warpgroups (3 at D = 64, 2 at
+// D = 128, fewer where that would leave SMs without a block) and one
+// producer warp:
+//   * M packing (GQA): an M tile is 64 (q row, q head) pairs of one kv
+//     head's group, 64 / group consecutive rows x the group's heads (16 x 4
+//     at Llama-3's group 4, 9 x 7 at Qwen2's group 7, 64 x 1 without GQA).
+//     Q [B, Sq, H, D] holds a row's heads side by side, so one TMA box
+//     {64 columns, group heads, rows} is the tile, and every K/V tile the
+//     block stages serves all group heads of its 2 x 64 / group rows;
+//   * the producer's lane 0 loads both warpgroups' Q tiles once, then the
+//     band's 64-key K and V tiles (TMA, 128-byte swizzle, rows past Sk read
+//     as zeros) into a ring of kStages stages (5 at D = 64, 3 at D = 128);
+//   * each consumer warpgroup runs attn::consume over the block's key band;
+//     the mask (causal offset Sk - Sq, window, keys past Sk) runs only on
+//     tiles that cross the band's edge for its own rows;
+//   * out = o / l and lse = m ln 2 + log l are written from registers; a row
+//     that sees no key gets out = 0 and lse = -1e30.
+template <int D, int NWG>
+struct Fwd {
+  static constexpr int kNWG = NWG;  // consumer warpgroups
+  static constexpr int kSub = D / 64;
+  static constexpr int kStages = D == 64 ? 5 : 3;
+  static constexpr int kThreads = kNWG * 128 + 32;
+  static constexpr int kQ = kSub * ptt::attn::kTile;          // a Q tile
+  static constexpr int kStage = 2 * kSub * ptt::attn::kTile;  // K and V
+  static constexpr int kBars = kNWG * kQ + kStages * kStage;
+  static constexpr int kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
+};
+
+// the dense band mask of one warpgroup (its rows [w0, w1]; this thread's
+// two rows rA, rB)
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
-  constexpr int SD = D + 8, NO = D / 8, NS = kBK / 8;
+struct FwdHook {
+  const Params p;
+  const unsigned char* ring;
+  int t_lo, rA, rB, w0, w1, col0;
+  float sl2;
+  __device__ const unsigned char* k(int st) const {
+    return ring + st * Fwd<D, 1>::kStage;
+  }
+  __device__ const unsigned char* v(int st) const {
+    return k(st) + Fwd<D, 1>::kSub * ptt::attn::kTile;
+  }
+  __device__ void score(int j, int, float (&s)[32]) const {
+    const int k0 = (t_lo + j) * 64;
+    if (tile_full(p, w0, w1, k0, k0 + 63) && k0 + 64 <= p.Sk) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] *= sl2;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      float x = s[e] * sl2;
+      const int r = (e >> 1) & 1 ? rB : rA;
+      const int c = k0 + 8 * (e >> 2) + col0 + (e & 1);
+      if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;
+      s[e] = x;
+    }
+  }
+  __device__ void prob(int, int, float (&)[32]) const {}
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(Fwd<D, NWG>::kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                    const __grid_constant__ CUtensorMap tmK,
+                    const __grid_constant__ CUtensorMap tmV,
+                    const Params p) {
+  using L = Fwd<D, NWG>;
+  using ptt::attn::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * SD;      // [2][kBK][SD]
-  bf16* sV = sK + 2 * kBK * SD;  // [2][kBK][SD]
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = base + L::kNWG * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qbar = empty + L::kStages;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kBQ, q_last = min(q0 + kBQ, p.Sq) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const bf16* qg = static_cast<const bf16*>(p.q) +
-                   ((int64_t)b * p.Sq + q0) * qs + h * D;
-  const bf16* kg =
-      static_cast<const bf16*>(p.k) + (int64_t)b * p.Sk * ks + kvh * D;
-  const bf16* vg =
-      static_cast<const bf16*>(p.v) + (int64_t)b * p.Sk * ks + kvh * D;
-
+  const int group = p.H / p.KVH, rows = 64 / group;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int mt = gridDim.z - 1 - blockIdx.z;  // longest causal rows first
+  const int r0 = mt * L::kNWG * rows;
+  const int r_last = min(r0 + L::kNWG * rows, p.Sq) - 1;
   int klo, khi;
-  key_band(p, q0, q_last, klo, khi);
-  const int t_lo = klo / kBK;
-  const int t_hi = khi >= klo ? khi / kBK : t_lo - 1;
+  key_band(p, r0, r_last, klo, khi);
+  const int t_lo = klo / 64;
+  const int n = khi >= klo ? khi / 64 - t_lo + 1 : 0;
 
-  load_rows<kBQ, D>(sQ, qg, qs, p.Sq - q0);
-  if (t_lo <= t_hi) {
-    const int k0 = t_lo * kBK;
-    load_rows<kBK, D>(sK, kg + k0 * ks, ks, p.Sk - k0);
-    load_rows<kBK, D>(sV, vg + k0 * ks, ks, p.Sk - k0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
+    }
+    ptt::mbar_init(qbar, 1);
+    ptt::mbar_fence_init();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16)
-    ldsm4(qf[k0 / 16], a_addr<SD>(sQ, warp * 16, k0, lane));
-
-  float o[NO][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * kLog2e;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  for (int kt = t_lo; kt <= t_hi; ++kt) {
-    const int buf = (kt - t_lo) & 1;
-    if (kt < t_hi) {
-      const int k1 = (kt + 1) * kBK;
-      load_rows<kBK, D>(sK + (buf ^ 1) * kBK * SD, kg + k1 * ks, ks,
-                        p.Sk - k1);
-      load_rows<kBK, D>(sV + (buf ^ 1) * kBK * SD, vg + k1 * ks, ks,
-                        p.Sk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + buf * kBK * SD;
-    const bf16* cV = sV + buf * kBK * SD;
-    const int k0 = kt * kBK;
-
-    // s = q k^T
-    float s[NS][4] = {};
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bb[4];
-        ldsm4(bb, bn_addr<SD>(cK, np * 16, kd * 16, lane));
-        mma16816(s[2 * np], qf[kd], bb[0], bb[1]);
-        mma16816(s[2 * np + 1], qf[kd], bb[2], bb[3]);
-      }
-    }
-    // scale into the log2 domain; mask where the tile crosses the band
-    // or the end of the keys
-    const bool full = tile_full(p, q0, q0 + kBQ - 1, k0, k0 + kBK - 1) &&
-                      k0 + kBK <= p.Sk;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * sl2;
-        if (!full) {
-          const int r = row0 + (i >> 1) * 8, c = k0 + nt * 8 + 2 * t + (i & 1);
-          if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0 && n > 0) {
+      ptt::mbar_arrive_expect_tx(qbar, L::kNWG * L::kSub * group * rows * 128);
+      for (int wg = 0; wg < L::kNWG; ++wg)
+        for (int sub = 0; sub < L::kSub; ++sub)
+          ptt::tma_load_4d(base + wg * L::kQ + sub * kTile, &tmQ, qbar,
+                           sub * 64, kvh * group, r0 + wg * rows, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages)  // the consumers released this stage
+          ptt::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        unsigned char* st = ring + s * L::kStage;
+        const int k0 = (t_lo + j) * 64;
+        ptt::mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          ptt::tma_load_4d(st + sub * kTile, &tmK, &full[s], sub * 64, kvh,
+                           k0, b);
+          ptt::tma_load_4d(st + (L::kSub + sub) * kTile, &tmV, &full[s],
+                           sub * 64, kvh, k0, b);
         }
-        s[nt][i] = x;
-      }
-    // online softmax: row max over the quad of threads sharing a row
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mu[r] = mx == -INFINITY ? 0.f : mx;  // a row with no key so far
-      const float corr = exp2f(m[r] - mu[r]);
-      m[r] = mx;
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = exp2f(s[nt][i] - mu[i >> 1]);
-        s[nt][i] = e;
-        l[i >> 1] += e;  // this thread's share; the quad sums at the end
-      }
-    // o += p v, with p rounded to bf16 (the reference casts p to v's type)
-    gemm_pb<D, kBK / 16>(o, s, cV, lane);
-    __syncthreads();
+    return;
   }
 
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int wr0 = r0 + wg * rows;
+  const int pa0 = 16 * wq + g;  // this thread's pairs: pa0, pa0 + 8
+  const FwdHook<D> hook{p,  ring, t_lo, wr0 + pa0 / group,
+                        wr0 + (pa0 + 8) / group, wr0,
+                        min(wr0 + rows, p.Sq) - 1, 2 * t,
+                        p.scale * kLog2e};
+  if (n > 0) ptt::mbar_wait(qbar, 0);
+  float o[D / 2], m[2], l[2];
+  ptt::attn::consume<D, L::kStages>(base + wg * L::kQ, full, empty, n, hook,
+                                    o, m, l);
+
+  // out = o / l; accumulator element 4 j + i is pair pa0 + 8 (i / 2),
+  // column 8 j + 2 t + i % 2
+  const int64_t qs = (int64_t)p.H * D;
+  bf16* og = static_cast<bf16*>(p.out) + (int64_t)b * p.Sq * qs;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  // out = acc / l (0 for a row that sees no key)
+    const int pair = pa0 + 8 * r;
+    const int row = wr0 + pair / group, h = kvh * group + pair % group;
+    if (pair >= rows * group || row >= p.Sq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* dst = og + row * qs + h * D + 2 * t;
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][2 * r] = l[r] > 0.f ? o[n][2 * r] / l[r] : 0.f;
-      o[n][2 * r + 1] = l[r] > 0.f ? o[n][2 * r + 1] / l[r] : 0.f;
-    }
-  bf16* og = static_cast<bf16*>(p.out) + (int64_t)b * p.Sq * qs + h * D;
-  store_rows<D>(og, qs, q0 + warp * 16, p.Sq, o, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + r * 8;
-      if (row < p.Sq)
-        p.lse[((int64_t)b * p.H + h) * p.Sq + row] =
-            l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNoKeyLse;
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (t == 0)
+      p.lse[((int64_t)b * p.H + h) * p.Sq + row] =
+          l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNoKeyLse;
   }
 }
 
@@ -800,21 +812,28 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a bf16 [B, S, heads, D] tensor in boxes of `rows` rows x 64 columns of
-// one head, 128-byte swizzled; rows past S read as zeros
-bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
-              int heads, int s, int b, int rows) {
+// a bf16 [B, S, heads, D] tensor in boxes of `rows` rows x `box_heads`
+// consecutive heads x 64 columns, 128-byte swizzled (in shared memory the
+// box's rows of 128 bytes go head-fastest); rows past S read as zeros
+bool map_heads_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
+                    int heads, int s, int b, int box_heads, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)s, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)heads * d * 2,
                                  (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same in boxes of `rows` rows x 64 columns of one head
+bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
+              int heads, int s, int b, int rows) {
+  return map_heads_rows(enc, m, ptr, d, heads, s, b, 1, rows);
 }
 
 // a float32 vector of n in boxes of 64; past n reads as zeros
@@ -851,6 +870,46 @@ int launch_dkdv_wgmma(const Params& p, cudaStream_t stream) {
       <<<dim3(p.KVH, p.B, blocks(p.Sk, L::kBK)), L::kThreads, L::kSmem,
          stream>>>(mq, mo, mk, mv, ml, md, p);
   return (int)cudaGetLastError();
+}
+
+template <int D, int NWG>
+int launch_fwd_wgmma(const Params& p, unsigned mtiles, const CUtensorMap& mq,
+                     const CUtensorMap& mk, const CUtensorMap& mv,
+                     cudaStream_t stream) {
+  using L = Fwd<D, NWG>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wgmma<D, NWG><<<dim3(p.KVH, p.B, mtiles), L::kThreads, L::kSmem,
+                            stream>>>(mq, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
+// the tensor maps, then the launch
+template <int D>
+int launch_fwd(const Params& p, cudaStream_t stream) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int group = p.H / p.KVH;
+  if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
+  const int rows = 64 / group;
+  // the most warpgroups a block (3 at D = 64, 2 at D = 128, where O takes
+  // twice the registers) that still give every SM a block
+  int nwg = D == 64 ? 3 : 2;
+  while (nwg > 1 && (int64_t)blocks(p.Sq, nwg * rows) * p.KVH * p.B < 132)
+    --nwg;
+  const unsigned mtiles = blocks(p.Sq, nwg * rows);
+  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!map_heads_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, group, rows) ||
+      !map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, 64) ||
+      !map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, 64))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (D == 64)
+    if (nwg == 3) return launch_fwd_wgmma<D, 3>(p, mtiles, mq, mk, mv, stream);
+  return nwg == 2 ? launch_fwd_wgmma<D, 2>(p, mtiles, mq, mk, mv, stream)
+                  : launch_fwd_wgmma<D, 1>(p, mtiles, mq, mk, mv, stream);
 }
 
 int check(const Params& p, int64_t D, int dtype) {
@@ -893,10 +952,9 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Sq, kBQ), p.H, p.B), gf(blocks(p.Sq, kWarps), p.H, p.B);
   if (dtype == ptt::kBFloat16)
-    return D == 64 ? launch(flash_fwd_bf16<64>, gb, fwd_smem<64>(), s, p)
-                   : launch(flash_fwd_bf16<128>, gb, fwd_smem<128>(), s, p);
+    return D == 64 ? launch_fwd<64>(p, s) : launch_fwd<128>(p, s);
+  const dim3 gf(blocks(p.Sq, kWarps), p.H, p.B);
   return D == 64 ? launch(flash_fwd_f32<64>, gf, 0, s, p)
                  : launch(flash_fwd_f32<128>, gf, 0, s, p);
 }

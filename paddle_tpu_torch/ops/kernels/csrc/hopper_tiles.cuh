@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
 // mbarriers, TMA tensor-map loads, wgmma shared-memory descriptors for the
 // 128-byte swizzle, and warpgroup matrix products (wgmma) with float32
-// accumulators. The dK/dV kernel (flash_attention.cu) is built on them.
+// accumulators. The bf16 flash dK/dV kernel (flash_attention.cu) and the
+// forward-attention core (attn_fwd_tiles.cuh: the bf16 flash forward and
+// the ragged paged kernel's tensor-core route) are built on them.
 //
 // Layouts. A TMA load with CU_TENSOR_MAP_SWIZZLE_128B of a box whose inner
 // extent is 64 bf16 (128 bytes) writes rows of 128 bytes, the 16-byte

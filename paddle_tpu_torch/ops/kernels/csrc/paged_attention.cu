@@ -1,17 +1,25 @@
 // Paged attention for Hopper (sm_90a): the unified ragged kernel and the
 // dedicated decode kernel.
 //
-// ragged_kernel replaces paddle_tpu/ops/kernels/paged_attention.py::
-// _ragged_kernel (the Pallas kernel behind paged_ragged_attention() and
-// the attention core of paged_ragged_fused_step()); decode_kernel_split
-// and decode_kernel_merge, at the end of this file, replace its
-// _decode_kernel.
+// ptt_paged_ragged_attention replaces paddle_tpu/ops/kernels/
+// paged_attention.py::_ragged_kernel (the Pallas kernel behind
+// paged_ragged_attention() and the attention core of
+// paged_ragged_fused_step()); decode_kernel_split and decode_kernel_merge,
+// further down, replace its _decode_kernel. One call of the ragged entry
+// takes one of three routes, chosen on the host from the shapes alone
+// (never from seq_lens or q_lens, which live on the device):
+//   * T = 1 (every decode-only serving step): the decode kernel's split
+//     over whole-page chunks and its ordered merge, with q_lens (a row of
+//     q_len 0 returns exactly 0);
+//   * T > 1, bf16 q (bf16 or int8 pages): ragged_kernel_wgmma, on the
+//     tensor cores (the forward-attention core of attn_fwd_tiles.cuh), its
+//     keys split over chunks of whole pages, then ragged_kernel_merge;
+//   * T > 1, float32 q: ragged_kernel, float32 on the CUDA cores.
 //
-// Both take K/V pages of q's type (float32, bfloat16) or int8 codes with
+// All take K/V pages of q's type (float32, bfloat16) or int8 codes with
 // per-page, per-kv-head float32 scales k_scales/v_scales [NP, KVH]: a
-// staged int8 row is widened and multiplied by the scale of the PHYSICAL
-// page it came from (page_table[b, kpos / P]) and its kv head, so
-// everything after staging is the float path.
+// key's int8 codes count with the scale of the PHYSICAL page it came from
+// (page_table[b, kpos / P]) and its kv head.
 //
 // Computes, for q [B, T, H, D] whose rows are right-aligned new tokens,
 // K/V pages [NP, P, KVH, D], page_table [B, MP] int32, seq_lens [B] and
@@ -22,9 +30,9 @@
 //   * rows r < T - q_lens[b] are padding and return exactly 0, as do
 //     rows of a sequence with seq_len 0 (the page-table padding rows);
 //   * q head h reads kv head h / (H / KVH); K/V are never repeated;
-//   * softmax statistics and the output accumulate in float32; masked
-//     scores are NEG_INF = -1e30, and the output is divided by
-//     safe_l = max(l, 1e-30), then cast to q's dtype.
+//   * page ids outside [0, NP) read as zero keys;
+//   * softmax statistics and the output accumulate in float32, and the
+//     output is divided by safe_l = max(l, 1e-30), then cast to q's dtype.
 // Keys outside [window floor of the lowest real row, seq_len) are never
 // loaded: the loop over keys is bounded by seq_len, not by the table
 // width, and skips pages wholly below every row's window.
@@ -35,29 +43,29 @@
 // visits, pages [0, ceil(seq_len / P)) (no window floor excludes one of
 // them, since the lowest row's floor is then below 0). A second small
 // kernel writes those rows, launched only when q_lens is absent, so the
-// main kernel's serving path carries none of that code.
+// main kernels' serving path carries none of that code.
 //
-// What bounds it on the H100: at the serving shapes, bytes for decode
-// rows (each KV byte is used by the 4 q heads of its group for one row:
-// ~2 flops per byte read) and, for a 248-token prefill chunk, arithmetic
-// (~1000 flops per KV byte). This first version runs the products on
-// the CUDA cores in float32, not on the tensor cores, so the prefill
-// case sits far from its tensor-core floor; wgmma/TMA come later.
+// Rounding. The tensor-core route follows the Pallas float branch: bf16
+// operands (int8 codes widened to bf16, exact for |code| <= 127), float32
+// accumulation, p rounded to bf16 before P V (pvals.astype(v.dtype)), the
+// int8 K scale applied to S's columns and the V scale to P's columns
+// before that rounding. The decode route and the float32 route keep p in
+// float32.
 //
-// Design: grid (ceil(T / TQ), KVH, B). A block serves TQ query rows for
-// all `group` q heads of one kv head, so every K/V tile it stages is
-// used by the whole group (R = TQ * group <= 32 row-heads, 8 per warp).
-// Keys are staged 32 at a time into shared memory, widened to float32
-// with 16-byte loads (8 bf16, 4 float or 16 int8 codes; K rows padded
-// by one float so that lane j reading key j is free of bank conflicts);
-// a 32-key tile spans two 16-slot pages, so an int8 row takes the scale
-// of its own page. For QK^T each lane owns one key of
-// the tile and dots it with the (pre-scaled) query row; for PV each
-// lane owns D/32 output columns. The online-softmax state (m, l, acc)
-// of each of a warp's row-heads lives in registers.
+// ragged_kernel (float32 q). Grid (ceil(T / TQ), KVH, B). A block serves
+// TQ query rows for all `group` q heads of one kv head, so every K/V tile
+// it stages is used by the whole group (R = TQ * group <= 32 row-heads, 8
+// per warp). Keys are staged 32 at a time into shared memory, widened to
+// float32 with 16-byte loads (4 float or 16 int8 codes; K rows padded by
+// one float so that lane j reading key j is free of bank conflicts). For
+// QK^T each lane owns one key of the tile and dots it with the
+// (pre-scaled) query row; for PV each lane owns D/32 output columns. The
+// online-softmax state (m, l, acc) of each of a warp's row-heads lives in
+// registers.
 
 #include <type_traits>
 
+#include "attn_fwd_tiles.cuh"
 #include "common.cuh"
 
 namespace {
@@ -68,6 +76,26 @@ constexpr int kKT = 32;              // keys per staged tile
 constexpr int kMaxRH = 32;           // row-heads per block
 constexpr int kRW = kMaxRH / kWarps; // row-heads per warp
 constexpr float kNegInf = -1e30f;    // masked score, the reference's NEG_INF
+
+// The real rows [row_lo, row_hi) of the block of rows [r0, r0 + rows) of a
+// sequence with seq_len keys and q_len real rows, and the keys
+// [kstart, kend) they see
+__device__ __forceinline__ void ragged_rows_range(int seq_len, int q_len,
+                                                  int t, int r0, int rows,
+                                                  int window, int mp,
+                                                  int page, int& row_lo,
+                                                  int& row_hi, int& kstart,
+                                                  int& kend) {
+  row_lo = max(r0, t - q_len);
+  row_hi = min(r0 + rows, t);
+  kstart = kend = 0;
+  if (row_lo < row_hi && seq_len > 0) {
+    const int qpos_lo = seq_len - t + row_lo;
+    const int qpos_hi = seq_len - t + row_hi - 1;
+    kend = min(min(qpos_hi + 1, seq_len), mp * page);
+    kstart = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  }
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -102,17 +130,9 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   const int lane = threadIdx.x % 32;
 
   const int seq_len = lens[b];
-  const int q_len = qlens != nullptr ? qlens[b] : t;
-  // real rows of this block: [row_lo, row_hi)
-  const int row_lo = max(r0, t - q_len);
-  const int row_hi = min(r0 + tq, t);
-  int kstart = 0, kend = 0;
-  if (row_lo < row_hi && seq_len > 0) {
-    const int qpos_lo = seq_len - t + row_lo;
-    const int qpos_hi = seq_len - t + row_hi - 1;
-    kend = min(min(qpos_hi + 1, seq_len), mp * page);
-    kstart = window > 0 ? max(0, qpos_lo - window + 1) : 0;
-  }
+  int row_lo, row_hi, kstart, kend;
+  ragged_rows_range(seq_len, qlens != nullptr ? qlens[b] : t, t, r0, tq,
+                    window, mp, page, row_lo, row_hi, kstart, kend);
 
   for (int i = threadIdx.x; i < rh_count * D; i += kThreads) {
     const int rh = i / D, d = i % D;
@@ -153,8 +173,8 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
         ptt::load16(kp + off, fk);
         ptt::load16(vp + off, fv);
         if (kscale != nullptr) {  // int8 codes: this key's page, kv head
-          const int64_t scale_row = (int64_t)pg * kvh_total + kvh;
-          const float k_sc = kscale[scale_row], v_sc = vscale[scale_row];
+          const int64_t sc_row = (int64_t)pg * kvh_total + kvh;
+          const float k_sc = kscale[sc_row], v_sc = vscale[sc_row];
 #pragma unroll
           for (int e = 0; e < VN; ++e) {
             fk[e] *= k_sc;
@@ -264,6 +284,407 @@ __global__ void __launch_bounds__(D) no_key_rows_kernel(
     out[(((int64_t)b * t + r) * h_total + h) * D + d] = mean;
 }
 
+// ------------------------------------------------- ragged, tensor cores
+//
+// ragged_kernel_wgmma: the route for T > 1 with bf16 q (a prefill chunk,
+// alone or beside decode rows). What bounds it on the H100: operations for
+// a chunk (a 248-row chunk uses each K/V byte for ~1000 flops), bytes for
+// the decode rows beside it. Design, on the core of attn_fwd_tiles.cuh:
+//   * M packing: a block's M tile is 64 (row, q head) pairs of one kv
+//     head's group over consecutive rows, 64 / group rows x the group's
+//     heads (16 x 4 at Llama-3's group 4, 9 x 7 at Qwen2's group 7), so
+//     each staged K/V byte serves the whole group. Grid (splits, B * KVH,
+//     tiles); a tile with no real row, or a split whose keys its rows do
+//     not see, exits at once.
+//   * split over keys: a block takes the keys of one chunk of chunk_pages
+//     whole pages (splits = ceil(MP / chunk_pages), sized on the host from
+//     the shapes: paged_attention.ragged_split_plan). With one split the
+//     block writes its rows itself; with more, each block writes float32
+//     partials (acc[D], m, l per pair) to a workspace
+//     [B, KVH, tiles, splits, 64, D + 2] and ragged_kernel_merge combines a
+//     row's non-empty chunks in order, without atomics (two runs give the
+//     same bits).
+//   * one consumer warpgroup runs attn::consume over the block's 64-key
+//     tiles; one producer warpgroup stages them into a ring of kStages
+//     stages: for each key, its page id (the block's slice of the page
+//     table is read into shared memory first), then 16-byte cp.async
+//     copies of its K and V rows of this kv head (zeros for keys outside
+//     the block's range and for page ids outside [0, NP)), 128-byte
+//     swizzled, kStages - 1 tiles in flight. Int8 codes land in a raw
+//     slot and are widened to bf16 into the stage (exact); each key's K
+//     and V scales, of its physical page, go beside the stage and are
+//     applied to S's and P's columns.
+//   * the mask (causal, window, the block's key range) runs only on tiles
+//     that cross an edge for the tile's real rows. Rows that are not real
+//     are neither masked nor written (exact zeros come from the epilogue
+//     or the merge).
+// On the H100 (PERF.md) two consumer warpgroups a block with setmaxnreg
+// measured slower at the mixed bucket, and the split pays only where a
+// split gives SMs without a block one (ragged_split_plan).
+
+// pages a block of the tensor-core route takes at most (its page table
+// slice is staged in shared memory)
+constexpr int kRagMaxChunkPages = 1024;
+
+template <typename KT, int D>
+struct RaggedTc {
+  static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  static constexpr int kSub = D / 64;
+  // D = 64: two blocks an SM (registers <= 128 a thread); D = 128: the
+  // consumer's O, S and P fragments take ~170 registers, one block an SM
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 1;  // tiles a producer has in flight
+  static constexpr int kThreads = 256;  // consumer and producer warpgroups
+  static constexpr int kQ = kSub * ptt::attn::kTile;   // the M tile's q
+  static constexpr int kKV = kSub * ptt::attn::kTile;  // a K or V tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kScales = kStages * 2 * 64 * 4;  // [stage][K, V][64]
+  // int8: a slot of raw codes a stage, [K, V][64 keys][D], then their
+  // scales [K, V][64]
+  static constexpr int kRaw = kQuant ? 2 * 64 * D + 2 * 64 * 4 : 0;
+  // the block's slice of the page table (its keys lie in one chunk)
+  static constexpr int kTab = kRagMaxChunkPages * 4;
+  static constexpr int kBars =
+      kQ + kStages * (kStage + kRaw) + kScales + kTab;
+  static constexpr int kSmem = 1024 + kBars + 8 * 2 * kStages;
+};
+
+// 4 bytes global -> shared by cp.async; bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   ptt::smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// the paged band mask and the int8 scales of one M tile
+template <typename KT, int D>
+struct RaggedHook {
+  const unsigned char* ring;
+  const float* scales;
+  int kt0, lo, hi, q_lo, q_hi, window, qA, qB, col0;
+  float sl2;
+  __device__ const unsigned char* k(int st) const {
+    return ring + st * RaggedTc<KT, D>::kStage;
+  }
+  __device__ const unsigned char* v(int st) const {
+    return k(st) + RaggedTc<KT, D>::kKV;
+  }
+  __device__ void score(int j, int st, float (&s)[32]) const {
+    const int k0 = (kt0 + j) * 64;
+    const float* ksc = scales + st * 128;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] *= sl2;
+      if constexpr (std::is_same<KT, int8_t>::value)
+        s[e] *= ksc[8 * (e >> 2) + col0 + (e & 1)];
+    }
+    if (k0 >= lo && k0 + 64 <= hi && k0 + 63 <= q_lo &&
+        (window <= 0 || q_hi - k0 < window))
+      return;  // every key of the tile is kept for every real row
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qpos = (e >> 1) & 1 ? qB : qA;
+      const int kpos = k0 + 8 * (e >> 2) + col0 + (e & 1);
+      const bool kept = (kpos >= lo) & (kpos < hi) & (kpos <= qpos) &
+                        ((window <= 0) | (qpos - kpos < window));
+      s[e] = kept ? s[e] : -INFINITY;
+    }
+  }
+  __device__ void prob(int, int st, float (&p)[32]) const {
+    if constexpr (std::is_same<KT, int8_t>::value) {
+      const float* vsc = scales + st * 128 + 64;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p[e] *= vsc[8 * (e >> 2) + col0 + (e & 1)];
+    }
+  }
+};
+
+// 16 int8 codes as two 16-byte chunks of bf16 (exact)
+__device__ __forceinline__ void widen_codes(const uint4& raw, uint4& lo,
+                                            uint4& hi) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = ptt::attn::pack_bf16((float)e[2 * i], (float)e[2 * i + 1]);
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <typename KT, int D>
+__global__ void __launch_bounds__(RaggedTc<KT, D>::kThreads,
+                                  RaggedTc<KT, D>::kMinBlocks)
+    ragged_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                        const KT* __restrict__ kp, const KT* __restrict__ vp,
+                        const float* __restrict__ kscale,
+                        const float* __restrict__ vscale,
+                        const int* __restrict__ tbl,
+                        const int* __restrict__ lens,
+                        const int* __restrict__ qlens,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ part, int t, int h_total,
+                        int kvh_total, int np, int page, int mp,
+                        int chunk_pages, float scale, int window) {
+  using L = RaggedTc<KT, D>;
+  using ptt::attn::sw128_offset;
+  constexpr bool kQuant = L::kQuant;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  unsigned char* base =
+      dsmem + ((1024 - (ptt::smem_addr(dsmem) & 1023)) & 1023);
+  unsigned char* sQ = base;
+  unsigned char* ring = base + L::kQ;
+  float* scales = reinterpret_cast<float*>(ring + L::kStages * L::kStage);
+  unsigned char* raw = reinterpret_cast<unsigned char*>(scales) + L::kScales;
+  int* stab = reinterpret_cast<int*>(raw + L::kStages * L::kRaw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+
+  // the tile is the slowest grid axis, walked last to first: the last
+  // tiles hold the decode rows and a chunk's rows with the most keys, so
+  // the longest blocks start first
+  const int split = blockIdx.x, tile = gridDim.z - 1 - blockIdx.z;
+  const int b = blockIdx.y / kvh_total, kvh = blockIdx.y % kvh_total;
+  const int group = h_total / kvh_total, rows_t = 64 / group;
+  const int r0 = tile * rows_t;
+  const int seq_len = lens[b];
+  int row_lo, row_hi, kstart, kend;
+  ragged_rows_range(seq_len, qlens != nullptr ? qlens[b] : t, t, r0, rows_t,
+                    window, mp, page, row_lo, row_hi, kstart, kend);
+  const int chunk = chunk_pages * page;
+  const int lo = max(split * chunk, kstart);
+  const int hi = min(split * chunk + chunk, kend);
+  if (lo >= hi) {
+    if (part == nullptr) {  // one split: the block's rows are all zeros
+      const int nrow = min(r0 + rows_t, t) - r0;
+      for (int i = threadIdx.x; i < nrow * group * (D / 8); i += L::kThreads) {
+        const int pr = i / (D / 8), c = i % (D / 8);
+        const int64_t o = (((int64_t)b * t + r0 + pr / group) * h_total +
+                           kvh * group + pr % group) * D + c * 8;
+        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  const int kt0 = lo / 64, n = (hi - 1) / 64 - kt0 + 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 128);
+      ptt::mbar_init(&empty[s], 128);
+    }
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // --------------------- producer warpgroup
+    // Each thread copies its own 16-byte chunks of every tile by cp.async
+    // (bf16: straight into the stage, 128-byte swizzled; int8: into the
+    // stage's raw slot) and keeps kAhead tiles in flight; once its copies
+    // of tile j have landed (int8: and it has widened them to bf16 in the
+    // stage), it fences them for wgmma and arrives on the stage's `full`.
+    constexpr int VN = 16 / (int)sizeof(KT);  // elements of a 16-byte copy
+    constexpr int VPR = D / VN;               // copies of a key row
+    constexpr int PER = 64 * VPR / 128;       // a thread's copies of K (of V)
+    const int pt = threadIdx.x - 128;
+    // the block's slice of the page table, pages [lo / P, (hi - 1) / P]
+    const int p_first = lo / page;
+    const int n_tab = min((hi - 1) / page - p_first + 1, kRagMaxChunkPages);
+    for (int i = pt; i < n_tab; i += 128)
+      stab[i] = tbl[(int64_t)b * mp + p_first + i];
+    ptt::attn::named_sync(1, 128);
+    // the physical pages of this thread's keys of tile i (-1: no key of
+    // the block's range, or a page id outside [0, NP): read as zeros)
+    auto pages = [&](int i, int (&pg)[PER]) {
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int kpos = (kt0 + i) * 64 + (pt + 128 * u) / VPR;
+        const int id =
+            kpos >= lo && kpos < hi ? stab[kpos / page - p_first] : -1;
+        pg[u] = id >= 0 && id < np ? id : -1;
+      }
+    };
+    int pg[PER], pg_next[PER];
+    pages(0, pg);
+    for (int i = 0; i < n + L::kAhead; ++i) {
+      // complete tile j = i - kAhead first: the consumers release a stage
+      // only once the tile after it is complete
+      const int j = i - L::kAhead;
+      if (j >= 0) {
+        ptt::cp_async_wait<L::kAhead - 1>();  // tiles 0..i-1 were committed
+        const int s = j % L::kStages;
+        if constexpr (kQuant) {
+          if (j >= L::kStages)
+            ptt::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+          const unsigned char* kr = raw + s * L::kRaw;
+          const unsigned char* vr = kr + 64 * D;
+          const float* rs = reinterpret_cast<const float*>(kr + 2 * 64 * D);
+          unsigned char* kd = ring + s * L::kStage;
+          unsigned char* vd = kd + L::kKV;
+  #pragma unroll
+          for (int u = 0; u < PER; ++u) {
+            const int idx = pt + 128 * u, key = idx / VPR, c = idx % VPR;
+            uint4 a, b2;
+            widen_codes(*reinterpret_cast<const uint4*>(kr + key * D + c * 16),
+                        a, b2);
+            *reinterpret_cast<uint4*>(kd + sw128_offset(key, 2 * c)) = a;
+            *reinterpret_cast<uint4*>(kd + sw128_offset(key, 2 * c + 1)) = b2;
+            widen_codes(*reinterpret_cast<const uint4*>(vr + key * D + c * 16),
+                        a, b2);
+            *reinterpret_cast<uint4*>(vd + sw128_offset(key, 2 * c)) = a;
+            *reinterpret_cast<uint4*>(vd + sw128_offset(key, 2 * c + 1)) = b2;
+            if (c == 0) {
+              scales[s * 128 + key] = rs[key];
+              scales[s * 128 + 64 + key] = rs[64 + key];
+            }
+          }
+        }
+        ptt::attn::fence_proxy_async();
+        ptt::mbar_arrive(&full[s]);
+      }
+      if (i < n) {
+        const int s = i % L::kStages;
+        if (i + 1 < n) pages(i + 1, pg_next);  // in flight during the copies
+        unsigned char* kd = kQuant ? raw + s * L::kRaw : ring + s * L::kStage;
+        unsigned char* vd = kd + (kQuant ? 64 * D : L::kKV);
+        if (!kQuant && i >= L::kStages)  // the consumers released the stage
+          ptt::mbar_wait(&empty[s], (i / L::kStages - 1) & 1);
+        const int k0 = (kt0 + i) * 64;
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+          const int idx = pt + 128 * u, key = idx / VPR, c = idx % VPR;
+          const bool ok = pg[u] >= 0;
+          const int64_t off =
+              ok ? (((int64_t)pg[u] * page + (k0 + key) % page) * kvh_total +
+                    kvh) * D + c * VN
+                 : 0;
+          const int dst = kQuant ? key * D + c * 16 : sw128_offset(key, c);
+          ptt::cp_async16(kd + dst, kp + off, ok ? 16 : 0);
+          ptt::cp_async16(vd + dst, vp + off, ok ? 16 : 0);
+          if (kQuant && c == 0) {  // the key's own page's scales
+            const int page_id = ok ? pg[u] : 0;
+            const int64_t scale_row = (int64_t)page_id * kvh_total + kvh;
+            float* rs = reinterpret_cast<float*>(kd + 2 * 64 * D);
+            cp_async4(rs + key, kscale + scale_row, ok ? 4 : 0);
+            cp_async4(rs + 64 + key, vscale + scale_row, ok ? 4 : 0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PER; ++u) pg[u] = pg_next[u];
+      }
+      ptt::cp_async_commit();
+    }
+    return;
+  }
+
+  // ---------------------------------------------------- consumer warpgroup
+  // the M tile's q: pair i is row r0 + i / group, q head kvh * group +
+  // i % group; pairs past the tile's rows and rows past T stay zero
+  for (int i = threadIdx.x; i < 64 * (D / 8); i += 128) {
+    const int pair = i / (D / 8), c = i % (D / 8);
+    const int row = r0 + pair / group;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (pair < rows_t * group && row < t)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          q + (((int64_t)b * t + row) * h_total + kvh * group + pair % group) *
+                  D + c * 8));
+    *reinterpret_cast<uint4*>(sQ + sw128_offset(pair, c)) = v;
+  }
+  ptt::attn::fence_proxy_async();
+  ptt::attn::named_sync(2, 128);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int pa0 = 16 * warp + g;  // this thread's pairs: pa0, pa0 + 8
+  const int qbase = seq_len - t + r0;
+  const RaggedHook<KT, D> hook{ring, scales, kt0, lo, hi,
+                               seq_len - t + row_lo, seq_len - t + row_hi - 1,
+                               window, qbase + pa0 / group,
+                               qbase + (pa0 + 8) / group, 2 * t4,
+                               scale * ptt::attn::kLog2e};
+  float o[D / 2], m[2], l[2];
+  ptt::attn::consume<D, L::kStages>(sQ, full, empty, n, hook, o, m, l);
+
+  // accumulator element 4 j + i is pair pa0 + 8 (i / 2), column
+  // 8 j + 2 t4 + i % 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pair = pa0 + 8 * r;
+    const int row = r0 + pair / group;
+    if (part == nullptr) {
+      if (pair >= rows_t * group || row >= t) continue;
+      const bool real = row >= row_lo && row < row_hi;
+      const float inv = real ? 1.f / fmaxf(l[r], 1e-30f) : 0.f;
+      __nv_bfloat16* dst =
+          out + (((int64_t)b * t + row) * h_total + kvh * group +
+                 pair % group) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = ptt::attn::pack_bf16(
+            o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    } else {
+      float* dst = part + (((((int64_t)b * kvh_total + kvh) * gridDim.z +
+                             tile) * gridDim.x + split) * 64 + pair) * (D + 2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j + 2 * t4) =
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      if (t4 == 0) {
+        dst[D] = m[r];
+        dst[D + 1] = l[r];
+      }
+    }
+  }
+}
+
+// one block per (row, sequence), its threads over the row's (q head,
+// column) outputs: a real row's non-empty chunks [first, last] combined in
+// order (m in the log2 domain); padded rows and rows of seq_len 0 are
+// exactly 0
+template <int D>
+__global__ void __launch_bounds__(256) ragged_kernel_merge(
+    const float* __restrict__ part, const int* __restrict__ lens,
+    const int* __restrict__ qlens, __nv_bfloat16* __restrict__ out, int t,
+    int h_total, int kvh_total, int page, int mp, int chunk_pages,
+    int tiles, int splits, int window) {
+  const int row = blockIdx.x, b = blockIdx.y;
+  const int group = h_total / kvh_total, rows_t = 64 / group;
+  const int tile = row / rows_t, r0 = tile * rows_t;
+  int row_lo, row_hi, kstart, kend;
+  ragged_rows_range(lens[b], qlens != nullptr ? qlens[b] : t, t, r0, rows_t,
+                    window, mp, page, row_lo, row_hi, kstart, kend);
+  const int chunk = chunk_pages * page;
+  const int first = kstart / chunk;
+  const int last = kstart < kend ? (kend - 1) / chunk : first - 1;
+  const bool real = row >= row_lo && row < row_hi;
+  const int64_t stride = 64 * (D + 2);  // one split to the next
+  __nv_bfloat16* o = out + ((int64_t)b * t + row) * h_total * D;
+  for (int i = threadIdx.x; i < h_total * D; i += blockDim.x) {
+    const int h = i / D, d = i % D;
+    float val = 0.f;
+    if (real) {
+      const int pair = (row - r0) * group + h % group;
+      const float* pr =
+          part + ((((int64_t)b * kvh_total + h / group) * tiles + tile) *
+                      splits * 64 + pair) * (D + 2);
+      float mm = -INFINITY;
+      for (int s = first; s <= last; ++s) mm = fmaxf(mm, pr[s * stride + D]);
+      if (mm != -INFINITY) {
+        float l = 0.f, a = 0.f;
+        for (int s = first; s <= last; ++s) {
+          const float w = exp2f(pr[s * stride + D] - mm);
+          l += pr[s * stride + D + 1] * w;
+          a += pr[s * stride + d] * w;
+        }
+        val = a / fmaxf(l, 1e-30f);
+      }
+    }
+    o[i] = __float2bfloat16_rn(val);
+  }
+}
+
 // ---------------------------------------------------------------- decode
 //
 // decode_kernel_split and decode_kernel_merge replace
@@ -277,10 +698,12 @@ __global__ void __launch_bounds__(D) no_key_rows_kernel(
 //   * q head h reads kv head h / (H / KVH);
 //   * softmax statistics and the output accumulate in float32; the
 //     output is divided by max(l, 1e-30), so a row with seq_len 0 (a
-//     page-table padding row) returns exactly 0.
+//     page-table padding row) returns exactly 0;
+//   * called for the ragged entry at T = 1, q_lens [B] (or none) marks the
+//     real rows: a row of q_len 0 returns exactly 0.
 // Rounding: the Pallas float branch rounds p to the page type before PV
 // (pvals.astype(v.dtype)), its int8 branch does not (v is float32 there).
-// These kernels keep p in float32 on both branches, as ragged_kernel does.
+// These kernels keep p in float32 on both branches.
 //
 // What bounds it on the H100: bytes. Each K/V byte serves the `group` q
 // heads of its kv head once (~2 * group flops per byte), far below the
@@ -327,12 +750,14 @@ constexpr int kDecStages = 2;           // cp.async ring depth, per warp
 constexpr int kDecRH = 8;               // row-heads a block serves
 constexpr int kDecMaxChunkPages = 128;  // pages of a chunk's table slice
 
-// keys [kstart, kend) of a decode row with seq_len keys
-__device__ __forceinline__ void decode_range(int seq_len, int window, int mp,
-                                             int page, int& kstart,
-                                             int& kend) {
+// keys [kstart, kend) of a decode row with seq_len keys; none for a row
+// that is not real (the ragged entry's q_len 0)
+__device__ __forceinline__ void decode_range(int seq_len, bool real,
+                                             int window, int mp, int page,
+                                             int& kstart, int& kend) {
   kend = min(seq_len, mp * page);
   kstart = window > 0 ? max(0, seq_len - window) : 0;
+  if (!real) kend = kstart;
 }
 
 // shared memory of decode_kernel_split (bytes): the pre-scaled q rows, the
@@ -380,7 +805,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel_split(
     const T* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ tbl,
-    const int* __restrict__ lens, float* __restrict__ part, int h_total,
+    const int* __restrict__ lens, const int* __restrict__ qlens,
+    float* __restrict__ part, int h_total,
     int kvh_total, int np, int page, int mp, int chunk_pages, float scale,
     int window) {
   using S = DecodeSmem<KT, D>;
@@ -403,7 +829,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel_split(
   const int kvh = blockIdx.y / nrb, rh0 = blockIdx.y % nrb * kDecRH;
   const int nrh = min(kDecRH, group - rh0);
   int kstart, kend;
-  decode_range(lens[b], window, mp, page, kstart, kend);
+  decode_range(lens[b], qlens == nullptr || qlens[b] > 0, window, mp, page,
+               kstart, kend);
   const int chunk = chunk_pages * page;
   const int lo = max(split * chunk, kstart);
   const int hi = min(split * chunk + chunk, kend);
@@ -612,12 +1039,14 @@ __global__ void __launch_bounds__(kThreads) decode_kernel_split(
 template <typename T, int D>
 __global__ void __launch_bounds__(D) decode_kernel_merge(
     const float* __restrict__ part, const int* __restrict__ lens,
-    T* __restrict__ out, int h_total, int kvh_total, int page, int mp,
+    const int* __restrict__ qlens, T* __restrict__ out, int h_total,
+    int kvh_total, int page, int mp,
     int chunk_pages, int splits, int window) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int group = h_total / kvh_total;
   int kstart, kend;
-  decode_range(lens[b], window, mp, page, kstart, kend);
+  decode_range(lens[b], qlens == nullptr || qlens[b] > 0, window, mp, page,
+               kstart, kend);
   const int chunk = chunk_pages * page;
   const int s_lo = kstart / chunk;
   const int s_hi = kstart < kend ? (kend + chunk - 1) / chunk : s_lo;
@@ -644,9 +1073,63 @@ struct Args {
   int64_t b, t, h, kvh, np, page, mp, window;
   float scale;
   cudaStream_t stream;
-  float* part;          // decode: the split partials' workspace
-  int64_t chunk_pages;  // decode: pages a split block takes
+  float* part;          // the split partials' workspace (or none)
+  int64_t chunk_pages;  // pages a split block takes
 };
+
+// after a T > 1 route without q_lens, on the same stream: the rows that
+// see no key
+template <typename T, typename KT, int D>
+int launch_no_key_rows(const Args& a) {
+  if (a.qlens == nullptr)
+    no_key_rows_kernel<T, KT, D>
+        <<<dim3((unsigned)a.b, (unsigned)a.h), D, 0, a.stream>>>(
+            static_cast<const KT*>(a.vp), static_cast<const float*>(a.vs),
+            static_cast<const int*>(a.tbl), static_cast<const int*>(a.lens),
+            static_cast<T*>(a.out), (int)a.t, (int)a.h, (int)a.kvh,
+            (int)a.np, (int)a.page, (int)a.mp);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core route: the split pass, then (with a workspace) the
+// merge, then (q_lens absent) the rows that see no key, on one stream
+template <typename KT, int D>
+int launch_ragged_tc(const Args& a) {
+  using L = RaggedTc<KT, D>;
+  const int rows = (int)(64 / (a.h / a.kvh));
+  const int64_t tiles = (a.t + rows - 1) / rows;
+  const int64_t splits = (a.mp + a.chunk_pages - 1) / a.chunk_pages;
+  if (a.chunk_pages < 1 || a.chunk_pages > kRagMaxChunkPages ||
+      tiles > 65535 || a.t > 65535 ||
+      a.b * a.kvh > 65535 || (a.part == nullptr && splits != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ragged_kernel_wgmma<KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  ragged_kernel_wgmma<KT, D>
+      <<<dim3((unsigned)splits, (unsigned)(a.b * a.kvh), (unsigned)tiles),
+         L::kThreads, L::kSmem, a.stream>>>(
+          static_cast<const __nv_bfloat16*>(a.q),
+          static_cast<const KT*>(a.kp), static_cast<const KT*>(a.vp),
+          static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+          static_cast<const int*>(a.tbl), static_cast<const int*>(a.lens),
+          static_cast<const int*>(a.qlens),
+          static_cast<__nv_bfloat16*>(a.out), a.part, (int)a.t, (int)a.h,
+          (int)a.kvh, (int)a.np, (int)a.page, (int)a.mp, (int)a.chunk_pages,
+          a.scale, (int)a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.part != nullptr)
+    ragged_kernel_merge<D>
+        <<<dim3((unsigned)a.t, (unsigned)a.b), 256, 0, a.stream>>>(a.part, static_cast<const int*>(a.lens),
+                       static_cast<const int*>(a.qlens),
+                       static_cast<__nv_bfloat16*>(a.out), (int)a.t,
+                       (int)a.h, (int)a.kvh, (int)a.page, (int)a.mp,
+                       (int)a.chunk_pages, (int)tiles, (int)splits,
+                       (int)a.window);
+  return launch_no_key_rows<__nv_bfloat16, KT, D>(a);
+}
 
 template <typename T, typename KT, int D>
 int launch_ragged(const Args& a) {
@@ -667,15 +1150,7 @@ int launch_ragged(const Args& a) {
       static_cast<const int*>(a.lens), static_cast<const int*>(a.qlens),
       static_cast<T*>(a.out), (int)a.t, (int)a.h, (int)a.kvh, (int)a.np,
       (int)a.page, (int)a.mp, tq, a.scale, (int)a.window);
-  if (a.qlens == nullptr && a.t > 1) {
-    no_key_rows_kernel<T, KT, D>
-        <<<dim3((unsigned)a.b, (unsigned)a.h), D, 0, a.stream>>>(
-            static_cast<const KT*>(a.vp), static_cast<const float*>(a.vs),
-            static_cast<const int*>(a.tbl), static_cast<const int*>(a.lens),
-            static_cast<T*>(a.out), (int)a.t, (int)a.h, (int)a.kvh,
-            (int)a.np, (int)a.page, (int)a.mp);
-  }
-  return (int)cudaGetLastError();
+  return launch_no_key_rows<T, KT, D>(a);
 }
 
 // the split pass, then the merge, on the same stream
@@ -695,35 +1170,46 @@ int launch_decode(const Args& a) {
           static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
           static_cast<const KT*>(a.vp), static_cast<const float*>(a.ks),
           static_cast<const float*>(a.vs), static_cast<const int*>(a.tbl),
-          static_cast<const int*>(a.lens), a.part, (int)a.h, (int)a.kvh,
+          static_cast<const int*>(a.lens), static_cast<const int*>(a.qlens),
+          a.part, (int)a.h, (int)a.kvh,
           (int)a.np, (int)a.page, (int)a.mp, (int)a.chunk_pages, a.scale,
           (int)a.window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_kernel_merge<T, D>
       <<<dim3((unsigned)a.h, (unsigned)a.b), D, 0, a.stream>>>(
-          a.part, static_cast<const int*>(a.lens), static_cast<T*>(a.out),
+          a.part, static_cast<const int*>(a.lens),
+          static_cast<const int*>(a.qlens), static_cast<T*>(a.out),
           (int)a.h, (int)a.kvh, (int)a.page, (int)a.mp, (int)a.chunk_pages,
           splits, (int)a.window);
   return (int)cudaGetLastError();
 }
 
+// one route of one instantiation: the decode split (T = 1), the tensor
+// cores (T > 1, bf16 q) or the CUDA cores (T > 1, float32 q)
+template <typename T, typename KT, int D>
+int launch_route(bool decode, const Args& a) {
+  if (decode) return launch_decode<T, KT, D>(a);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_ragged_tc<KT, D>(a);
+  else
+    return launch_ragged<T, KT, D>(a);
+}
+
 // the instantiations: q/out type x page type (q's own, or int8) x D
-template <bool Decode, typename T, typename KT>
-int dispatch_d(int64_t d, const Args& a) {
+template <typename T, typename KT>
+int dispatch_d(int64_t d, bool decode, const Args& a) {
   switch (d) {
     case 64:
-      return Decode ? launch_decode<T, KT, 64>(a) : launch_ragged<T, KT, 64>(a);
+      return launch_route<T, KT, 64>(decode, a);
     case 128:
-      return Decode ? launch_decode<T, KT, 128>(a)
-                    : launch_ragged<T, KT, 128>(a);
+      return launch_route<T, KT, 128>(decode, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool Decode>
-int dispatch(int64_t d, int dtype, int kv_dtype, const Args& a) {
+int dispatch(int64_t d, int dtype, int kv_dtype, bool decode, const Args& a) {
   if (a.kvh <= 0 || a.h % a.kvh != 0 || a.h / a.kvh > kMaxRH ||
       a.b > 65535 || a.kvh > 65535 || a.page <= 0 || a.mp <= 0)
     return (int)cudaErrorInvalidValue;
@@ -736,11 +1222,11 @@ int dispatch(int64_t d, int dtype, int kv_dtype, const Args& a) {
   const bool quant = kv_dtype == ptt::kInt8;
   switch (dtype) {
     case ptt::kFloat32:
-      return quant ? dispatch_d<Decode, float, int8_t>(d, a)
-                   : dispatch_d<Decode, float, float>(d, a);
+      return quant ? dispatch_d<float, int8_t>(d, decode, a)
+                   : dispatch_d<float, float>(d, decode, a);
     case ptt::kBFloat16:
-      return quant ? dispatch_d<Decode, __nv_bfloat16, int8_t>(d, a)
-                   : dispatch_d<Decode, __nv_bfloat16, __nv_bfloat16>(d, a);
+      return quant ? dispatch_d<__nv_bfloat16, int8_t>(d, decode, a)
+                   : dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, decode, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -752,19 +1238,31 @@ int dispatch(int64_t d, int dtype, int kv_dtype, const Args& a) {
 // (kv_dtype: dtype's own, or int8 with k_scales, v_scales [NP, KVH]
 // float32; null for float pages); page_table: [B, MP] int32; seq_lens:
 // [B] int32; q_lens: [B] int32 or null. All contiguous, q/pages/out
-// 16-byte aligned. Returns the launch's cudaGetLastError() (0 on success).
+// 16-byte aligned. The route follows T and dtype:
+//   * T = 1: workspace float32 [B, KVH, ceil(MP / chunk_pages), H / KVH,
+//     D + 2] (1 <= chunk_pages <= 128), as ptt_paged_decode_attention;
+//   * T > 1, bf16: workspace float32 [B, KVH, tiles, ceil(MP /
+//     chunk_pages), 64, D + 2] (tiles = ceil(T / (64 / (H / KVH)))), or
+//     null when chunk_pages >= MP (one split);
+//   * T > 1, float32: workspace and chunk_pages unused.
+// Returns the launches' cudaGetLastError() (0 on success).
 extern "C" int ptt_paged_ragged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* page_table,
-    const void* seq_lens, const void* q_lens, void* out, int64_t b,
-    int64_t t, int64_t h, int64_t kvh, int64_t d, int64_t np, int64_t page,
-    int64_t mp, float scale, int64_t window, int dtype, int kv_dtype,
-    void* stream) {
+    const void* seq_lens, const void* q_lens, void* out, void* workspace,
+    int64_t b, int64_t t, int64_t h, int64_t kvh, int64_t d, int64_t np,
+    int64_t page, int64_t mp, int64_t chunk_pages, float scale,
+    int64_t window, int dtype, int kv_dtype, void* stream) {
   if (b <= 0 || t <= 0) return 0;
+  const bool decode = t == 1;
+  if (decode && (workspace == nullptr || chunk_pages < 1 ||
+                 chunk_pages > kDecMaxChunkPages))
+    return (int)cudaErrorInvalidValue;
   const Args a{q,   k_pages, v_pages, k_scales, v_scales, page_table,
                seq_lens, q_lens, out, b, t, h, kvh, np, page, mp, window,
-               scale, static_cast<cudaStream_t>(stream), nullptr, 0};
-  return dispatch<false>(d, dtype, kv_dtype, a);
+               scale, static_cast<cudaStream_t>(stream),
+               static_cast<float*>(workspace), chunk_pages};
+  return dispatch(d, dtype, kv_dtype, decode, a);
 }
 
 // q, out: [B, H, D] (dtype), one decode token per sequence; the pages,
@@ -787,5 +1285,5 @@ extern "C" int ptt_paged_decode_attention(
                seq_lens, nullptr, out, b, 1, h, kvh, np, page, mp, window,
                scale, static_cast<cudaStream_t>(stream),
                static_cast<float*>(workspace), chunk_pages};
-  return dispatch<true>(d, dtype, kv_dtype, a);
+  return dispatch(d, dtype, kv_dtype, true, a);
 }

@@ -14,14 +14,21 @@ its Pallas ``_ragged_kernel``, the decode kernel its ``_decode_kernel``.
 
 GQA maps q head h to kv head h // (H // KVH); K/V are never repeated.
 Int8 pages carry per-page, per-kv-head float32 scales ``k_scales`` /
-``v_scales`` (NP, KVH) (``quant.py``); the kernels dequantize right
-after the load. Each entry dispatches on the tensor's device: a CPU
-tensor takes the plain version, a CUDA tensor launches
+``v_scales`` (NP, KVH) (``quant.py``); each key's codes count with its
+physical page's scales. Each entry dispatches on the tensor's device: a
+CPU tensor takes the plain version, a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises.
 
+The ragged entry takes one of three routes on the card, chosen from the
+shapes: T = 1 (every decode-only serving step) runs the decode kernel's
+split over pages and its merge (``decode_split_plan``); T > 1 with bf16
+q runs the tensor-core kernel, its keys split over chunks of pages
+(``ragged_split_plan``); T > 1 with float32 q runs the CUDA-core kernel.
+One call counts one launch whichever route it takes.
+
 :func:`paged_attention` is the decode entry, one token per sequence.
-Under ``FLAGS_ragged_attention=auto|on`` it is the ragged kernel at T=1;
-under ``off`` it is the dedicated decode kernel (the historical
+Under ``FLAGS_ragged_attention=auto|on`` it is the ragged entry at T=1;
+under ``off`` it is the dedicated decode entry (the historical
 two-kernel routing, kept for A/B against the unified path).
 
 :func:`paged_ragged_fused_step` is one packed attention layer step:
@@ -47,6 +54,20 @@ _MAX_GROUP = 32  # q heads per kv head one kernel block serves
 # keys a block of the decode kernel's split pass takes: whole pages, at
 # most 128 of them (csrc/paged_attention.cu, kDecMaxChunkPages)
 DECODE_CHUNK_KEYS = 128
+# The ragged kernel's tensor-core route (T > 1, bf16 q): an M tile of 64
+# (row, q head) pairs a block; each block takes the keys of one chunk of
+# whole pages, at least RAGGED_MIN_CHUNK_KEYS of them and a whole number
+# of 64-key tiles. The split aims at RAGGED_SPLIT_BLOCKS blocks (one a
+# streaming multiprocessor of the H100's 132: more waves of shorter
+# blocks measured slower, PERF.md), and stops where the float32
+# partials would take more than RAGGED_WORKSPACE_BYTES.
+RAGGED_TILE_PAIRS = 64
+RAGGED_MIN_CHUNK_KEYS = 256
+# pages a block takes at most: its slice of the page table is staged in
+# shared memory (csrc/paged_attention.cu, kRagMaxChunkPages)
+RAGGED_MAX_CHUNK_PAGES = 1024
+RAGGED_SPLIT_BLOCKS = 132
+RAGGED_WORKSPACE_BYTES = 16 << 20
 
 
 def _scale(sm_scale, d):
@@ -126,6 +147,125 @@ def paged_ragged_attention_plain(q, k_pages, v_pages, page_table,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
+def ragged_split_plan(batch, t, heads, kv_heads, head_dim, max_pages,
+                      page_size):
+    """``(rows_per_tile, tiles, chunk_pages, splits, workspace_shape)``
+    of the ragged kernel's tensor-core route (T > 1), from shapes the host
+    knows (never from ``seq_lens`` or ``q_lens``, which live on the
+    device). An M tile packs ``rows_per_tile = 64 // group`` consecutive
+    rows with all ``group`` q heads of one kv head; ``tiles`` of them
+    cover T. Each block takes the keys of ``chunk_pages`` whole pages
+    (a multiple of a 64-key tile's pages, at most
+    ``RAGGED_MAX_CHUNK_PAGES``); ``splits`` chunks cover the page
+    table's width. With one split there is no workspace (``None``)
+    and the blocks write the output; with more, the float32 partials
+    ``(acc[D], m, l)`` of every (row, kv head, tile, split, pair) go to a
+    workspace that the merge reads in split order."""
+    group = heads // kv_heads
+    rows = RAGGED_TILE_PAIRS // group
+    tiles = -(-t // rows)
+    blocks = batch * kv_heads * tiles
+    split_bytes = blocks * RAGGED_TILE_PAIRS * (head_dim + 2) * 4
+    unit = max(1, 64 // page_size)  # pages of one 64-key tile
+    min_chunk = -(-max(unit, -(-RAGGED_MIN_CHUNK_KEYS // page_size))
+                  // unit) * unit
+    splits = max(1, min(-(-max_pages // min_chunk),
+                        -(-RAGGED_SPLIT_BLOCKS // blocks),
+                        RAGGED_WORKSPACE_BYTES // split_bytes),
+                 -(-max_pages // RAGGED_MAX_CHUNK_PAGES))
+    chunk_pages = -(-(-(-max_pages // splits)) // unit) * unit
+    splits = -(-max_pages // chunk_pages)
+    if splits == 1:
+        return rows, tiles, max_pages, 1, None
+    return rows, tiles, chunk_pages, splits, (
+        batch, kv_heads, tiles, splits, RAGGED_TILE_PAIRS, head_dim + 2)
+
+
+def paged_ragged_attention_split_plain(q, k_pages, v_pages, page_table,
+                                       seq_lens, q_lens=None,
+                                       chunk_pages=1, sm_scale=None,
+                                       window=0, k_scales=None,
+                                       v_scales=None):
+    """The CUDA kernels' split arithmetic in plain float32 PyTorch (used
+    by the tests): per chunk of ``chunk_pages`` whole pages of each row's
+    keys, the partial ``(m_i, l_i, acc_i)`` of its kept keys, with int8
+    codes entering as codes and each key's K scale (of its physical page)
+    applied to its column of S, its V scale to its column of P; then the
+    merge of a row's chunks in order, ``m = max m_i``, ``l = sum l_i
+    exp(m_i - m)``, ``acc = sum acc_i exp(m_i - m)``, ``out = acc /
+    max(l, 1e-30)``. Padded rows and rows of seq_len 0 are exactly 0; a
+    real row that sees no key (``q_lens`` absent) takes the mean of V as
+    in :func:`paged_ragged_attention_plain`, which a second kernel writes
+    on the card. T = 1 is the decode split (``decode_split_plan``'s
+    chunks), T > 1 the tensor-core route (``ragged_split_plan``'s)."""
+    _check_scales("paged_ragged_attention", k_pages, k_scales, v_scales)
+    b, t, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    group = h // kvh
+    mp = page_table.shape[1]
+    splits = -(-mp // chunk_pages)
+    chunk = chunk_pages * page_size
+    n_keys = splits * chunk
+    tbl = page_table.long()
+    lens = seq_lens.long()
+    pad = n_keys - mp * page_size  # keys past the table: masked
+
+    def keys(pages, scales):
+        x = pages[tbl].float().reshape(b, mp * page_size, kvh, d)
+        sc = (scales.float()[tbl] if scales is not None
+              else torch.ones(b, mp, kvh))            # (B, MP, KVH)
+        sc = sc.repeat_interleave(page_size, dim=1)   # (B, S, KVH)
+        return (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)),
+                torch.nn.functional.pad(sc, (0, 0, 0, pad)))
+
+    kd, ksc = keys(k_pages, k_scales)
+    vd, vsc = keys(v_pages, v_scales)
+    qf = q.float().reshape(b, t, kvh, group, d)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, kd) * _scale(sm_scale, d)
+    s = s * ksc.permute(0, 2, 1)[:, :, None, None, :]
+    kpos = torch.arange(n_keys)
+    rows = torch.arange(t)
+    qpos = lens[:, None] - t + rows[None, :]                    # (B, T)
+    keep = ((kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos[None, None, :] < lens[:, None, None])
+            & (kpos < mp * page_size)[None, None, :])
+    if window:
+        keep = keep & (qpos[:, :, None] - kpos[None, None, :] < window)
+    if q_lens is not None:
+        real = rows[None, :] >= t - q_lens.long()[:, None]      # (B, T)
+    else:
+        real = torch.ones((b, t), dtype=torch.bool)
+    keep = (keep & real[:, :, None])[:, None, None]     # (B,1,1,T,S)
+    # chunks: (B, KVH, G, T, splits, chunk)
+    shape = (b, kvh, group, t, splits, chunk)
+    s = s.masked_fill(~keep, NEG_INF).reshape(shape)
+    keep = keep.reshape(b, 1, 1, t, splits, chunk)
+    m_i = s.amax(dim=-1)
+    p = torch.exp(s - m_i[..., None]) * keep
+    l_i = p.sum(dim=-1)
+    pv = p * vsc.permute(0, 2, 1).reshape(b, kvh, 1, 1, splits, chunk)
+    acc_i = torch.einsum("bkgtnc,bnckd->bkgtnd", pv,
+                         vd.reshape(b, splits, chunk, kvh, d))
+    full = keep.any(dim=-1)                            # (B,1,1,T,splits)
+    m = m_i.masked_fill(~full, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.exp(m_i - m) * full
+    l = (l_i * w).sum(dim=-1)
+    acc = (acc_i * w[..., None]).sum(dim=-2)
+    out = acc / l.clamp_min(1e-30)[..., None]          # (B,KVH,G,T,D)
+    out = out.permute(0, 3, 1, 2, 4) * real[:, :, None, None, None]
+    out = out.reshape(b, t, h, d)
+    if q_lens is None:
+        # real rows that see no key: the second kernel's mean of V
+        no_key = (qpos < 0) & (lens[:, None] > 0)               # (B, T)
+        if bool(no_key.any()):
+            mean = paged_ragged_attention_plain(
+                q.float(), k_pages, v_pages, page_table, seq_lens,
+                sm_scale=sm_scale, window=window, k_scales=k_scales,
+                v_scales=v_scales)
+            out = torch.where(no_key[:, :, None, None], mean, out)
+    return out.to(q.dtype)
+
+
 def _check_cuda_operands(name, q, k_pages, v_pages, page_table, seq_lens,
                          q_lens, k_scales, v_scales):
     """What the C entries take: q (B, T, H, D), contiguous operands on
@@ -199,16 +339,28 @@ def _paged_ragged_attention_cuda(q, k_pages, v_pages, page_table,
                          page_table, seq_lens, q_lens, k_scales, v_scales)
     b, t, h, d = q.shape
     np_, page_size, kvh, _ = k_pages.shape
+    mp = page_table.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # the route: T = 1, the decode kernel's split over pages; T > 1 with
+    # bf16 q, the tensor cores; T > 1 with float32 q, the CUDA cores
+    chunk_pages, ws_shape = 0, None
+    if t == 1:
+        chunk_pages, _, ws_shape = decode_split_plan(b, kvh, h // kvh, d, mp,
+                                                     page_size)
+    elif q.dtype == torch.bfloat16:
+        _, _, chunk_pages, _, ws_shape = ragged_split_plan(
+            b, t, h, kvh, d, mp, page_size)
+    workspace = None if ws_shape is None else torch.empty(
+        ws_shape, dtype=torch.float32, device=q.device)
     lib = _build.library()
     status = lib.ptt_paged_ragged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
-        seq_lens.data_ptr(), _ptr(q_lens), out.data_ptr(), b, t, h, kvh,
-        d, np_, page_size, page_table.shape[1], _scale(sm_scale, d),
-        int(window or 0), _build.DTYPE_CODES[q.dtype],
+        seq_lens.data_ptr(), _ptr(q_lens), out.data_ptr(), _ptr(workspace),
+        b, t, h, kvh, d, np_, page_size, mp, chunk_pages,
+        _scale(sm_scale, d), int(window or 0), _build.DTYPE_CODES[q.dtype],
         _build.KV_DTYPE_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_ragged_attention")
