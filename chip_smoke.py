@@ -57,6 +57,7 @@ It prints one JSON line per phase:
    peak memory, and the loss of every step;
 10. ``train_profile``: one training step under ``torch.profiler``.
 
+Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -70,7 +71,8 @@ those paged attention cases (names of ``ATTN_CASES``);
 ``--fault-check`` plants each fault of ``FLASH_FAULTS`` and
 ``PAGED_FAULTS`` in a copy of the repository and fails unless the
 gates catch every one (a paged fault only in the cases of the kernel it
-broke).
+broke); ``--ablations NAMES`` times the cases of design choices
+(``ABLATIONS``) undone in a copy, beside an unchanged copy.
 """
 from __future__ import annotations
 
@@ -99,6 +101,7 @@ _VARLEN_CU = "paddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
 _NORM_CU = "paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu"
 _PAGED_CU = "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 _ATTN_CORE = "paddle_tpu_torch/ops/kernels/csrc/attn_fwd_tiles.cuh"
+_ATTN_BWD = "paddle_tpu_torch/ops/kernels/csrc/attn_bwd_tiles.cuh"
 KERNELS = {
     "rms_norm": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:32"),
     "layer_norm_fused": (_NORM_CU, "paddle_tpu/ops/kernels/rms_norm.py:120"),
@@ -128,8 +131,22 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 VARLEN = ("flash_varlen_fwd", "flash_varlen_bwd_dkdv", "flash_varlen_bwd_dq")
 
 
+_EMITTED = []  # (phase, time.perf_counter() at its line)
+
+
 def emit(phase, **fields):
+    _EMITTED.append((phase, time.perf_counter()))
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def wall_seconds(t0):
+    """{phase: wall seconds from the line before it (from t0 for the
+    first)}: where the script's time went, a phase line at a time."""
+    out, prev = {}, t0
+    for phase, t in _EMITTED:
+        out[phase] = round(t - prev, 3)
+        prev = t
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -165,6 +182,62 @@ def cuda_time_ms(fn, iters=20, warmup=3, flush=None):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def _wgmma_kernel(mangled):
+    """``name<template arguments>`` of a mangled *_wgmma kernel, or None
+    for any other function."""
+    import re
+
+    i = 3 if mangled.startswith("_ZN") else 2
+    while True:  # the nested name's length-prefixed parts
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            return None
+        i += m.end()
+        part = mangled[i:i + int(m.group())]
+        i += len(part)
+        if part.endswith("_wgmma"):
+            break
+    m = re.match(r"I(.*?)EEv", mangled[i:])
+    args = re.sub(r"Li(\d+)E", r"\1,", m.group(1) if m else "")
+    args = args.replace("13__nv_bfloat16", "bf16,")
+    if args.startswith("a"):  # signed char: int8 pages
+        args = "int8," + args[1:]
+    return f"{part}<{args.rstrip(',')}>"
+
+
+def sass_summary(lib):
+    """{kernel: {"hgmma": HGMMA instructions in its SASS, "registers": a
+    thread's, "stack": bytes of local stack (spills)}} for the built
+    library's wgmma kernels, from the toolkit's cuobjdump; None where it
+    has none. A wgmma kernel without HGMMA fails the build phase."""
+    import re
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    kernel = None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = _wgmma_kernel(line.split("Function :")[1].strip())
+            if kernel is not None:
+                out[kernel] = {"hgmma": 0}
+        elif kernel is not None and "HGMMA" in line:
+            out[kernel]["hgmma"] += 1
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=600, check=True).stdout
+    for fn, regs, stack in re.findall(
+            r"Function (\S+?):\s*REG:(\d+) STACK:(\d+)", res):
+        kernel = _wgmma_kernel(fn)
+        if kernel in out:
+            out[kernel].update(registers=int(regs), stack=int(stack))
+    return out
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -772,6 +845,9 @@ FLASH_CASES = [
     ("float32", 1, 256, 256, 4, 2, 64, True,
      {"dtype": "float32", "seed": 6}),
     ("dlse", 1, 512, 512, 8, 2, 64, True, {"dlse": True, "seed": 7}),
+    # rows a multiple of no 4: the dK/dV kernel's lse and delta boxes
+    # start below the tile's first row
+    ("odd_rows", 2, 333, 333, 8, 2, 64, True, {"seed": 8}),
 ]
 
 
@@ -909,6 +985,10 @@ VARLEN_CASES = [
      {"seed": 8}),
     ("varlen_float32", [100, 60, 96], None, 0, 4, 2, 64, True,
      {"dtype": "float32", "seed": 9}),
+    # totals a multiple of no 4 (the dK/dV kernel's lse and delta boxes
+    # start below a tile's first row), D = 128 at group 4, noncausal
+    ("varlen_odd_total", [301, 500, 222], None, 9, 8, 2, 128, False,
+     {"seed": 10}),
 ]
 
 
@@ -1134,14 +1214,14 @@ FLASH_FAULTS = [
      f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) e = 0.f;",
      ("train", "gqa_d128")),
     ("dkdv_late_keys_drop_own_row", _FLASH_CU,
-     "if (q0 + c >= p.Sq || !keep(p, q0 + c, kr)) e = 0.f;",
-     "if (q0 + c >= p.Sq || !keep(p, q0 + c, kr) || "
-     "(kr >= p.Sk / 2 && q0 + c == kr + p.Sq - p.Sk)) e = 0.f;",
+     "return q0 + c < p.Sq && keep(p, q0 + c, kr0 + 8 * r);",
+     "return q0 + c < p.Sq && keep(p, q0 + c, kr0 + 8 * r) && "
+     "!(kr0 + 8 * r >= p.Sk / 2 && q0 + c == kr0 + 8 * r + p.Sq - p.Sk);",
      ("train", "gqa_d128")),
     # the consumers skip the products of the last staged Q/dO tile
     ("dkdv_skips_last_pipeline_stage", _FLASH_CU,
-     "const bool live = tile_live(p, q0, kw0);",
-     "const bool live = it + 1 < n_steps && tile_live(p, q0, kw0);",
+     "ptt::attn::dkdv_step<D>(sK",
+     "if (it + 1 < n_steps) ptt::attn::dkdv_step<D>(sK",
      ("train", "gqa_d128")),
     ("fwd_late_rows_drop_own_key", _FLASH_CU,
      "if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;",
@@ -1166,6 +1246,22 @@ FLASH_FAULTS = [
     ("varlen_dkdv_drops_last_q_tile", _VARLEN_CU,
      "t_hi = hi / BQ;", "t_hi = hi / BQ - 1;",
      ("varlen_train", "varlen_tile_edges")),
+    # dK/dV's consumers skip the products of the last staged Q/dO tile
+    ("varlen_dkdv_skips_last_pipeline_stage", _VARLEN_CU,
+     "ptt::attn::dkdv_step<D>(sK",
+     "if (it + 1 < n_steps) ptt::attn::dkdv_step<D>(sK",
+     ("varlen_train", "varlen_gqa_d128")),
+    # dQ's M tile takes its last (row, q head) pair for one that sees no
+    # key, with lse and delta 0
+    ("varlen_dq_drops_last_group_head", _VARLEN_CU,
+     "const bool real = pair < rows * group && row < p.Tq;",
+     "const bool real = pair < rows * group - 1 && row < p.Tq;",
+     ("varlen_train", "varlen_gqa_d128")),
+    # dQ's consumers skip the products of the last staged K/V tile (the
+    # dQ loop of the backward steps, used by the varlen dQ kernel alone)
+    ("varlen_dq_skips_last_key_stage", _ATTN_BWD,
+     "if (!h.live(k0)) {", "if (j + 1 == n || !h.live(k0)) {",
+     ("varlen_train", "varlen_gqa_d128")),
 ]
 # faults of the paged attention kernels, each run against the cases of
 # _PAGED_FAULT_CASES (``--attn-cases``): (name, source, text, replacement,
@@ -1216,7 +1312,8 @@ PAGED_FAULTS = [
 def _run_with_fault(name, source, old, new, option, cases, phase):
     """Plants one fault in a copy of the repository in a temporary
     directory, runs the named cases there (a child process that builds
-    the faulty kernels) and returns the child's ``phase`` line."""
+    the faulty kernels) and returns the child's ``phase`` line. With
+    ``source`` None the copy is left as it is."""
     import shutil
     import tempfile
 
@@ -1226,14 +1323,15 @@ def _run_with_fault(name, source, old, new, option, cases, phase):
         tree = os.path.join(tmp, "repo")
         shutil.copytree(root, tree, ignore=shutil.ignore_patterns(
             ".git", "_build", "__pycache__"))
-        src = os.path.join(tree, source)
-        with open(src) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace occurs "
-                               f"{text.count(old)} times")
-        with open(src, "w") as f:
-            f.write(text.replace(old, new))
+        if source is not None:
+            src = os.path.join(tree, source)
+            with open(src) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the text to replace occurs "
+                                   f"{text.count(old)} times")
+            with open(src, "w") as f:
+                f.write(text.replace(old, new))
         child = subprocess.run(
             [sys.executable, os.path.join(tree, "chip_smoke.py"), option,
              ",".join(cases)],
@@ -1279,6 +1377,48 @@ def fault_check_phase():
     if missed:
         raise RuntimeError(f"planted faults pass the gates, or fail a "
                            f"kernel they did not break: {missed}")
+
+
+# Design choices that --ablations undoes, one at a time, in a copy of the
+# repository, timing the named cases there beside an unchanged copy run
+# the same way: (name, the CUDA source, its text, the replacement, the
+# flash and varlen cases to time).
+ABLATIONS = [
+    # the varlen dK/dV blocks take their key tiles in pack order instead
+    # of ranked by work
+    ("varlen_dkdv_tiles_in_pack_order", _VARLEN_CU,
+     "const int rank_tiles = ntiles <= kOrderMax && ntiles * p.KVH > sms;",
+     "const int rank_tiles = 0;", ("varlen_train", "varlen_noncausal")),
+    # the varlen dQ kernel with at most two consumer warpgroups a block
+    ("varlen_dq_two_warpgroups", _VARLEN_CU,
+     "int nwg = D == 64 ? 3 : 2;", "int nwg = 2;",
+     ("varlen_train", "varlen_tile_edges")),
+]
+
+
+def ablations_phase(names=None):
+    """Runs the cases of each ablation of ABLATIONS (those in ``names``
+    when given) in a copy with the change and in an unchanged copy, in
+    turns (unchanged, ablated, ablated, unchanged), and emits every
+    kernel's times in both."""
+    results = []
+    for name, source, old, new, cases in ABLATIONS:
+        if names is not None and name not in names:
+            continue
+        runs = [_run_with_fault(name, src, old, new, "--flash-cases",
+                                cases, "flash_cases")
+                for src in (None, source, source, None)]
+        times = {}
+        for which, line in zip(("base", "ablated", "ablated", "base"),
+                               runs):
+            for k in line["kernels"]:
+                for c in k["cases"]:
+                    times.setdefault(f"{k['name']}:{c['case']}", {}) \
+                        .setdefault(which, []).append(c["kernel_ms"])
+        results.append({"ablation": name, "kernel_ms": times,
+                        "failed": sorted({f for line in runs
+                                          for f in line["failed"]})})
+    emit("ablations", ablations=results)
 
 
 def kernels_phase():
@@ -2032,7 +2172,12 @@ def main(argv=None):
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS and PAGED_FAULTS, planted in a copy")
+    ap.add_argument("--ablations", default=None, metavar="NAMES",
+                    help="only time the cases of these ABLATIONS "
+                    "(comma-separated names, or 'all') in a changed "
+                    "and an unchanged copy")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2055,13 +2200,22 @@ def main(argv=None):
     if args.fault_check:
         fault_check_phase()
         return 0
+    if args.ablations:
+        ablations_phase(None if args.ablations == "all"
+                        else args.ablations.split(","))
+        return 0
 
     t0 = time.perf_counter()
     _build.library()
-    emit("build", seconds=time.perf_counter() - t0,
-         compiled=_build.build_seconds is not None,
+    seconds = time.perf_counter() - t0
+    sass = sass_summary(_build.library_path)
+    emit("build", seconds=seconds, compiled=_build.build_seconds is not None,
          nvcc_flags=" ".join(_build.NVCC_FLAGS),
-         sources=list(_build.SOURCES))
+         sources=list(_build.SOURCES), warnings=_build.build_warnings,
+         wgmma_sass=sass)
+    scalar = [k for k, v in (sass or {}).items() if not v["hgmma"]]
+    if scalar:
+        raise RuntimeError(f"wgmma kernels without HGMMA: {scalar}")
     if args.flash_cases:
         names = args.flash_cases.split(",")
         known = {c[0] for c in FLASH_CASES + VARLEN_CASES}
@@ -2125,6 +2279,8 @@ def main(argv=None):
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")
+    emit("wall", seconds=wall_seconds(t_start),
+         total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "flash_attention.cu",
            "flash_varlen.cu")
 HEADERS = ("common.cuh", "flash_tiles.cuh", "hopper_tiles.cuh",
-           "attn_fwd_tiles.cuh")
+           "attn_fwd_tiles.cuh", "attn_bwd_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600  # each source builds in seconds
@@ -98,7 +98,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+library_path = None  # the loaded library's file
 build_seconds = None  # wall time of this process's build (None: reused)
+build_warnings = []  # nvcc's warning lines of this process's build
 
 
 def _nvcc() -> str:
@@ -141,9 +143,12 @@ def _compile(target: str) -> None:
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
             for name, proc in procs:
                 out, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
+                text = out.decode(errors="replace")
                 if proc.returncode != 0:
                     errors.append(f"--- {name} (exit {proc.returncode})\n"
-                                  + out.decode(errors="replace"))
+                                  + text)
+                build_warnings.extend(f"{name}: {line}" for line in
+                                      text.splitlines() if "arning" in line)
         finally:
             for _, proc in procs:  # none outlives a failed build
                 if proc.poll() is None:
@@ -164,7 +169,7 @@ def _compile(target: str) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
-    global _lib, build_seconds
+    global _lib, library_path, build_seconds
     if _lib is not None:
         return _lib
     with _lock:
@@ -180,6 +185,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            library_path = target
             _lib = lib
     return _lib
 

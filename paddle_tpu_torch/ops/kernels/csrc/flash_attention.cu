@@ -32,7 +32,8 @@
 // wgmma, the warpgroup products that reach it, fed by TMA through a ring
 // of stages that a producer warp keeps full (hopper_tiles.cuh; the
 // forward's consumer loop is attn_fwd_tiles.cuh, shared with the ragged
-// paged kernel). The dQ kernel gets the same treatment next.
+// paged kernel; the dK/dV step is attn_bwd_tiles.cuh, shared with the
+// varlen backward, whose dQ step the dQ kernel can take next).
 //
 // Design. The Pallas grids carry their accumulators across an innermost
 // sequential ("arbitrary") grid axis; CUDA blocks run in no order, so that
@@ -56,6 +57,7 @@
 // Only D = 64 and D = 128 are instantiated (Qwen2-0.5B, Llama-3-8B,
 // Mistral); the wrapper refuses other head dims on the card.
 
+#include "attn_bwd_tiles.cuh"
 #include "attn_fwd_tiles.cuh"
 #include "flash_tiles.cuh"
 #include "hopper_tiles.cuh"
@@ -380,9 +382,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------- bf16 dK/dV
 // flash_bwd_dkdv_wgmma: one block per (key tile of BK = 64 * NWG keys, kv
-// head, batch). NWG consumer warpgroups of 64 keys each (2 at D = 64, 1 at
-// D = 128, where the four products' float32 accumulators take ~240
-// registers a thread) and one producer warp:
+// head, batch), on the dK/dV step of attn_bwd_tiles.cuh (its layout
+// ptt::attn::Dkdv: NWG consumer warpgroups of 64 keys each, 2 at D = 64
+// and 1 at D = 128, and one producer warp):
 //   * the producer's lane 0 loads the block's K and V once by TMA, then for
 //     each step (q head of the group, q tile of 64 rows in the band) the Q
 //     and dO tiles (128-byte swizzle) and the rows' lse and delta (1-D
@@ -392,35 +394,17 @@ __global__ void __launch_bounds__(kThreads)
 //     2 with the key tile the fastest grid axis took 0.92 ms at the
 //     training shape, 0.60 with both changed: causal Q/dO tiles miss L2,
 //     and one step's products do not cover the load;
-//   * each consumer warpgroup runs the step's four products on wgmma with
-//     float32 accumulators: S^T = K Q^T and dP^T = V dO^T (both operands
-//     in shared memory, K-major); then P^T, rounded to bf16, as the A
-//     operand from registers of dV += P^T dO, issued before dS^T is
-//     computed so that the two overlap; then dK += dS^T Q (B = dO, Q in
-//     shared memory, MN-major). The softmax takes one FFMA and one SFU
-//     ex2 an element, and the mask runs only on tiles that need it: with
-//     a branch and a denormal-safe exp2f on every element (and dV issued
-//     after dS) the kernel took 0.60 ms at the training shape, 0.39 now,
-//     the CUDA-core work between the products being what held the
-//     warpgroups back. A warpgroup skips the products of a tile its keys
-//     do not see.
+//   * each consumer warpgroup runs attn::dkdv_step on each staged tile
+//     (S^T, dP^T, then dV += P^T dO issued before dS^T is computed, then
+//     dK += dS^T Q). The softmax takes one FFMA and one SFU ex2 an
+//     element, and the mask runs only on tiles that need it: with a branch
+//     and a denormal-safe exp2f on every element (and dV issued after dS)
+//     the kernel took 0.60 ms at the training shape, 0.39 then, the
+//     CUDA-core work between the products being what held the warpgroups
+//     back. A warpgroup skips the products of a tile its keys do not see.
 // Rows past Sq arrive as zeros (TMA fills out-of-bounds rows) and are
 // masked. dK and dV stay in registers and are written once.
-template <int D>
-struct Dkdv {
-  static constexpr int kStages = D == 64 ? 6 : 5;  // Q/dO ring depth
-  static constexpr int kNWG = D == 64 ? 2 : 1;  // consumer warpgroups
-  static constexpr int kBK = 64 * kNWG;         // keys a block
-  static constexpr int kSub = D / 64;           // 64-column tiles a row
-  static constexpr int kThreads = kNWG * 128 + 32;
-  // shared memory (bytes, from a 1024-aligned base): K, V, then the stages
-  static constexpr int kKV = kSub * kBK * 128;  // K or V
-  static constexpr int kTile = kSub * 64 * 128;  // a Q or dO tile
-  static constexpr int kStage = 2 * kTile + 1024;  // Q, dO, lse, delta
-  static constexpr int kBars = 2 * kKV + kStages * kStage;
-  static constexpr int kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
-  static constexpr uint32_t kStageTx = 2 * kTile + 2 * 64 * 4;
-};
+using ptt::attn::Dkdv;
 
 // some (q, k) pair of rows [q0, q0 + 63] x keys [k0, k0 + 63] is kept
 __device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0) {
@@ -430,23 +414,19 @@ __device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0) {
   return max(lo, k0) <= min(hi, k0 + 63);
 }
 
-// 2^x by the SFU (ex2.approx: ~2 ulp; denormal results flush to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (+)= A B for one k-step of the dV / dK products (N = D)
-template <int D>
-__device__ __forceinline__ void dkdv_rs(float (&d)[D / 2],
-                                        const uint32_t (&a)[4],
-                                        uint64_t desc_b) {
-  if constexpr (D == 64)
-    ptt::wgmma_m64n64k16_rs(d, a, desc_b, 1);
-  else
-    ptt::wgmma_m64n128k16_rs(d, a, desc_b, 1);
-}
+// the dense band for one warpgroup's keys [kw0, kw0 + 63] (this thread's
+// kr0 and kr0 + 8) against the 64 rows from q0
+struct DkdvBand {
+  const Params p;
+  int kw0, kr0;
+  __device__ bool live(int q0) const { return tile_live(p, q0, kw0); }
+  __device__ bool full(int q0) const {
+    return tile_full(p, q0, q0 + 63, kw0, kw0 + 63) && q0 + 64 <= p.Sq;
+  }
+  __device__ bool kept(int q0, int r, int c) const {
+    return q0 + c < p.Sq && keep(p, q0 + c, kr0 + 8 * r);
+  }
+};
 
 template <int D>
 __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
@@ -511,12 +491,13 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
         for (int sub = 0; sub < L::kSub; ++sub) {
           ptt::tma_load_4d(st + sub * 64 * 128, &tmQ, &full[s], sub * 64, h,
                            q0, b);
-          ptt::tma_load_4d(st + L::kTile + sub * 64 * 128, &tmO, &full[s],
+          ptt::tma_load_4d(st + L::kQO + sub * 64 * 128, &tmO, &full[s],
                            sub * 64, h, q0, b);
         }
-        const int row = (b * p.H + h) * p.Sq + q0;
-        ptt::tma_load_1d(st + 2 * L::kTile, &tmL, &full[s], row);
-        ptt::tma_load_1d(st + 2 * L::kTile + 512, &tmDelta, &full[s], row);
+        const int row = (b * p.H + h) * p.Sq + q0;  // from 16 bytes
+        ptt::tma_load_1d(st + 2 * L::kQO, &tmL, &full[s], row & ~3);
+        ptt::tma_load_1d(st + 2 * L::kQO + 512, &tmDelta, &full[s],
+                         row & ~3);
       }
     }
     return;
@@ -526,105 +507,17 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
   const int kw0 = k0 + 64 * wg;  // this warpgroup's 64 keys
   const int kr0 = kw0 + 16 * wq + g;  // this thread's keys: kr0, kr0 + 8
-  const float sl2 = p.scale * kLog2e;
-  float sacc[32] = {}, dpacc[32] = {};
+  const DkdvBand band{p, kw0, kr0};
   float dk[D / 2] = {}, dv[D / 2] = {};
   if (n_steps > 0) ptt::mbar_wait(kvbar, 0);
-
   for (int it = 0; it < n_steps; ++it) {
     const int s = it % L::kStages;
     ptt::mbar_wait(&full[s], (it / L::kStages) & 1);
     const int q0 = (t_lo + it % nqt) * BQ;
-    const bool live = tile_live(p, q0, kw0);
-    if (live) {
-      unsigned char* sQ = stage(s);
-      unsigned char* sO = sQ + L::kTile;
-      const float* cL = reinterpret_cast<const float*>(sQ + 2 * L::kTile);
-      const float* cD = cL + 128;
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows each
-      ptt::fence_regs(sacc);
-      ptt::fence_regs(dpacc);
-      ptt::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk / 4) * L::kBK * 128 + wg * 64 * 128 + kk % 4 * 32;
-        const int qoff = (kk / 4) * 64 * 128 + kk % 4 * 32;
-        ptt::wgmma_m64n64k16_ss(sacc, ptt::desc_sw128(sK + off, 16, 1024),
-                                ptt::desc_sw128(sQ + qoff, 16, 1024), kk);
-      }
-      ptt::wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk / 4) * L::kBK * 128 + wg * 64 * 128 + kk % 4 * 32;
-        const int qoff = (kk / 4) * 64 * 128 + kk % 4 * 32;
-        ptt::wgmma_m64n64k16_ss(dpacc, ptt::desc_sw128(sV + off, 16, 1024),
-                                ptt::desc_sw128(sO + qoff, 16, 1024), kk);
-      }
-      ptt::wgmma_commit();
-      // p = exp(s * scale - lse); sacc[4 j + i] is key kr0 + 8 (i / 2),
-      // row q0 + 8 j + 2 t + i % 2. Only a tile that crosses the band or
-      // the end of the rows is masked.
-      const bool full_tile = tile_full(p, q0, q0 + BQ - 1, kw0, kw0 + 63) &&
-                             q0 + BQ <= p.Sq;
-      ptt::wgmma_wait<1>();
-      ptt::fence_regs(sacc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(cL + 8 * j + 2 * t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sacc[4 * j + i] = exp2_approx(sacc[4 * j + i] * sl2 -
-                                        (i & 1 ? l2.y : l2.x) * kLog2e);
-      }
-      if (!full_tile) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int c = 8 * j + 2 * t + (i & 1), kr = kr0 + (i >> 1) * 8;
-            float e = sacc[4 * j + i];
-            if (q0 + c >= p.Sq || !keep(p, q0 + c, kr)) e = 0.f;
-            sacc[4 * j + i] = e;
-          }
-      }
-      // dV += P^T dO (K = the tile's rows), running while dS is computed
-      uint32_t pa[4][4], da[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        acc_to_a<8>(reinterpret_cast<const float(*)[4]>(sacc), kk, pa[kk]);
-      ptt::fence_regs(dv);
-      ptt::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        dkdv_rs<D>(dv, pa[kk], ptt::desc_sw128(sO + kk * 2048, 64 * 128, 1024));
-      ptt::wgmma_commit();
-      // ds = p * (dp - delta) * scale, then dK += dS^T Q
-      ptt::wgmma_wait<1>();
-      ptt::fence_regs(dpacc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 dl = *reinterpret_cast<const float2*>(cD + 8 * j + 2 * t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dpacc[4 * j + i] = sacc[4 * j + i] *
-                             (dpacc[4 * j + i] - (i & 1 ? dl.y : dl.x)) *
-                             p.scale;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        acc_to_a<8>(reinterpret_cast<const float(*)[4]>(dpacc), kk, da[kk]);
-      ptt::fence_regs(dk);
-      ptt::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        dkdv_rs<D>(dk, da[kk], ptt::desc_sw128(sQ + kk * 2048, 64 * 128, 1024));
-      ptt::wgmma_commit();
-      ptt::wgmma_wait<0>();
-      ptt::fence_regs(dv);
-      ptt::fence_regs(dk);
-      ptt::fence_regs(pa);
-      ptt::fence_regs(da);
-    }
+    const int row = (b * p.H + kvh * group + it / nqt) * p.Sq + q0;
+    ptt::attn::dkdv_step<D>(sK + wg * 64 * 128, sV + wg * 64 * 128,
+                            L::kBK * 128, stage(s), row & 3,
+                            p.scale * kLog2e, p.scale, band, q0, dk, dv);
     ptt::mbar_arrive(&empty[s]);
   }
 
@@ -791,76 +684,20 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- launch
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// a bf16 [B, S, heads, D] tensor in boxes of `rows` rows x `box_heads`
-// consecutive heads x 64 columns, 128-byte swizzled (in shared memory the
-// box's rows of 128 bytes go head-fastest); rows past S read as zeros
-bool map_heads_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
-                    int heads, int s, int b, int box_heads, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the same in boxes of `rows` rows x 64 columns of one head
-bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
-              int heads, int s, int b, int rows) {
-  return map_heads_rows(enc, m, ptr, d, heads, s, b, 1, rows);
-}
-
-// a float32 vector of n in boxes of 64; past n reads as zeros
-bool map_flat(EncodeTiled enc, CUtensorMap* m, const float* ptr, int64_t n) {
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {0};
-  const cuuint32_t box[1] = {64}, unit[1] = {1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // the tensor maps (built here, on the host, for each call), then the launch
 template <int D>
 int launch_dkdv_wgmma(const Params& p, cudaStream_t stream) {
   using L = Dkdv<D>;
-  const EncodeTiled enc = tensor_map_encoder();
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mo, mk, mv, ml, md;
   const int64_t rows = (int64_t)p.B * p.H * p.Sq;
-  if (!map_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, 64) ||
-      !map_rows(enc, &mo, p.dout, D, p.H, p.Sq, p.B, 64) ||
-      !map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, L::kBK) ||
-      !map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, L::kBK) ||
-      !map_flat(enc, &ml, p.lse_in, rows) ||
-      !map_flat(enc, &md, p.delta, rows))
+  if (!ptt::map_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, 64) ||
+      !ptt::map_rows(enc, &mo, p.dout, D, p.H, p.Sq, p.B, 64) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, L::kBK) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, L::kBK) ||
+      !ptt::map_flat(enc, &ml, p.lse_in, rows, ptt::attn::kRowBox) ||
+      !ptt::map_flat(enc, &md, p.delta, rows, ptt::attn::kRowBox))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -889,7 +726,7 @@ int launch_fwd_wgmma(const Params& p, unsigned mtiles, const CUtensorMap& mq,
 // the tensor maps, then the launch
 template <int D>
 int launch_fwd(const Params& p, cudaStream_t stream) {
-  const EncodeTiled enc = tensor_map_encoder();
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const int group = p.H / p.KVH;
   if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
@@ -902,9 +739,9 @@ int launch_fwd(const Params& p, cudaStream_t stream) {
   const unsigned mtiles = blocks(p.Sq, nwg * rows);
   if (mtiles > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!map_heads_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, group, rows) ||
-      !map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, 64) ||
-      !map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, 64))
+  if (!ptt::map_heads_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, group, rows) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, 64) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, 64))
     return (int)cudaErrorInvalidValue;
   if constexpr (D == 64)
     if (nwg == 3) return launch_fwd_wgmma<D, 3>(p, mtiles, mq, mk, mv, stream);

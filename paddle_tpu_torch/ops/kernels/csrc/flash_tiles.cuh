@@ -1,5 +1,5 @@
-// Tile machinery shared by the flash-attention kernels (dense,
-// flash_attention.cu, and packed varlen, flash_varlen.cu): the block
+// Tile machinery of the mma.sync flash-attention kernels (the dense dQ,
+// flash_attention.cu, and the varlen forward, flash_varlen.cu): the block
 // shape, mma.sync m16n8k16 bf16 products with float32 accumulators,
 // ldmatrix fragment addressing into padded shared tiles, cp.async
 // 16-byte copies, and the row loads and stores of [rows, heads, D]
@@ -15,7 +15,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = 64;  // q rows per block (forward, dQ): 16 per warp
-constexpr int kBK = 64;  // keys per tile (forward, dQ), per block (dK/dV)
+constexpr int kBK = 64;  // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNoKeyLse = -1e30f;  // lse of a row that sees no key
@@ -176,15 +176,7 @@ __device__ __forceinline__ void store_rows(bf16* base, int64_t stride,
   }
 }
 
-// q rows per step of the dK/dV kernels: 64 at D = 64; 32 at D = 128,
-// which keeps the two 16 x 128 float32 accumulators and the step's
-// 16 x BQ scores in registers
-template <int D>
-__host__ __device__ constexpr int dkdv_bq() {
-  return D == 128 ? 32 : 64;
-}
-
-// dynamic shared memory of the forward, dQ and dK/dV kernels (bytes)
+// dynamic shared memory of the mma.sync forward and dQ kernels (bytes)
 template <int D>
 constexpr int fwd_smem() {
   return (kBQ + 4 * kBK) * (D + 8) * 2;
@@ -193,12 +185,6 @@ constexpr int fwd_smem() {
 template <int D>
 constexpr int dq_smem() {
   return (2 * kBQ + 4 * kBK) * (D + 8) * 2;
-}
-
-template <int D>
-constexpr int dkdv_smem() {
-  return (2 * kBK + 4 * dkdv_bq<D>()) * (D + 8) * 2 +
-         4 * dkdv_bq<D>() * (int)sizeof(float);
 }
 
 // ---------------------------------------------------------------- launch

@@ -3,8 +3,8 @@
 //
 // Replaces three Pallas kernels of paddle_tpu/ops/kernels/flash_varlen.py:
 //   * _varlen_fwd_kernel      -> varlen_fwd_bf16 / varlen_fwd_f32
-//   * _varlen_bwd_dkdv_kernel -> varlen_bwd_dkdv_bf16 / varlen_bwd_dkdv_f32
-//   * _varlen_bwd_dq_kernel   -> varlen_bwd_dq_bf16 / varlen_bwd_dq_f32
+//   * _varlen_bwd_dkdv_kernel -> varlen_bwd_dkdv_wgmma / varlen_bwd_dkdv_f32
+//   * _varlen_bwd_dq_kernel   -> varlen_bwd_dq_wgmma / varlen_bwd_dq_f32
 //
 // Computes, for q [Tq, H, D] and k/v [Tk, KVH, D] packed along the token
 // axis (read in place), with segment boundaries cu_q and cu_k (int32
@@ -27,27 +27,35 @@
 // counted over the kept pairs alone: about sum_i s_i^2 (half of it with
 // causal) per head, not Tq * Tk.
 //
-// Design: the dense kernels' tiles (flash_tiles.cuh: mma.sync bf16,
-// cp.async double buffers, 64-row blocks of 4 warps), with the causal
-// band replaced by segments.
+// Design, shared by the three bf16 kernels:
 //   * Every kept set is an interval. Row q keeps keys [klo, khi]: klo is
 //     the first key of its segment, khi its last, or with causal
 //     cu_k[s] + loc_q if that is smaller. Key k is kept by rows [qlo, qhi]
-//     in the mirror image. Both ends never decrease along the rows (keys),
-//     so a thread finds its two rows' (keys') intervals once by binary
-//     search over cu and masks with two compares, and a tile is full when
-//     its last row's klo and its first row's khi enclose it.
+//     in the mirror image. Along the rows (keys) the ends of the
+//     intervals that are not empty never decrease, so a thread finds its
+//     two rows' (keys') intervals once by binary search over cu and masks
+//     with two compares, and a tile is full when its last row's klo and
+//     its first row's khi enclose it.
 //   * A block walks only the key tiles (q tiles for dK/dV) that the
 //     segments of its rows (keys) reach, segment by segment, each tile
 //     once, found from cu and never by testing every tile: the work is
 //     ~O(sum_i s_i^2). A q tile that spans several segments walks the key
 //     tiles of each.
-//   * Forward and dQ: one block per (64-row q tile, q head). dK/dV: one
-//     block per (64-key tile, kv head), walking the group's q heads and,
-//     for each, its q tiles, with dK and dV in float32 registers written
-//     once. No atomics: two runs give equal gradients.
+//   * The forward: one block per (64-row q tile, q head), mma.sync tiles
+//     of flash_tiles.cuh (cp.async double buffers, 4 warps).
+//   * The backward runs on wgmma (attn_bwd_tiles.cuh, shared with the
+//     dense dK/dV kernel), fed by TMA through a ring of stages that a
+//     producer warp keeps full. dK/dV: one block per (key tile, kv head),
+//     the tiles taken largest work first, walking the group's q heads and,
+//     for each, its q tiles. dQ: one block per (kv head, M tiles of 64
+//     (row, q head) pairs), walking the key tiles of its rows. dK, dV and
+//     dQ stay in float32 registers and are written once: no atomics, so
+//     two runs give equal gradients.
 // Only D = 64 and D = 128 are instantiated; the wrapper refuses others.
 
+#include <climits>
+
+#include "attn_bwd_tiles.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -72,12 +80,15 @@ struct VParams {
 };
 
 // ------------------------------------------------------------ segments
+// cu_q and cu_k are read through plain pointers: in global memory, or in
+// the shared-memory copy of the backward kernels (with_shared_cu).
+//
 // the segment of token t: the number of j in 1..B with cu[j] <= t
 __device__ __forceinline__ int seg_of(const int* cu, int B, int t) {
   int lo = 1, hi = B + 1;  // the first j in [1, B] with cu[j] > t, or B + 1
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (__ldg(cu + mid) <= t) {
+    if (cu[mid] <= t) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -90,10 +101,10 @@ __device__ __forceinline__ int seg_of(const int* cu, int B, int t) {
 // [0, T]: boundaries that break the contract give wrong answers, never a
 // read or write outside the tensors
 __device__ __forceinline__ int seg_beg(const int* cu, int s, int T) {
-  return s == 0 ? 0 : min(max(__ldg(cu + s), 0), T);
+  return s == 0 ? 0 : min(max(cu[s], 0), T);
 }
 __device__ __forceinline__ int seg_end(const int* cu, int B, int s, int T) {
-  return s == B ? T : min(max(__ldg(cu + s + 1), 0), T);
+  return s == B ? T : min(max(cu[s + 1], 0), T);
 }
 
 // keys [lo, hi] that row q of segment s keeps (empty: hi < lo)
@@ -101,7 +112,7 @@ __device__ __forceinline__ void row_keys(const VParams& p, int s, int q,
                                          int& lo, int& hi) {
   lo = seg_beg(p.cu_k, s, p.Tk);
   hi = seg_end(p.cu_k, p.B, s, p.Tk) - 1;
-  if (p.causal) hi = min(hi, __ldg(p.cu_k + s) + q - __ldg(p.cu_q + s));
+  if (p.causal) hi = min(hi, p.cu_k[s] + q - p.cu_q[s]);
 }
 
 // rows [lo, hi] that keep key k of segment s (empty: hi < lo)
@@ -109,7 +120,7 @@ __device__ __forceinline__ void key_rows(const VParams& p, int s, int k,
                                          int& lo, int& hi) {
   lo = seg_beg(p.cu_q, s, p.Tq);
   hi = seg_end(p.cu_q, p.B, s, p.Tq) - 1;
-  if (p.causal) lo = max(lo, __ldg(p.cu_q + s) + k - __ldg(p.cu_k + s));
+  if (p.causal) lo = max(lo, p.cu_q[s] + k - p.cu_k[s]);
 }
 
 // the keys a row < Tq keeps; nothing for the zero-filled rows past Tq
@@ -154,6 +165,12 @@ struct KeyTiles {
     }
     return kt = nk;
   }
+  // the number of tiles of the walk from here, a segment at a time
+  __device__ int count(const VParams& p) {
+    int n = 0;
+    for (; next(p) >= 0; kt = t_hi) n += t_hi - kt + 1;
+    return n;
+  }
 };
 
 // The q tiles (BQ rows) that keep some key of [k0, k1], in order, each
@@ -181,6 +198,12 @@ struct QueryTiles {
       nq = max(nq, lo / BQ);
     }
     return qt = nq;
+  }
+  // the number of tiles of the walk from here, a segment at a time
+  __device__ int count(const VParams& p) {
+    int n = 0;
+    for (; next(p) >= 0; qt = t_hi) n += t_hi - qt + 1;
+    return n;
   }
 };
 
@@ -335,219 +358,386 @@ __global__ void __launch_bounds__(kThreads) varlen_fwd_bf16(const VParams p) {
   }
 }
 
-// ------------------------------------------------------------ bf16 dQ
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    varlen_bwd_dq_bf16(const VParams p) {
-  constexpr int SD = D + 8, NO = D / 8, NS = kBK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kBQ * SD;      // dout
-  bf16* sK = sO + kBQ * SD;      // [2][kBK][SD]
-  bf16* sV = sK + 2 * kBK * SD;  // [2][kBK][SD]
+// ------------------------------------------------- bf16 backward, wgmma
+// Both backward kernels run the steps of attn_bwd_tiles.cuh. Their hook:
+// this thread's two rows' (dQ: keys of two (row, head) pairs; dK/dV: rows
+// of two keys) intervals, and the warpgroup's hull. hi never decreases
+// along the axis; lo does, across a segment boundary, only after keys
+// that no row keeps (cu_q != cu_k: a key past its q segment's length has
+// lo > hi). lo' = min(lo, hi + 1) never decreases, so a tile
+// [x0, x0 + 63] is live when it meets [l_lo, l_hi] (the warpgroup's first
+// lo', last hi) and full when [f_lo, f_hi] (its last lo', first hi)
+// encloses it.
+// Each walk step and interval reads cu a few times, one dependent load
+// after another, so the backward kernels copy both boundary arrays into
+// shared memory first when they fit (kCuMax entries each): p with its
+// cu pointers on the copy at `cu` (2 (B + 1) ints), every thread copying;
+// the caller synchronizes before reading it.
+constexpr int kCuMax = 1024;
 
-  const int h = blockIdx.y, kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ, q1 = min(q0 + kBQ, p.Tq) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const int64_t qoff = (int64_t)q0 * qs + h * D;
-  const bf16* kg = static_cast<const bf16*>(p.k) + kvh * D;
-  const bf16* vg = static_cast<const bf16*>(p.v) + kvh * D;
-
-  const int row0 = q0 + warp * 16 + g;
-  int klo[2], khi[2], f_lo, f_hi, unused;
-  row_interval(p, row0, klo[0], khi[0]);
-  row_interval(p, row0 + 8, klo[1], khi[1]);
-  row_interval(p, q1, f_lo, unused);
-  row_interval(p, q0, unused, f_hi);
-
-  KeyTiles walk(p, q0, q1);
-  int kt = walk.next(p);
-  load_rows<kBQ, D>(sQ, static_cast<const bf16*>(p.q) + qoff, qs,
-                    p.Tq - q0);
-  load_rows<kBQ, D>(sO, static_cast<const bf16*>(p.dout) + qoff, qs,
-                    p.Tq - q0);
-  if (kt >= 0) {
-    const int k0 = kt * kBK;
-    load_rows<kBK, D>(sK, kg + k0 * ks, ks, p.Tk - k0);
-    load_rows<kBK, D>(sV, vg + k0 * ks, ks, p.Tk - k0);
+__device__ __forceinline__ VParams with_shared_cu(const VParams& p,
+                                                  int* cu) {
+  VParams ps = p;
+  if (p.B + 1 <= kCuMax) {
+    for (int i = threadIdx.x; i <= p.B; i += blockDim.x) {
+      cu[i] = p.cu_q[i];
+      cu[p.B + 1 + i] = p.cu_k[i];
+    }
+    ps.cu_q = cu;
+    ps.cu_k = cu + p.B + 1;
   }
-  cp_async_commit();
+  return ps;
+}
 
+// shared memory for with_shared_cu (bytes)
+int shared_cu_bytes(const VParams& p) {
+  return p.B + 1 <= kCuMax ? 8 * (p.B + 1) : 0;
+}
+
+struct Intervals {
+  int lo[2], hi[2];
+  int l_lo, l_hi, f_lo, f_hi;
+  __device__ bool live(int x0) const { return x0 <= l_hi && x0 + 63 >= l_lo; }
+  __device__ bool full(int x0) const { return f_lo <= x0 && x0 + 63 <= f_hi; }
+  __device__ bool kept(int x0, int r, int c) const {
+    return x0 + c >= lo[r] && x0 + c <= hi[r];
+  }
+  // l_lo .. f_hi from the intervals of [first, last] on an axis of n
+  // (keys' rows, or rows' keys); none when first >= n
+  template <bool kOfKeys>
+  __device__ void hull(const VParams& p, int first, int last, int n) {
+    if (first >= n) {
+      l_lo = f_lo = 1;
+      l_hi = f_hi = -1;
+      return;
+    }
+    last = min(last, n - 1);
+    if (kOfKeys) {
+      key_interval(p, first, l_lo, f_hi);
+      key_interval(p, last, f_lo, l_hi);
+    } else {
+      row_interval(p, first, l_lo, f_hi);
+      row_interval(p, last, f_lo, l_hi);
+    }
+    l_lo = min(l_lo, f_hi + 1);  // lo' of an empty interval (see above)
+    f_lo = min(f_lo, l_hi + 1);
+  }
+};
+
+// ---------------------------------------------------------- bf16 dK/dV
+// varlen_bwd_dkdv_wgmma: flash_bwd_dkdv_wgmma's shape (flash_attention.cu)
+// on the same step and layout (attn::dkdv_step, attn::Dkdv: NWG consumer
+// warpgroups of 64 keys, 2 at D = 64 and 1 at D = 128, and a producer
+// warp), with segments in place of the causal band. One block per (key
+// tile of 64 * NWG keys, kv head):
+//   * order: a key tile's work is its walk's q tiles (QueryTiles<64>)
+//     times the group, from a few rows to a whole document's. Where the
+//     blocks are more than one wave (rank_tiles), each block counts every
+//     tile's walk (O(segments) a tile), ranks the tiles by work, largest
+//     first, and takes the one of its own rank, so that the first tiles of
+//     the long documents start first wherever they lie in the pack (past
+//     kOrderMax tiles it takes them in order). A greedy schedule of
+//     varlen_train's 256 blocks on 132 SMs ends at 321 step units in pack
+//     order and at 219 in this one (the mean is 190);
+//   * the producer's lane 0 loads the block's K and V once by TMA, then
+//     walks the steps, for each q head of the group the q tiles of the
+//     walk: Q and dO tiles of 64 rows (a box of `map_rows` over the packed
+//     axis, rows past Tq read as zeros) and the rows' lse and delta (a
+//     1-D box over H x Tq, which past a head's last row reads the next
+//     head's values: those rows lie outside every key's interval and are
+//     masked) into the ring, with the step's first row in step_q0;
+//   * each consumer warpgroup runs attn::dkdv_step on each staged tile;
+//     the mask is each thread's two keys' row intervals (key_interval),
+//     run only on tiles that the warpgroup's first and last keys' do not
+//     enclose; a tile that none of its 64 keys sees runs no product.
+// dK and dV stay in float32 registers and are written once.
+constexpr int kOrderMax = 512;  // key tiles a block ranks
+
+template <int D>
+__global__ void __launch_bounds__(ptt::attn::Dkdv<D>::kThreads, 1)
+    varlen_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmO,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          const __grid_constant__ CUtensorMap tmL,
+                          const __grid_constant__ CUtensorMap tmDelta,
+                          const VParams p, int rank_tiles) {
+  using L = ptt::attn::Dkdv<D>;
+  using ptt::attn::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* sK = base;
+  unsigned char* sV = base + L::kKV;
+  auto stage = [&](int s) { return base + 2 * L::kKV + s * L::kStage; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kvbar = empty + L::kStages;
+  int* step_q0 = reinterpret_cast<int*>(kvbar + 1);  // [kStages]
+  int* work = step_q0 + L::kStages;  // [kOrderMax], then the block's tile
+  const VParams ps = with_shared_cu(p, work + kOrderMax + 1);
+
+  const int group = p.H / p.KVH, ntiles = gridDim.x / p.KVH;
+  const int kvh = blockIdx.x % p.KVH, rank = blockIdx.x / p.KVH;
+  auto tile_steps = [&](int kt) {
+    return QueryTiles<64>(ps, kt * L::kBK,
+                          min(kt * L::kBK + L::kBK, p.Tk) - 1)
+        .count(ps);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
+    }
+    ptt::mbar_init(kvbar, 1);
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+  // the block's key tile, and its steps: (q head, q tile)
+  int kt = rank, n_steps;
+  if (rank_tiles) {  // more blocks than one wave: rank the tiles by work
+    for (int i = threadIdx.x; i < ntiles; i += blockDim.x)
+      work[i] = tile_steps(i);
+    __syncthreads();
+    // the tile of rank `rank`: more work first, then the lower index
+    for (int i = threadIdx.x; i < ntiles; i += blockDim.x) {
+      const int wi = work[i];
+      int r = 0;
+      for (int j = 0; j < ntiles; ++j)
+        r += work[j] > wi || (work[j] == wi && j < i);
+      if (r == rank) work[kOrderMax] = i;
+    }
+    __syncthreads();
+    kt = work[kOrderMax];
+    n_steps = group * work[kt];
+  } else {
+    n_steps = group * tile_steps(kt);
+  }
+  const int k0 = kt * L::kBK, k1 = min(k0 + L::kBK, p.Tk) - 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0 && n_steps > 0) {
+      ptt::mbar_arrive_expect_tx(kvbar, 2 * L::kKV);
+      for (int sub = 0; sub < L::kSub; ++sub) {
+        ptt::tma_load_4d(sK + sub * L::kBK * 128, &tmK, kvbar, sub * 64, kvh,
+                         k0, 0);
+        ptt::tma_load_4d(sV + sub * L::kBK * 128, &tmV, kvbar, sub * 64, kvh,
+                         k0, 0);
+      }
+      int it = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = kvh * group + gi;
+        QueryTiles<64> walk(ps, k0, k1);
+        for (int qt = walk.next(ps); qt >= 0; qt = walk.next(ps), ++it) {
+          const int s = it % L::kStages;
+          if (it >= L::kStages)  // the consumers released this stage
+            ptt::mbar_wait(&empty[s], (it / L::kStages - 1) & 1);
+          const int q0 = qt * 64;
+          step_q0[s] = q0;  // published by the arrive below
+          unsigned char* st = stage(s);
+          ptt::mbar_arrive_expect_tx(&full[s], L::kStageTx);
+          for (int sub = 0; sub < L::kSub; ++sub) {
+            ptt::tma_load_4d(st + sub * kTile, &tmQ, &full[s], sub * 64, h,
+                             q0, 0);
+            ptt::tma_load_4d(st + L::kQO + sub * kTile, &tmO, &full[s],
+                             sub * 64, h, q0, 0);
+          }
+          const int row = h * p.Tq + q0;  // from 16 bytes
+          ptt::tma_load_1d(st + 2 * L::kQO, &tmL, &full[s], row & ~3);
+          ptt::tma_load_1d(st + 2 * L::kQO + 512, &tmDelta, &full[s],
+                           row & ~3);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg;  // this warpgroup's 64 keys
+  const int kr0 = kw0 + 16 * wq + g;  // this thread's keys: kr0, kr0 + 8
+  Intervals rows;
+  key_interval(ps, kr0, rows.lo[0], rows.hi[0]);
+  key_interval(ps, kr0 + 8, rows.lo[1], rows.hi[1]);
+  rows.hull<true>(ps, kw0, kw0 + 63, p.Tk);
+  float dk[D / 2] = {}, dv[D / 2] = {};
+  if (n_steps > 0) ptt::mbar_wait(kvbar, 0);
+  const int nqt = n_steps / group;  // every head walks the same q tiles
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % L::kStages;
+    ptt::mbar_wait(&full[s], (it / L::kStages) & 1);
+    const int q0 = step_q0[s];
+    const int row = (kvh * group + it / nqt) * p.Tq + q0;
+    ptt::attn::dkdv_step<D>(sK + wg * 64 * 128, sV + wg * 64 * 128,
+                            L::kBK * 128, stage(s), row & 3,
+                            p.scale * kLog2e, p.scale, rows, q0, dk, dv);
+    ptt::mbar_arrive(&empty[s]);
+  }
+
+  // dK, dV: accumulator element 4 j + i is key kr0 + 8 (i / 2), column
+  // 8 j + 2 t + i % 2
+  const int64_t ks = (int64_t)p.KVH * D;
+  bf16* dkg = static_cast<bf16*>(p.dk) + kvh * D;
+  bf16* dvg = static_cast<bf16*>(p.dv) + kvh * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = kr0 + 8 * r;
+    if (kr >= p.Tk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int64_t o = kr * ks + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkg + o) =
+          pack2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + o) =
+          pack2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16 dQ
+// varlen_bwd_dq_wgmma: one block per (kv head, NWG M tiles), on
+// attn::dq_step. NWG consumer warpgroups (up to 3 at D = 64, 2 at
+// D = 128, fewer where that would leave SMs without a block) and one
+// producer warp:
+//   * M packing, as the forwards': an M tile is 64 (row, q head) pairs of
+//     one kv head's group, 64 / group consecutive rows x the group's heads
+//     (9 x 7 at Qwen2's group 7, 16 x 4 at group 4), one TMA box {64
+//     columns, group heads, rows} of Q (and of dO), so every K/V tile the
+//     block stages serves all the group's heads of its rows, where one
+//     block per (q tile, q head) staged it once per q head;
+//   * a pair's lse and delta are fixed for the block: each thread reads
+//     its two pairs' values once into registers;
+//   * the producer's lane 0 loads the warpgroups' Q and dO tiles once,
+//     then the 64-key K and V tiles of the block rows' walk (KeyTiles, in
+//     order, each once) into a ring of kStages stages (5 at D = 64, 4 at
+//     D = 128), with each tile's first key in step_k0;
+//   * the mask is each pair's own key interval (row_interval), run only on
+//     tiles that the warpgroup's first and last rows' intervals do not
+//     enclose; a warpgroup skips a tile that none of its rows sees. The
+//     M tiles go last to first, so blocks whose rows walk the most keys
+//     (the late rows of long documents) tend to start first.
+// dQ stays in float32 registers and is written once.
+template <int D, int NWG>
+struct VDq {
+  static constexpr int kNWG = NWG;  // consumer warpgroups
+  static constexpr int kSub = D / 64;
+  static constexpr int kStages = D == 64 ? 5 : 4;  // K/V ring depth
+  static constexpr int kThreads = kNWG * 128 + 32;
+  static constexpr int kQdO = 2 * kSub * ptt::attn::kTile;  // Q and dO
+  static constexpr int kStage = 2 * kSub * ptt::attn::kTile;  // K and V
+  static constexpr int kBars = kNWG * kQdO + kStages * kStage;
+  static constexpr int kSmem =
+      1024 + kBars + 8 * (2 * kStages + 1) + 4 * kStages;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(VDq<D, NWG>::kThreads, 1)
+    varlen_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                        const __grid_constant__ CUtensorMap tmO,
+                        const __grid_constant__ CUtensorMap tmK,
+                        const __grid_constant__ CUtensorMap tmV,
+                        const VParams p) {
+  using L = VDq<D, NWG>;
+  using ptt::attn::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = base + L::kNWG * L::kQdO;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qbar = empty + L::kStages;
+  int* step_k0 = reinterpret_cast<int*>(qbar + 1);  // [kStages]
+  const VParams ps = with_shared_cu(p, step_k0 + L::kStages);
+
+  const int group = p.H / p.KVH, rows = 64 / group;
+  const int nmt = gridDim.x / p.KVH, kvh = blockIdx.x % p.KVH;
+  const int mt = nmt - 1 - blockIdx.x / p.KVH;  // the last rows first
+  const int r0 = mt * L::kNWG * rows;
+  const int r_last = min(r0 + L::kNWG * rows, p.Tq) - 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
+    }
+    ptt::mbar_init(qbar, 1);
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0) {  // Q and dO first: they need no walk
+      ptt::mbar_arrive_expect_tx(qbar,
+                                 L::kNWG * 2 * L::kSub * group * rows * 128);
+      for (int wg = 0; wg < L::kNWG; ++wg)
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          unsigned char* q = base + wg * L::kQdO + sub * kTile;
+          ptt::tma_load_4d(q, &tmQ, qbar, sub * 64, kvh * group,
+                           r0 + wg * rows, 0);
+          ptt::tma_load_4d(q + L::kSub * kTile, &tmO, qbar, sub * 64,
+                           kvh * group, r0 + wg * rows, 0);
+        }
+      KeyTiles walk(ps, r0, r_last);
+      for (int j = 0, kt = walk.next(ps); kt >= 0; kt = walk.next(ps), ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages)  // the consumers released this stage
+          ptt::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        step_k0[s] = kt * 64;  // published by the arrive below
+        unsigned char* st = ring + s * L::kStage;
+        ptt::mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          ptt::tma_load_4d(st + sub * kTile, &tmK, &full[s], sub * 64, kvh,
+                           kt * 64, 0);
+          ptt::tma_load_4d(st + (L::kSub + sub) * kTile, &tmV, &full[s],
+                           sub * 64, kvh, kt * 64, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int w0 = r0 + wg * rows;  // this warpgroup's rows w0..
+  const int pa0 = 16 * wq + g;    // this thread's pairs: pa0, pa0 + 8
+  Intervals keys;
+  keys.hull<false>(ps, w0, w0 + rows - 1, p.Tq);
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    const int64_t i = (int64_t)h * p.Tq + row;
-    lse2[r] = row < p.Tq ? p.lse_in[i] * kLog2e : 0.f;
-    dl[r] = row < p.Tq ? p.delta[i] : 0.f;
+    const int pair = pa0 + 8 * r, row = w0 + pair / group;
+    const bool real = pair < rows * group && row < p.Tq;
+    const int64_t i = (int64_t)(kvh * group + pair % group) * p.Tq + row;
+    keys.lo[r] = 0;
+    keys.hi[r] = -1;
+    if (real) row_interval(ps, row, keys.lo[r], keys.hi[r]);
+    lse2[r] = real ? p.lse_in[i] * kLog2e : 0.f;
+    dl[r] = real ? p.delta[i] : 0.f;
   }
-  const float sl2 = p.scale * kLog2e;
-  float dq[NO][4] = {};
-  cp_async_wait<0>();
-  __syncthreads();
+  const unsigned char* sQ = base + wg * L::kQdO;
+  const int n = KeyTiles(ps, r0, r_last).count(ps);
+  float dq[D / 2] = {};
+  ptt::mbar_wait(qbar, 0);
+  ptt::attn::dq_consume<D, L::kStages>(
+      sQ, sQ + L::kSub * kTile, ring, L::kStage, step_k0, full, empty, n,
+      lse2, dl, p.scale * kLog2e, p.scale, keys, dq);
 
-  for (int buf = 0; kt >= 0; buf ^= 1) {
-    const int nxt = walk.next(p);
-    if (nxt >= 0) {
-      const int k1 = nxt * kBK;
-      load_rows<kBK, D>(sK + (buf ^ 1) * kBK * SD, kg + k1 * ks, ks,
-                        p.Tk - k1);
-      load_rows<kBK, D>(sV + (buf ^ 1) * kBK * SD, vg + k1 * ks, ks,
-                        p.Tk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + buf * kBK * SD;
-    const bf16* cV = sV + buf * kBK * SD;
-    const int k0 = kt * kBK;
-
-    float s[NS][4] = {};
-    gemm_abt<D, NS>(s, sQ, warp * 16, cK, lane);  // q k^T
-    const bool full = f_lo <= k0 && k0 + kBK - 1 <= f_hi;
+  // dq: accumulator element 4 j + i is pair pa0 + 8 (i / 2), column
+  // 8 j + 2 t + i % 2
+  const int64_t qs = (int64_t)p.H * D;
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+  for (int r = 0; r < 2; ++r) {
+    const int pair = pa0 + 8 * r, row = w0 + pair / group;
+    if (pair >= rows * group || row >= p.Tq) continue;
+    bf16* dst = static_cast<bf16*>(p.dq) + row * qs +
+                (kvh * group + pair % group) * D + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float e = exp2f(s[nt][i] * sl2 - lse2[i >> 1]);
-        if (!full) {
-          const int r = i >> 1, c = k0 + nt * 8 + 2 * t + (i & 1);
-          if (c < klo[r] || c > khi[r]) e = 0.f;
-        }
-        s[nt][i] = e;
-      }
-    float dp[NS][4] = {};
-    gemm_abt<D, NS>(dp, sO, warp * 16, cV, lane);  // dout v^T
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dp[nt][i] = s[nt][i] * (dp[nt][i] - dl[i >> 1]) * p.scale;
-    gemm_pb<D, kBK / 16>(dq, dp, cK, lane);  // dq += ds k
-    __syncthreads();
-    kt = nxt;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + h * D, qs, q0 + warp * 16, p.Tq,
-                dq, lane);
-}
-
-// ---------------------------------------------------------- bf16 dK/dV
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    varlen_bwd_dkdv_bf16(const VParams p) {
-  constexpr int BQ = dkdv_bq<D>();
-  constexpr int SD = D + 8, NO = D / 8, NS = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBK * SD;
-  bf16* sQ = sV + kBK * SD;     // [2][BQ][SD]
-  bf16* sO = sQ + 2 * BQ * SD;  // [2][BQ][SD] dout
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * SD);  // [2][BQ]
-  float* sD = sL + 2 * BQ;                                 // [2][BQ]
-
-  const int kvh = blockIdx.y, group = p.H / p.KVH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBK, k1 = min(k0 + kBK, p.Tk) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const int64_t koff = (int64_t)k0 * ks + kvh * D;
-
-  // this thread's keys krow0 and krow0 + 8 are kept by rows [qlo, qhi];
-  // a q tile is full when the last key's qlo and the first key's qhi
-  // enclose it
-  const int krow0 = k0 + warp * 16 + g;
-  int qlo[2], qhi[2], f_lo, f_hi, unused;
-  key_interval(p, krow0, qlo[0], qhi[0]);
-  key_interval(p, krow0 + 8, qlo[1], qhi[1]);
-  key_interval(p, k1, f_lo, unused);
-  key_interval(p, k0, unused, f_hi);
-
-  // stage step (q head gi of the group, q tile qt) into buffer buf
-  auto stage = [&](int gi, int qt, int buf) {
-    const int h = kvh * group + gi;
-    const int q0 = qt * BQ;
-    const int64_t off = (int64_t)q0 * qs + h * D;
-    load_rows<BQ, D>(sQ + buf * BQ * SD, static_cast<const bf16*>(p.q) + off,
-                     qs, p.Tq - q0);
-    load_rows<BQ, D>(sO + buf * BQ * SD,
-                     static_cast<const bf16*>(p.dout) + off, qs, p.Tq - q0);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int row = q0 + i;
-      const int64_t j = (int64_t)h * p.Tq + row;
-      // rows past the end: lse = +inf makes p = 0
-      sL[buf * BQ + i] = row < p.Tq ? p.lse_in[j] * kLog2e : INFINITY;
-      sD[buf * BQ + i] = row < p.Tq ? p.delta[j] : 0.f;
-    }
-  };
-
-  // the steps: for each q head of the group, the q tiles of the walk
-  QueryTiles<BQ> walk(p, k0, k1);
-  int gi = 0, qt = walk.next(p);
-  load_rows<kBK, D>(sK, static_cast<const bf16*>(p.k) + koff, ks, p.Tk - k0);
-  load_rows<kBK, D>(sV, static_cast<const bf16*>(p.v) + koff, ks, p.Tk - k0);
-  if (qt >= 0) stage(gi, qt, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const float sl2 = p.scale * kLog2e;
-  float dk[NO][4] = {}, dv[NO][4] = {};
-
-  for (int buf = 0; qt >= 0; buf ^= 1) {
-    int ngi = gi, nqt = walk.next(p);
-    if (nqt < 0 && ++ngi < group) {
-      walk = QueryTiles<BQ>(p, k0, k1);
-      nqt = walk.next(p);
-    }
-    if (nqt >= 0) {
-      stage(ngi, nqt, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cQ = sQ + buf * BQ * SD;
-    const bf16* cO = sO + buf * BQ * SD;
-    const float* cL = sL + buf * BQ;
-    const float* cD = sD + buf * BQ;
-    const int q0 = qt * BQ;
-
-    // s^T = k q^T: this warp's 16 keys against the BQ rows
-    float s[NS][4] = {};
-    gemm_abt<D, NS>(s, sK, warp * 16, cQ, lane);
-    const bool full = f_lo <= q0 && q0 + BQ - 1 <= f_hi;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nt * 8 + 2 * t + (i & 1);
-        float e = exp2f(s[nt][i] * sl2 - cL[c]);
-        if (!full && (q0 + c < qlo[i >> 1] || q0 + c > qhi[i >> 1])) e = 0.f;
-        s[nt][i] = e;
-      }
-    gemm_pb<D, BQ / 16>(dv, s, cO, lane);  // dv += p^T dout
-    float dp[NS][4] = {};
-    gemm_abt<D, NS>(dp, sV, warp * 16, cO, lane);  // (dout v^T)^T
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dp[nt][i] =
-            s[nt][i] * (dp[nt][i] - cD[nt * 8 + 2 * t + (i & 1)]) * p.scale;
-    gemm_pb<D, BQ / 16>(dk, dp, cQ, lane);  // dk += ds^T q
-    __syncthreads();
-    gi = ngi;
-    qt = nqt;
-  }
-  store_rows<D>(static_cast<bf16*>(p.dk) + kvh * D, ks, k0 + warp * 16, p.Tk,
-                dk, lane);
-  store_rows<D>(static_cast<bf16*>(p.dv) + kvh * D, ks, k0 + warp * 16, p.Tk,
-                dv, lane);
 }
 
 // ------------------------------------------------------- float32 kernels
@@ -708,6 +898,86 @@ VParams vmake(const void* cu_q, const void* cu_k, int64_t B, int64_t H,
   return p;
 }
 
+// the tensor maps (built on the host for each call), then the launch.
+// The token axis is a 4-D map's row axis with one "batch".
+template <int D>
+int launch_dkdv_wgmma(const VParams& p, cudaStream_t stream) {
+  using L = ptt::attn::Dkdv<D>;
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int64_t ntiles = blocks(p.Tk, L::kBK);
+  if ((int64_t)p.H * p.Tq + 64 > INT_MAX || ntiles * p.KVH > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mo, mk, mv, ml, md;
+  if (!ptt::map_rows(enc, &mq, p.q, D, p.H, p.Tq, 1, 64) ||
+      !ptt::map_rows(enc, &mo, p.dout, D, p.H, p.Tq, 1, 64) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Tk, 1, L::kBK) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Tk, 1, L::kBK) ||
+      !ptt::map_flat(enc, &ml, p.lse_in, (int64_t)p.H * p.Tq,
+                     ptt::attn::kRowBox) ||
+      !ptt::map_flat(enc, &md, p.delta, (int64_t)p.H * p.Tq,
+                     ptt::attn::kRowBox))
+    return (int)cudaErrorInvalidValue;
+  // step_q0, the tile ranks, the block's tile and cu after the barriers
+  const int smem =
+      L::kSmem + 4 * (L::kStages + kOrderMax + 1) + shared_cu_bytes(p);
+  int dev, sms;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return (int)cudaGetLastError();
+  const int rank_tiles = ntiles <= kOrderMax && ntiles * p.KVH > sms;
+  const cudaError_t e = cudaFuncSetAttribute(
+      varlen_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  varlen_bwd_dkdv_wgmma<D><<<(unsigned)(ntiles * p.KVH), L::kThreads, smem,
+                             stream>>>(mq, mo, mk, mv, ml, md, p,
+                                       rank_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NWG>
+int launch_dq_wgmma(const VParams& p, const CUtensorMap& mq,
+                    const CUtensorMap& mo, const CUtensorMap& mk,
+                    const CUtensorMap& mv, cudaStream_t stream) {
+  using L = VDq<D, NWG>;
+  const int64_t n =
+      (int64_t)blocks(p.Tq, NWG * (64 / (p.H / p.KVH))) * p.KVH;
+  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int smem = L::kSmem + shared_cu_bytes(p);
+  const cudaError_t e = cudaFuncSetAttribute(
+      varlen_bwd_dq_wgmma<D, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  varlen_bwd_dq_wgmma<D, NWG><<<(unsigned)n, L::kThreads, smem, stream>>>(
+      mq, mo, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const VParams& p, cudaStream_t stream) {
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int group = p.H / p.KVH;
+  if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
+  const int rows = 64 / group;
+  CUtensorMap mq, mo, mk, mv;
+  if (!ptt::map_heads_rows(enc, &mq, p.q, D, p.H, p.Tq, 1, group, rows) ||
+      !ptt::map_heads_rows(enc, &mo, p.dout, D, p.H, p.Tq, 1, group, rows) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Tk, 1, 64) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Tk, 1, 64))
+    return (int)cudaErrorInvalidValue;
+  // the most warpgroups a block (3 at D = 64, 2 at D = 128, where dQ
+  // takes twice the registers) that still give every SM a block
+  int nwg = D == 64 ? 3 : 2;
+  while (nwg > 1 && (int64_t)blocks(p.Tq, nwg * rows) * p.KVH < 132) --nwg;
+  if constexpr (D == 64)
+    if (nwg == 3) return launch_dq_wgmma<D, 3>(p, mq, mo, mk, mv, stream);
+  return nwg == 2 ? launch_dq_wgmma<D, 2>(p, mq, mo, mk, mv, stream)
+                  : launch_dq_wgmma<D, 1>(p, mq, mo, mk, mv, stream);
+}
+
 }  // namespace
 
 // q [Tq, H, D], k/v [Tk, KVH, D] contiguous, cu_q/cu_k int32 [B + 1] on
@@ -755,12 +1025,9 @@ extern "C" int ptt_flash_varlen_bwd_dkdv(
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Tk, kBK), p.KVH), gf(blocks(p.Tk, kWarps), p.KVH);
+  const dim3 gf(blocks(p.Tk, kWarps), p.KVH);
   if (dtype == ptt::kBFloat16)
-    return D == 64
-               ? launch(varlen_bwd_dkdv_bf16<64>, gb, dkdv_smem<64>(), s, p)
-               : launch(varlen_bwd_dkdv_bf16<128>, gb, dkdv_smem<128>(), s,
-                        p);
+    return D == 64 ? launch_dkdv_wgmma<64>(p, s) : launch_dkdv_wgmma<128>(p, s);
   return D == 64 ? launch(varlen_bwd_dkdv_f32<64>, gf, 0, s, p)
                  : launch(varlen_bwd_dkdv_f32<128>, gf, 0, s, p);
 }
@@ -781,10 +1048,9 @@ extern "C" int ptt_flash_varlen_bwd_dq(
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Tq, kBQ), p.H), gf(blocks(p.Tq, kWarps), p.H);
+  const dim3 gf(blocks(p.Tq, kWarps), p.H);
   if (dtype == ptt::kBFloat16)
-    return D == 64 ? launch(varlen_bwd_dq_bf16<64>, gb, dq_smem<64>(), s, p)
-                   : launch(varlen_bwd_dq_bf16<128>, gb, dq_smem<128>(), s, p);
+    return D == 64 ? launch_dq<64>(p, s) : launch_dq<128>(p, s);
   return D == 64 ? launch(varlen_bwd_dq_f32<64>, gf, 0, s, p)
                  : launch(varlen_bwd_dq_f32<128>, gf, 0, s, p);
 }

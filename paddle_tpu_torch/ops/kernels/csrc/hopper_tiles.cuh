@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// mbarriers, TMA tensor-map loads, wgmma shared-memory descriptors for the
-// 128-byte swizzle, and warpgroup matrix products (wgmma) with float32
-// accumulators. The bf16 flash dK/dV kernel (flash_attention.cu) and the
-// forward-attention core (attn_fwd_tiles.cuh: the bf16 flash forward and
-// the ragged paged kernel's tensor-core route) are built on them.
+// mbarriers, TMA tensor-map loads (and, on the host, the tensor maps),
+// wgmma shared-memory descriptors for the 128-byte swizzle, and warpgroup
+// matrix products (wgmma) with float32 accumulators. The forward-attention
+// core (attn_fwd_tiles.cuh: the bf16 flash forward and the ragged paged
+// kernel's tensor-core route) and the backward steps (attn_bwd_tiles.cuh:
+// the bf16 flash dK/dV kernel and the varlen dK/dV and dQ kernels) are
+// built on them.
 //
 // Layouts. A TMA load with CU_TENSOR_MAP_SWIZZLE_128B of a box whose inner
 // extent is 64 bf16 (128 bytes) writes rows of 128 bytes, the 16-byte
@@ -216,6 +218,67 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// ------------------------------------------------- tensor maps (host)
+// Built on the host for each call and passed as __grid_constant__ kernel
+// arguments. cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a bf16 [B, S, heads, D] tensor in boxes of `rows` rows x `box_heads`
+// consecutive heads x 64 columns, 128-byte swizzled (in shared memory the
+// box's rows of 128 bytes go head-fastest); rows past S read as zeros
+inline bool map_heads_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr,
+                           int d, int heads, int s, int b, int box_heads,
+                           int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same in boxes of `rows` rows x 64 columns of one head
+inline bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* ptr, int d,
+                     int heads, int s, int b, int rows) {
+  return map_heads_rows(enc, m, ptr, d, heads, s, b, 1, rows);
+}
+
+// a float32 vector of n in boxes of `box` values (a multiple of 4); past
+// n reads as zeros. A box must start at a multiple of 4 (16 bytes).
+inline bool map_flat(EncodeTiled enc, CUtensorMap* m, const float* ptr,
+                     int64_t n, int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {(cuuint32_t)box}, unit[1] = {1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr),
+             dims, strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace ptt

@@ -247,6 +247,10 @@ def flash_varlen_bwd_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal=False,
                                          cu_k, causal, scale)
     ins, args = _bwd_cuda("flash_varlen_bwd_dq", q, k, v, do, lse, delta,
                           cu_q, cu_k, causal, scale)
+    if q.dtype == torch.bfloat16 and q.shape[1] // k.shape[1] > 64:
+        raise NotImplementedError(
+            "flash_varlen_bwd_dq: the bf16 kernel packs a kv head's group "
+            f"into 64-pair M tiles; group {q.shape[1] // k.shape[1]} > 64")
     if not (q.shape[0] and k.shape[0]):
         return torch.zeros_like(q)
     dq = torch.empty_like(q)

@@ -64,6 +64,9 @@ CASES = {
     "cu_q_ne_k": ([40, 88], [100, 28], 128, 128, 4, 2, 64, True),
     "tail": ([100, 100], None, 256, 256, 4, 2, 64, True),
     "d128": ([70, 58], None, 128, 128, 2, 1, 128, False),
+    # Qwen2-0.5B's heads (group 7), lengths a multiple of neither 9 (the
+    # CUDA dQ kernel's rows an M tile) nor 64, and a tail of 0
+    "group7": ([61, 140, 55], None, 256, 256, 14, 2, 64, True),
 }
 # q segment 1 sees an empty k segment (its rows see no key); the k tail
 # of 28 tokens is its own segment
@@ -130,7 +133,7 @@ def test_fwd_matches_pallas_interpret(name):
     _close(out.numpy(), ref, OUT_TOL)
 
 
-@pytest.mark.parametrize("name", ["gqa", "cu_q_ne_k"])
+@pytest.mark.parametrize("name", list(CASES))
 def test_grads_match_pallas_interpret(name):
     (q, k, v, do), cq, ck, causal = _inputs(CASES[name], 3 + len(name))
     want = _pallas_grads(q, k, v, do, cq, ck, causal)
@@ -156,6 +159,20 @@ def test_rows_that_see_no_key_match_pallas_interpret():
     _close(got[0], ref, OUT_TOL)
     for g, w in zip(got[1:], want):
         _close(g, w, GRAD_TOL)
+
+
+def test_no_key_gradients_are_zero():
+    """NO_KEY's gradients through the public API are exactly 0 where no
+    pair is kept: dq on the rows of q segment 1, whose k segment is
+    empty; dk and dv on the keys that no row sees (causal keys 40-99 of
+    k segment 0, past its 40 rows, and the k tail, a segment of its own
+    with no q rows). The rows and keys that do see each other have
+    gradients."""
+    (q, k, v, do), cq, ck, causal = _inputs(NO_KEY, 19)
+    _, dq, dk, dv = _port(q, k, v, do, cq, ck, causal)
+    assert np.all(dq[40:] == 0) and np.abs(dq[:40]).sum() > 0
+    for g in (dk, dv):
+        assert np.all(g[40:] == 0) and np.abs(g[:40]).sum() > 0
 
 
 @pytest.mark.parametrize("name", ["noncausal", "gqa", "cu_q_ne_k", "tail",

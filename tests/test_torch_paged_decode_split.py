@@ -154,3 +154,14 @@ def test_every_planted_fault_names_live_kernel_text(fault):
     text = (ROOT / source).read_text()
     assert text.count(old) == 1, f"{name}: {text.count(old)} occurrences"
     assert old != new
+
+
+@pytest.mark.parametrize("ablation", CHIP_SMOKE.ABLATIONS,
+                         ids=lambda a: a[0])
+def test_every_ablation_names_live_kernel_text(ablation):
+    """--ablations replaces each ablation's text in its CUDA source, as
+    --fault-check does a fault's."""
+    name, source, old, new = ablation[:4]
+    text = (ROOT / source).read_text()
+    assert text.count(old) == 1, f"{name}: {text.count(old)} occurrences"
+    assert old != new
