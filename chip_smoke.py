@@ -848,6 +848,10 @@ FLASH_CASES = [
     # rows a multiple of no 4: the dK/dV kernel's lse and delta boxes
     # start below the tile's first row
     ("odd_rows", 2, 333, 333, 8, 2, 64, True, {"seed": 8}),
+    # Qwen2's group 7 at D = 128: Sq a multiple of no M tile's 9 rows,
+    # under a window
+    ("group7_d128_window", 2, 1001, 1001, 14, 2, 128, True,
+     {"window": 300, "seed": 9}),
 ]
 
 
@@ -1197,12 +1201,11 @@ def varlen_cases(flush, names=None):
 # Faults that --fault-check plants, one at a time, in a copy of the
 # repository, each of which the flash gates must catch: (name, the CUDA
 # source, its text, the replacement, the flash and varlen cases to run).
-_LATE_ROW = "r >= p.Sq / 2 && c == r + p.Sk - p.Sq"
 FLASH_FAULTS = [
+    # dQ's band walk stops one key tile short (producer and consumers)
     ("dq_drops_last_k_tile", _FLASH_CU,
-     "float e = exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
-     "float e = kt == t_hi ? 0.f : exp2f(s[nt][i] * sl2 - lse2[i >> 1]);",
-     ("train", "gqa_d128")),
+     "n_tiles = khi >= klo ? khi / 64 - t_lo + 1 : 0;",
+     "n_tiles = khi >= klo ? khi / 64 - t_lo : 0;", ("train", "gqa_d128")),
     ("dkdv_drops_one_q_head", _FLASH_CU, "const int n_steps = group * nqt;",
      "const int n_steps = (group - 1) * nqt;", ("train", "gqa_d128")),
     ("dkdv_drops_last_q_tile", _FLASH_CU,
@@ -1210,8 +1213,9 @@ FLASH_FAULTS = [
      "const int nqt = qhi >= qlo ? qhi / BQ - t_lo : 0;", ("train",)),
     # the diagonal key of the late half of the rows (keys) only
     ("dq_late_rows_drop_own_key", _FLASH_CU,
-     "if (c >= p.Sk || !keep(p, r, c)) e = 0.f;",
-     f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) e = 0.f;",
+     "return row[r] < p.Sq && k0 + c < p.Sk && keep(p, row[r], k0 + c);",
+     "return row[r] < p.Sq && k0 + c < p.Sk && keep(p, row[r], k0 + c) && "
+     "!(row[r] >= p.Sq / 2 && k0 + c == row[r] + p.Sk - p.Sq);",
      ("train", "gqa_d128")),
     ("dkdv_late_keys_drop_own_row", _FLASH_CU,
      "return q0 + c < p.Sq && keep(p, q0 + c, kr0 + 8 * r);",
@@ -1225,13 +1229,16 @@ FLASH_FAULTS = [
      ("train", "gqa_d128")),
     ("fwd_late_rows_drop_own_key", _FLASH_CU,
      "if (c >= p.Sk || !keep(p, r, c)) x = -INFINITY;",
-     f"if (c >= p.Sk || !keep(p, r, c) || ({_LATE_ROW})) x = -INFINITY;",
+     "if (c >= p.Sk || !keep(p, r, c) || "
+     "(r >= p.Sq / 2 && c == r + p.Sk - p.Sq)) x = -INFINITY;",
      ("train",)),
     # the forward's consumers skip the P V product of the last staged K/V
-    # tile (the forward-attention core, shared with the ragged kernel)
+    # tile (the forward-attention core, shared with the varlen forward and
+    # the ragged kernel)
     ("fwd_skips_last_pipeline_stage", _ATTN_CORE,
      "issue_pv<D>(o, cur, h.v(last));",
-     "if (n < 0) issue_pv<D>(o, cur, h.v(last));", ("train", "gqa_d128")),
+     "if (n < 0) issue_pv<D>(o, cur, h.v(last));",
+     ("train", "gqa_d128", "varlen_train")),
     # varlen: the forward and dQ walk skip each segment's first key tile
     # unless the segment before already walked it
     ("varlen_drops_key_tile_at_segment_start", _VARLEN_CU,
@@ -1258,9 +1265,24 @@ FLASH_FAULTS = [
      "const bool real = pair < rows * group - 1 && row < p.Tq;",
      ("varlen_train", "varlen_gqa_d128")),
     # dQ's consumers skip the products of the last staged K/V tile (the
-    # dQ loop of the backward steps, used by the varlen dQ kernel alone)
+    # dQ loop of the backward steps, shared by the varlen and dense dQ
+    # kernels)
     ("varlen_dq_skips_last_key_stage", _ATTN_BWD,
      "if (!h.live(k0)) {", "if (j + 1 == n || !h.live(k0)) {",
+     ("varlen_train", "varlen_gqa_d128", "train", "gqa_d128")),
+    # the forward's hook keeps the key after each pair's interval for the
+    # rows past the first document (its tiles that the hull does not
+    # enclose)
+    ("varlen_fwd_late_rows_keep_next_key", _VARLEN_CU,
+     "if (!keys.kept(k0, r, c)) x = -INFINITY;",
+     "if (!keys.kept(k0, r, c) && !(keys.lo[r] > 0 && "
+     "k0 + c == keys.hi[r] + 1)) x = -INFINITY;",
+     ("varlen_train", "varlen_gqa_d128")),
+    # the forward's M tile takes its last (row, q head) pair for one that
+    # sees no key
+    ("varlen_fwd_drops_last_group_head", _VARLEN_CU,
+     "if (pair < rows * group && row < p.Tq)",
+     "if (pair < rows * group - 1 && row < p.Tq)",
      ("varlen_train", "varlen_gqa_d128")),
 ]
 # faults of the paged attention kernels, each run against the cases of
@@ -1391,8 +1413,18 @@ ABLATIONS = [
      "const int rank_tiles = 0;", ("varlen_train", "varlen_noncausal")),
     # the varlen dQ kernel with at most two consumer warpgroups a block
     ("varlen_dq_two_warpgroups", _VARLEN_CU,
-     "int nwg = D == 64 ? 3 : 2;", "int nwg = 2;",
+     "if (nwg == 3) return launch_dq_wgmma<D, 3>(",
+     "if (nwg == 3) return launch_dq_wgmma<D, 2>(",
      ("varlen_train", "varlen_tile_edges")),
+    # the dense dQ kernel the same way (only `train` fills 132 SMs with
+    # three)
+    ("dq_two_warpgroups", _FLASH_CU,
+     "if (nwg == 3) return launch_dq_wgmma<D, 3>(",
+     "if (nwg == 3) return launch_dq_wgmma<D, 2>(", ("train",)),
+    # the varlen forward's M tiles in pack order instead of last to first
+    ("varlen_fwd_m_tiles_in_pack_order", _VARLEN_CU,
+     "const int mt = gridDim.y - 1 - blockIdx.y;", "const int mt = blockIdx.y;",
+     ("varlen_train", "varlen_8k")),
 ]
 
 

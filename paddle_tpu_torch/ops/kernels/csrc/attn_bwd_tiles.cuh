@@ -1,8 +1,8 @@
 // The attention-backward steps for Hopper (sm_90a) that the bf16 dK/dV
 // kernels (flash_attention.cu, flash_bwd_dkdv_wgmma; flash_varlen.cu,
-// varlen_bwd_dkdv_wgmma) and the bf16 varlen dQ kernel
-// (flash_varlen.cu, varlen_bwd_dq_wgmma) share: one consumer
-// warpgroup's products and softmax for one staged tile, on wgmma
+// varlen_bwd_dkdv_wgmma) and the bf16 dQ kernels (flash_attention.cu,
+// flash_bwd_dq_wgmma; flash_varlen.cu, varlen_bwd_dq_wgmma) share: one
+// consumer warpgroup's products and softmax for one staged tile, on wgmma
 // (hopper_tiles.cuh) with float32 accumulators. The caller's producer
 // warp fills a ring of stages by TMA; its consumer loop waits for a
 // stage, runs the step and releases it. Backward math, for
@@ -80,6 +80,25 @@ struct Dkdv {
   static constexpr int kBars = 2 * kKV + kStages * kStage;
   static constexpr int kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
   static constexpr uint32_t kStageTx = 2 * kQO + 2 * kRowBox * 4;
+};
+
+// Shared memory of a dQ block (bytes, from a 1024-aligned base): the
+// consumer warpgroups' Q and dO tiles, the ring of K/V stages, the
+// barriers (full and empty a stage, then one for Q and dO) and each
+// stage's first key (step_k0). kNWG consumer warpgroups of one M tile each
+// (up to 3 at D = 64, 2 at D = 128, where dQ takes twice the registers)
+// and one producer warp.
+template <int D, int NWG>
+struct Dq {
+  static constexpr int kNWG = NWG;
+  static constexpr int kSub = D / 64;
+  static constexpr int kStages = D == 64 ? 5 : 4;  // K/V ring depth
+  static constexpr int kThreads = kNWG * 128 + 32;
+  static constexpr int kQdO = 2 * kSub * kTile;    // Q and dO
+  static constexpr int kStage = 2 * kSub * kTile;  // K and V
+  static constexpr int kBars = kNWG * kQdO + kStages * kStage;
+  static constexpr int kSmem =
+      1024 + kBars + 8 * (2 * kStages + 1) + 4 * kStages;
 };
 
 // d (+)= A B for one k-step of a product with N = D (A from registers,

@@ -1,8 +1,9 @@
 // The forward-attention core for Hopper (sm_90a) that the bf16 flash
-// forward (flash_attention.cu, flash_fwd_wgmma) and the tensor-core route
-// of the ragged paged kernel (paged_attention.cu, ragged_kernel_wgmma)
-// share: one consumer warpgroup's online-softmax loop over a ring of K/V
-// stages, on wgmma (hopper_tiles.cuh).
+// forwards (flash_attention.cu, flash_fwd_wgmma; flash_varlen.cu,
+// varlen_fwd_wgmma) and the tensor-core route of the ragged paged kernel
+// (paged_attention.cu, ragged_kernel_wgmma) share: one consumer
+// warpgroup's online-softmax loop over a ring of K/V stages, on wgmma
+// (hopper_tiles.cuh), and the flash forwards' shared-memory layout (Fwd).
 //
 // Operands. A warpgroup owns one M tile of 64 rows: Q in shared memory,
 // [D / 64 column tiles][64 rows][128 bytes], 128-byte swizzled (the
@@ -40,6 +41,25 @@ namespace attn {
 
 constexpr int kTile = 64 * 128;  // one 64-row x 64-column bf16 tile (bytes)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of a flash forward block (bytes, from a 1024-aligned
+// base): the consumer warpgroups' Q tiles, the ring of K/V stages, the
+// barriers (full and empty a stage, then one for Q) and each stage's
+// first key (step_k0, for a walk whose tiles do not follow from their
+// index). kNWG consumer warpgroups of one M tile each (up to 3 at D = 64,
+// 2 at D = 128, where O takes twice the registers) and one producer warp.
+template <int D, int NWG>
+struct Fwd {
+  static constexpr int kNWG = NWG;
+  static constexpr int kSub = D / 64;
+  static constexpr int kStages = D == 64 ? 5 : 3;  // K/V ring depth
+  static constexpr int kThreads = kNWG * 128 + 32;
+  static constexpr int kQ = kSub * kTile;          // a Q tile
+  static constexpr int kStage = 2 * kSub * kTile;  // K and V
+  static constexpr int kBars = kNWG * kQ + kStages * kStage;
+  static constexpr int kSmem =
+      1024 + kBars + 8 * (2 * kStages + 1) + 4 * kStages;
+};
 
 // byte offset of 16-byte chunk c (of the D / 8 of a row) of row r in a
 // [D / 64][64][128 B] 128-byte-swizzled tile (1024-byte aligned)

@@ -3,7 +3,7 @@
 // Replaces three Pallas kernels of paddle_tpu/ops/kernels/flash_attention.py:
 //   * _flash_fwd_kernel      -> flash_fwd_wgmma / flash_fwd_f32
 //   * _flash_bwd_dkdv_kernel -> flash_bwd_dkdv_wgmma / flash_bwd_dkdv_f32
-//   * _flash_bwd_dq_kernel   -> flash_bwd_dq_bf16 / flash_bwd_dq_f32
+//   * _flash_bwd_dq_kernel   -> flash_bwd_dq_wgmma / flash_bwd_dq_f32
 //
 // Computes, for q [B, Sq, H, D], k/v [B, Sk, KVH, D] (the reference's
 // public layout, read in place: no transpose, no KV repetition), q head h
@@ -26,34 +26,30 @@
 // What bounds it on the H100: operations. At the training shape (S = 2048,
 // D = 64 or 128) each K/V byte is used by 64-row q tiles for ~2*64 flops,
 // far above the ~295 flops per byte where the tensor cores become the
-// limit. The bf16 dQ kernel runs its products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, float32 accumulate), which tops out well
-// below the card's rate; the bf16 forward and dK/dV kernels run them on
-// wgmma, the warpgroup products that reach it, fed by TMA through a ring
-// of stages that a producer warp keeps full (hopper_tiles.cuh; the
-// forward's consumer loop is attn_fwd_tiles.cuh, shared with the ragged
-// paged kernel; the dK/dV step is attn_bwd_tiles.cuh, shared with the
-// varlen backward, whose dQ step the dQ kernel can take next).
+// limit. The three bf16 kernels run their products on wgmma, the
+// warpgroup products that reach that rate, fed by TMA through a ring of
+// stages that a producer warp keeps full (hopper_tiles.cuh). The
+// forward's consumer loop is attn_fwd_tiles.cuh's, shared with the varlen
+// forward and the ragged paged kernel; the dK/dV and dQ steps are
+// attn_bwd_tiles.cuh's, shared with the varlen backward.
 //
 // Design. The Pallas grids carry their accumulators across an innermost
 // sequential ("arbitrary") grid axis; CUDA blocks run in no order, so that
 // axis becomes a loop inside the block:
-//   * forward (bf16): see flash_fwd_wgmma. dQ: one block per (q tile of 64
-//     rows, q head, batch), 4 warps of 16 rows each. The block loops over
-//     the 64-key tiles that the causal/window band lets through, bounds
-//     computed from offset = Sk - Sq and window (never by testing every
-//     tile). The dQ accumulator stays in registers in the mma accumulator
-//     layout. K/V tiles are double-buffered in shared memory with
-//     cp.async, rows padded by 8 elements so the ldmatrix row reads are
-//     free of bank conflicts; ragged tails are zero-filled and masked.
-//   * dK/dV (bf16): one block per (key tile, kv head, batch), the key tile
-//     the slowest grid axis so the longest causal keys start first. The
+//   * forward and dQ: one block per (kv head, batch, NWG M tiles of 64
+//     (q row, q head) pairs of the kv head's group), looping over the
+//     64-key tiles of the block rows' causal/window band, bounds computed
+//     from offset = Sk - Sq and window (never by testing every tile);
+//     every K/V tile the block stages serves the whole group. See
+//     flash_fwd_wgmma and flash_bwd_dq_wgmma;
+//   * dK/dV: one block per (key tile, kv head, batch), the key tile the
+//     slowest grid axis so the longest causal keys start first. The
 //     block loops over the group's q heads and, for each, over the q
 //     tiles in the band (the reference grid (bhkv, nk, group, nq) as a
 //     loop), accumulating dK and dV in float32 registers and writing them
-//     once. No atomics: two runs give equal gradients. See
-//     flash_bwd_dkdv_wgmma for its pipeline.
-//   * Tiles wholly inside the band skip the mask.
+//     once. See flash_bwd_dkdv_wgmma;
+//   * no atomics: two runs give equal gradients; tiles wholly inside the
+//     band skip the mask.
 // Only D = 64 and D = 128 are instantiated (Qwen2-0.5B, Llama-3-8B,
 // Mistral); the wrapper refuses other head dims on the card.
 
@@ -139,17 +135,8 @@ __device__ __forceinline__ bool tile_full(const Params& p, int q0, int q1,
 //     tiles that cross the band's edge for its own rows;
 //   * out = o / l and lse = m ln 2 + log l are written from registers; a row
 //     that sees no key gets out = 0 and lse = -1e30.
-template <int D, int NWG>
-struct Fwd {
-  static constexpr int kNWG = NWG;  // consumer warpgroups
-  static constexpr int kSub = D / 64;
-  static constexpr int kStages = D == 64 ? 5 : 3;
-  static constexpr int kThreads = kNWG * 128 + 32;
-  static constexpr int kQ = kSub * ptt::attn::kTile;          // a Q tile
-  static constexpr int kStage = 2 * kSub * ptt::attn::kTile;  // K and V
-  static constexpr int kBars = kNWG * kQ + kStages * kStage;
-  static constexpr int kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
-};
+// Its shared memory is attn::Fwd's (Q tiles, ring, barriers).
+using ptt::attn::Fwd;
 
 // the dense band mask of one warpgroup (its rows [w0, w1]; this thread's
 // two rows rA, rB)
@@ -278,106 +265,6 @@ __global__ void __launch_bounds__(Fwd<D, NWG>::kThreads, 1)
       p.lse[((int64_t)b * p.H + h) * p.Sq + row] =
           l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNoKeyLse;
   }
-}
-
-// ------------------------------------------------------------ bf16 dQ
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16(const Params p) {
-  constexpr int SD = D + 8, NO = D / 8, NS = kBK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kBQ * SD;      // dout
-  bf16* sK = sO + kBQ * SD;      // [2][kBK][SD]
-  bf16* sV = sK + 2 * kBK * SD;  // [2][kBK][SD]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kBQ, q_last = min(q0 + kBQ, p.Sq) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const int64_t qoff = ((int64_t)b * p.Sq + q0) * qs + h * D;
-  const bf16* kg =
-      static_cast<const bf16*>(p.k) + (int64_t)b * p.Sk * ks + kvh * D;
-  const bf16* vg =
-      static_cast<const bf16*>(p.v) + (int64_t)b * p.Sk * ks + kvh * D;
-
-  int klo, khi;
-  key_band(p, q0, q_last, klo, khi);
-  const int t_lo = klo / kBK;
-  const int t_hi = khi >= klo ? khi / kBK : t_lo - 1;
-
-  load_rows<kBQ, D>(sQ, static_cast<const bf16*>(p.q) + qoff, qs,
-                    p.Sq - q0);
-  load_rows<kBQ, D>(sO, static_cast<const bf16*>(p.dout) + qoff, qs,
-                    p.Sq - q0);
-  if (t_lo <= t_hi) {
-    const int k0 = t_lo * kBK;
-    load_rows<kBK, D>(sK, kg + k0 * ks, ks, p.Sk - k0);
-    load_rows<kBK, D>(sV, vg + k0 * ks, ks, p.Sk - k0);
-  }
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    const int64_t i = ((int64_t)b * p.H + h) * p.Sq + row;
-    lse2[r] = row < p.Sq ? p.lse_in[i] * kLog2e : 0.f;
-    dl[r] = row < p.Sq ? p.delta[i] : 0.f;
-  }
-  const float sl2 = p.scale * kLog2e;
-  float dq[NO][4] = {};
-  cp_async_wait<0>();
-  __syncthreads();
-
-  for (int kt = t_lo; kt <= t_hi; ++kt) {
-    const int buf = (kt - t_lo) & 1;
-    if (kt < t_hi) {
-      const int k1 = (kt + 1) * kBK;
-      load_rows<kBK, D>(sK + (buf ^ 1) * kBK * SD, kg + k1 * ks, ks,
-                        p.Sk - k1);
-      load_rows<kBK, D>(sV + (buf ^ 1) * kBK * SD, vg + k1 * ks, ks,
-                        p.Sk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + buf * kBK * SD;
-    const bf16* cV = sV + buf * kBK * SD;
-    const int k0 = kt * kBK;
-
-    float s[NS][4] = {};
-    gemm_abt<D, NS>(s, sQ, warp * 16, cK, lane);  // q k^T
-    const bool full = tile_full(p, q0, q0 + kBQ - 1, k0, k0 + kBK - 1) &&
-                      k0 + kBK <= p.Sk;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float e = exp2f(s[nt][i] * sl2 - lse2[i >> 1]);
-        if (!full) {
-          const int r = row0 + (i >> 1) * 8, c = k0 + nt * 8 + 2 * t + (i & 1);
-          if (c >= p.Sk || !keep(p, r, c)) e = 0.f;
-        }
-        s[nt][i] = e;
-      }
-    float dp[NS][4] = {};
-    gemm_abt<D, NS>(dp, sO, warp * 16, cV, lane);  // dout v^T
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dp[nt][i] = s[nt][i] * (dp[nt][i] - dl[i >> 1]) * p.scale;
-    gemm_pb<D, kBK / 16>(dq, dp, cK, lane);  // dq += ds k
-    __syncthreads();
-  }
-  store_rows<D>(static_cast<bf16*>(p.dq) + (int64_t)b * p.Sq * qs + h * D,
-                qs, q0 + warp * 16, p.Sq, dq, lane);
 }
 
 // ---------------------------------------------------------- bf16 dK/dV
@@ -538,6 +425,164 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
       *reinterpret_cast<uint32_t*>(dvg + o) =
           pack2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
+  }
+}
+
+// ------------------------------------------------------------ bf16 dQ
+// flash_bwd_dq_wgmma: the dQ loop of attn_bwd_tiles.cuh (attn::dq_consume,
+// shared with the varlen dQ kernel) on flash_fwd_wgmma's blocks: one per
+// (kv head, batch, NWG M tiles), the M tiles the slowest grid axis and
+// walked last to first, so the blocks with the longest causal key bands
+// start first. NWG consumer warpgroups (3 at D = 64, 2 at D = 128, fewer
+// where that would leave SMs without a block) and one producer warp:
+//   * M packing (GQA): an M tile is 64 (q row, q head) pairs of one kv
+//     head's group, 64 / group consecutive rows x the group's heads, one TMA
+//     box {64 columns, group heads, rows} of Q and the same of dO, so every
+//     K/V tile the block stages serves all the group's heads of its rows
+//     (one block per (q tile, q head) stages it once per q head: 7 times at
+//     Qwen2's group of 7);
+//   * a pair's lse (times log2 e) and delta are fixed for the block: each
+//     thread reads its two pairs' values once into registers;
+//   * the producer's lane 0 loads the warpgroups' Q and dO tiles once, then
+//     the 64-key K and V tiles of the block rows' band (key_band: causal
+//     offset Sk - Sq, window; keys past Sk read as zeros) into a ring of
+//     kStages stages (5 at D = 64, 4 at D = 128), each tile's first key in
+//     step_k0;
+//   * the mask (DqBand) runs only on tiles that cross the band's edge for
+//     the warpgroup's rows; a warpgroup skips a tile that none of its rows
+//     sees.
+// A pair past the tile's rows x heads, or a row past Sq (read as zeros),
+// is computed on what its rows of Q and dO hold and never written. dQ
+// stays in float32 registers and is written once. Its shared memory is
+// attn::Dq's.
+using ptt::attn::Dq;
+
+// the dense band for one warpgroup's M tile: its rows [w0, w1] (clipped to
+// Sq; none when w1 < w0) keep keys [lo, hi] between them; this thread's
+// two pairs lie in rows row[0] and row[1] (Sq for a pair past the tile's
+// rows x heads)
+struct DqBand {
+  const Params p;
+  int w0, w1, lo, hi, row[2];
+  __device__ bool live(int k0) const {
+    return w0 <= w1 && max(lo, k0) <= min(hi, k0 + 63);
+  }
+  __device__ bool full(int k0) const {
+    return tile_full(p, w0, w1, k0, k0 + 63) && k0 + 64 <= p.Sk;
+  }
+  __device__ bool kept(int k0, int r, int c) const {
+    return row[r] < p.Sq && k0 + c < p.Sk && keep(p, row[r], k0 + c);
+  }
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(Dq<D, NWG>::kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                       const __grid_constant__ CUtensorMap tmO,
+                       const __grid_constant__ CUtensorMap tmK,
+                       const __grid_constant__ CUtensorMap tmV,
+                       const Params p) {
+  using L = Dq<D, NWG>;
+  using ptt::attn::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = base + L::kNWG * L::kQdO;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qbar = empty + L::kStages;
+  int* step_k0 = reinterpret_cast<int*>(qbar + 1);  // [kStages]
+
+  const int group = p.H / p.KVH, rows = 64 / group;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int mt = gridDim.z - 1 - blockIdx.z;  // longest causal rows first
+  const int r0 = mt * L::kNWG * rows;
+  const int r_last = min(r0 + L::kNWG * rows, p.Sq) - 1;
+  int klo, khi;
+  key_band(p, r0, r_last, klo, khi);
+  const int t_lo = klo / 64;
+  const int n_tiles = khi >= klo ? khi / 64 - t_lo + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
+    }
+    ptt::mbar_init(qbar, 1);
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0 && n_tiles > 0) {
+      ptt::mbar_arrive_expect_tx(qbar,
+                                 L::kNWG * 2 * L::kSub * group * rows * 128);
+      for (int wg = 0; wg < L::kNWG; ++wg)
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          unsigned char* q = base + wg * L::kQdO + sub * kTile;
+          ptt::tma_load_4d(q, &tmQ, qbar, sub * 64, kvh * group,
+                           r0 + wg * rows, b);
+          ptt::tma_load_4d(q + L::kSub * kTile, &tmO, qbar, sub * 64,
+                           kvh * group, r0 + wg * rows, b);
+        }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages)  // the consumers released this stage
+          ptt::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        const int k0 = (t_lo + j) * 64;
+        step_k0[s] = k0;  // published by the arrive below
+        unsigned char* st = ring + s * L::kStage;
+        ptt::mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          ptt::tma_load_4d(st + sub * kTile, &tmK, &full[s], sub * 64, kvh,
+                           k0, b);
+          ptt::tma_load_4d(st + (L::kSub + sub) * kTile, &tmV, &full[s],
+                           sub * 64, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int w0 = r0 + wg * rows;  // this warpgroup's rows w0..
+  const int pa0 = 16 * wq + g;    // this thread's pairs: pa0, pa0 + 8
+  DqBand band{p, w0, min(w0 + rows, p.Sq) - 1, 0, -1, {p.Sq, p.Sq}};
+  key_band(p, band.w0, band.w1, band.lo, band.hi);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pair = pa0 + 8 * r, row = w0 + pair / group;
+    const int64_t i =
+        ((int64_t)b * p.H + kvh * group + pair % group) * p.Sq + row;
+    if (pair < rows * group && row < p.Sq) band.row[r] = row;
+    lse2[r] = band.row[r] < p.Sq ? p.lse_in[i] * kLog2e : 0.f;
+    dl[r] = band.row[r] < p.Sq ? p.delta[i] : 0.f;
+  }
+  const unsigned char* sQ = base + wg * L::kQdO;
+  float dq[D / 2] = {};
+  if (n_tiles > 0) {
+    ptt::mbar_wait(qbar, 0);
+    ptt::attn::dq_consume<D, L::kStages>(
+        sQ, sQ + L::kSub * kTile, ring, L::kStage, step_k0, full, empty,
+        n_tiles, lse2, dl, p.scale * kLog2e, p.scale, band, dq);
+  }
+
+  // dq: accumulator element 4 j + i is pair pa0 + 8 (i / 2), column
+  // 8 j + 2 t + i % 2
+  const int64_t qs = (int64_t)p.H * D;
+  bf16* dqg = static_cast<bf16*>(p.dq) + (int64_t)b * p.Sq * qs;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (band.row[r] >= p.Sq) continue;
+    bf16* dst = dqg + band.row[r] * qs +
+                (kvh * group + (pa0 + 8 * r) % group) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
 }
 
@@ -731,11 +776,7 @@ int launch_fwd(const Params& p, cudaStream_t stream) {
   const int group = p.H / p.KVH;
   if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
   const int rows = 64 / group;
-  // the most warpgroups a block (3 at D = 64, 2 at D = 128, where O takes
-  // twice the registers) that still give every SM a block
-  int nwg = D == 64 ? 3 : 2;
-  while (nwg > 1 && (int64_t)blocks(p.Sq, nwg * rows) * p.KVH * p.B < 132)
-    --nwg;
+  const int nwg = consumer_warpgroups<D>(p.Sq, rows, (int64_t)p.KVH * p.B);
   const unsigned mtiles = blocks(p.Sq, nwg * rows);
   if (mtiles > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -747,6 +788,45 @@ int launch_fwd(const Params& p, cudaStream_t stream) {
     if (nwg == 3) return launch_fwd_wgmma<D, 3>(p, mtiles, mq, mk, mv, stream);
   return nwg == 2 ? launch_fwd_wgmma<D, 2>(p, mtiles, mq, mk, mv, stream)
                   : launch_fwd_wgmma<D, 1>(p, mtiles, mq, mk, mv, stream);
+}
+
+template <int D, int NWG>
+int launch_dq_wgmma(const Params& p, const CUtensorMap& mq,
+                    const CUtensorMap& mo, const CUtensorMap& mk,
+                    const CUtensorMap& mv, cudaStream_t stream) {
+  using L = Dq<D, NWG>;
+  const unsigned mtiles = blocks(p.Sq, NWG * (64 / (p.H / p.KVH)));
+  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_wgmma<D, NWG><<<dim3(p.KVH, p.B, mtiles), L::kThreads,
+                               L::kSmem, stream>>>(mq, mo, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
+// the tensor maps (Q and dO in M tiles, as the forward's Q), then the
+// launch
+template <int D>
+int launch_dq(const Params& p, cudaStream_t stream) {
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int group = p.H / p.KVH;
+  if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
+  const int rows = 64 / group;
+  CUtensorMap mq, mo, mk, mv;
+  if (!ptt::map_heads_rows(enc, &mq, p.q, D, p.H, p.Sq, p.B, group, rows) ||
+      !ptt::map_heads_rows(enc, &mo, p.dout, D, p.H, p.Sq, p.B, group,
+                           rows) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Sk, p.B, 64) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Sk, p.B, 64))
+    return (int)cudaErrorInvalidValue;
+  const int nwg = consumer_warpgroups<D>(p.Sq, rows, (int64_t)p.KVH * p.B);
+  if constexpr (D == 64)
+    if (nwg == 3) return launch_dq_wgmma<D, 3>(p, mq, mo, mk, mv, stream);
+  return nwg == 2 ? launch_dq_wgmma<D, 2>(p, mq, mo, mk, mv, stream)
+                  : launch_dq_wgmma<D, 1>(p, mq, mo, mk, mv, stream);
 }
 
 int check(const Params& p, int64_t D, int dtype) {
@@ -843,10 +923,9 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Sq, kBQ), p.H, p.B), gf(blocks(p.Sq, kWarps), p.H, p.B);
   if (dtype == ptt::kBFloat16)
-    return D == 64 ? launch(flash_bwd_dq_bf16<64>, gb, dq_smem<64>(), s, p)
-                   : launch(flash_bwd_dq_bf16<128>, gb, dq_smem<128>(), s, p);
+    return D == 64 ? launch_dq<64>(p, s) : launch_dq<128>(p, s);
+  const dim3 gf(blocks(p.Sq, kWarps), p.H, p.B);
   return D == 64 ? launch(flash_bwd_dq_f32<64>, gf, 0, s, p)
                  : launch(flash_bwd_dq_f32<128>, gf, 0, s, p);
 }

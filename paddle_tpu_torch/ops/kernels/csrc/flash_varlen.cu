@@ -2,7 +2,7 @@
 // (sm_90a).
 //
 // Replaces three Pallas kernels of paddle_tpu/ops/kernels/flash_varlen.py:
-//   * _varlen_fwd_kernel      -> varlen_fwd_bf16 / varlen_fwd_f32
+//   * _varlen_fwd_kernel      -> varlen_fwd_wgmma / varlen_fwd_f32
 //   * _varlen_bwd_dkdv_kernel -> varlen_bwd_dkdv_wgmma / varlen_bwd_dkdv_f32
 //   * _varlen_bwd_dq_kernel   -> varlen_bwd_dq_wgmma / varlen_bwd_dq_f32
 //
@@ -41,16 +41,15 @@
 //     once, found from cu and never by testing every tile: the work is
 //     ~O(sum_i s_i^2). A q tile that spans several segments walks the key
 //     tiles of each.
-//   * The forward: one block per (64-row q tile, q head), mma.sync tiles
-//     of flash_tiles.cuh (cp.async double buffers, 4 warps).
-//   * The backward runs on wgmma (attn_bwd_tiles.cuh, shared with the
-//     dense dK/dV kernel), fed by TMA through a ring of stages that a
-//     producer warp keeps full. dK/dV: one block per (key tile, kv head),
-//     the tiles taken largest work first, walking the group's q heads and,
-//     for each, its q tiles. dQ: one block per (kv head, M tiles of 64
-//     (row, q head) pairs), walking the key tiles of its rows. dK, dV and
-//     dQ stay in float32 registers and are written once: no atomics, so
-//     two runs give equal gradients.
+//   * All three run on wgmma, fed by TMA through a ring of stages that a
+//     producer warp keeps full, on the tiles that the dense kernels share:
+//     the forward on attn_fwd_tiles.cuh's core, the backward on
+//     attn_bwd_tiles.cuh's steps. The forward and dQ: one block per (kv
+//     head, M tiles of 64 (row, q head) pairs), walking the key tiles of
+//     its rows. dK/dV: one block per (key tile, kv head), the tiles taken
+//     largest work first, walking the group's q heads and, for each, its
+//     q tiles. Out, dK, dV and dQ stay in float32 registers and are
+//     written once: no atomics, so two runs give equal gradients.
 // Only D = 64 and D = 128 are instantiated; the wrapper refuses others.
 
 #include <climits>
@@ -207,161 +206,11 @@ struct QueryTiles {
   }
 };
 
-// --------------------------------------------------------- bf16 forward
-template <int D>
-__global__ void __launch_bounds__(kThreads) varlen_fwd_bf16(const VParams p) {
-  constexpr int SD = D + 8, NO = D / 8, NS = kBK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * SD;      // [2][kBK][SD]
-  bf16* sV = sK + 2 * kBK * SD;  // [2][kBK][SD]
-
-  const int h = blockIdx.y, kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ, q1 = min(q0 + kBQ, p.Tq) - 1;
-  const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KVH * D;
-  const bf16* qg = static_cast<const bf16*>(p.q) + (int64_t)q0 * qs + h * D;
-  const bf16* kg = static_cast<const bf16*>(p.k) + kvh * D;
-  const bf16* vg = static_cast<const bf16*>(p.v) + kvh * D;
-
-  // this thread's rows row0 and row0 + 8 keep keys [klo, khi]; a tile is
-  // full when the last row's klo and the first row's khi enclose it
-  const int row0 = q0 + warp * 16 + g;
-  int klo[2], khi[2], f_lo, f_hi, unused;
-  row_interval(p, row0, klo[0], khi[0]);
-  row_interval(p, row0 + 8, klo[1], khi[1]);
-  row_interval(p, q1, f_lo, unused);
-  row_interval(p, q0, unused, f_hi);
-
-  KeyTiles walk(p, q0, q1);
-  int kt = walk.next(p);
-  load_rows<kBQ, D>(sQ, qg, qs, p.Tq - q0);
-  if (kt >= 0) {
-    const int k0 = kt * kBK;
-    load_rows<kBK, D>(sK, kg + k0 * ks, ks, p.Tk - k0);
-    load_rows<kBK, D>(sV, vg + k0 * ks, ks, p.Tk - k0);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16)
-    ldsm4(qf[k0 / 16], a_addr<SD>(sQ, warp * 16, k0, lane));
-
-  float o[NO][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * kLog2e;
-
-  for (int buf = 0; kt >= 0; buf ^= 1) {
-    const int nxt = walk.next(p);
-    if (nxt >= 0) {
-      const int k1 = nxt * kBK;
-      load_rows<kBK, D>(sK + (buf ^ 1) * kBK * SD, kg + k1 * ks, ks,
-                        p.Tk - k1);
-      load_rows<kBK, D>(sV + (buf ^ 1) * kBK * SD, vg + k1 * ks, ks,
-                        p.Tk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + buf * kBK * SD;
-    const bf16* cV = sV + buf * kBK * SD;
-    const int k0 = kt * kBK;
-
-    // s = q k^T
-    float s[NS][4] = {};
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bb[4];
-        ldsm4(bb, bn_addr<SD>(cK, np * 16, kd * 16, lane));
-        mma16816(s[2 * np], qf[kd], bb[0], bb[1]);
-        mma16816(s[2 * np + 1], qf[kd], bb[2], bb[3]);
-      }
-    }
-    // scale into the log2 domain; mask unless every row keeps every key
-    const bool full = f_lo <= k0 && k0 + kBK - 1 <= f_hi;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * sl2;
-        if (!full) {
-          const int r = i >> 1, c = k0 + nt * 8 + 2 * t + (i & 1);
-          if (c < klo[r] || c > khi[r]) x = -INFINITY;
-        }
-        s[nt][i] = x;
-      }
-    // online softmax: row max over the quad of threads sharing a row
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mu[r] = mx == -INFINITY ? 0.f : mx;  // a row with no key so far
-      const float corr = exp2f(m[r] - mu[r]);
-      m[r] = mx;
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = exp2f(s[nt][i] - mu[i >> 1]);
-        s[nt][i] = e;
-        l[i >> 1] += e;  // this thread's share; the quad sums at the end
-      }
-    // o += p v, with p rounded to bf16 (the reference casts p to v's type)
-    gemm_pb<D, kBK / 16>(o, s, cV, lane);
-    __syncthreads();
-    kt = nxt;
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  // out = acc / l (0 for a row that sees no key)
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][2 * r] = l[r] > 0.f ? o[n][2 * r] / l[r] : 0.f;
-      o[n][2 * r + 1] = l[r] > 0.f ? o[n][2 * r + 1] / l[r] : 0.f;
-    }
-  store_rows<D>(static_cast<bf16*>(p.out) + h * D, qs, q0 + warp * 16, p.Tq,
-                o, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + r * 8;
-      if (row < p.Tq)
-        p.lse[(int64_t)h * p.Tq + row] =
-            l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNoKeyLse;
-    }
-  }
-}
-
-// ------------------------------------------------- bf16 backward, wgmma
-// Both backward kernels run the steps of attn_bwd_tiles.cuh. Their hook:
-// this thread's two rows' (dQ: keys of two (row, head) pairs; dK/dV: rows
-// of two keys) intervals, and the warpgroup's hull. hi never decreases
+// ---------------------------------------------------- bf16, on wgmma
+// The forward runs the core of attn_fwd_tiles.cuh, the backward kernels
+// the steps of attn_bwd_tiles.cuh. Their hooks take this thread's two
+// rows' (forward and dQ: keys of two (row, head) pairs; dK/dV: rows of
+// two keys) intervals, and the warpgroup's hull. hi never decreases
 // along the axis; lo does, across a segment boundary, only after keys
 // that no row keeps (cu_q != cu_k: a key past its q segment's length has
 // lo > hi). lo' = min(lo, hi + 1) never decreases, so a tile
@@ -369,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) varlen_fwd_bf16(const VParams p) {
 // lo', last hi) and full when [f_lo, f_hi] (its last lo', first hi)
 // encloses it.
 // Each walk step and interval reads cu a few times, one dependent load
-// after another, so the backward kernels copy both boundary arrays into
+// after another, so the kernels copy both boundary arrays into
 // shared memory first when they fit (kCuMax entries each): p with its
 // cu pointers on the copy at `cu` (2 (B + 1) ints), every thread copying;
 // the caller synchronizes before reading it.
@@ -423,6 +272,170 @@ struct Intervals {
     f_lo = min(f_lo, l_hi + 1);
   }
 };
+
+// --------------------------------------------------------- bf16 forward
+// varlen_fwd_wgmma: flash_fwd_wgmma's shape (flash_attention.cu) on the
+// same core and layout (attn::consume, attn::Fwd), with the varlen walk in
+// place of the band. One block per (kv head, NWG M tiles), NWG consumer
+// warpgroups (3 at D = 64, 2 at D = 128, fewer where that would leave SMs
+// without a block) and one producer warp:
+//   * M packing, as the dQ kernel's: an M tile is 64 (row, q head) pairs
+//     of one kv head's group, 64 / group consecutive rows x the group's
+//     heads, one TMA box of Q, so every K/V tile the block stages serves
+//     all the group's heads of its rows (one block per (q tile, q head)
+//     stages it once per q head). The M tiles go last to first, so blocks
+//     whose rows walk the most keys (the late rows of long documents)
+//     tend to start first;
+//   * the producer's lane 0 loads the warpgroups' Q tiles once, then the
+//     64-key K and V tiles of the block rows' walk (KeyTiles, in order,
+//     each once) into a ring of kStages stages (5 at D = 64, 3 at
+//     D = 128), with each tile's first key in step_k0;
+//   * the hook (VarlenFwdHook) scales the scores into the log2 domain and,
+//     on a tile that the warpgroup's hull does not enclose, sets to -inf
+//     every key outside the pair's own interval (row_interval). Every
+//     warpgroup runs the products of every tile of the block's walk: a
+//     tile that none of its rows sees gives p = 0;
+//   * out = o / l and lse = m ln 2 + log l are written from registers; a
+//     row that sees no key (an empty k segment, a q tail past cu[-1])
+//     gets out = 0 and lse = -1e30.
+// A pair past the tile's rows x heads, or a row past Tq (read as zeros),
+// keeps no key and is never written.
+using ptt::attn::Fwd;
+
+template <int D>
+struct VarlenFwdHook {
+  const unsigned char* ring;
+  const int* step_k0;  // each stage's first key
+  Intervals keys;      // this thread's two pairs', the warpgroup's hull
+  int col0;            // this thread's first column of an 8-key group
+  float sl2;
+  __device__ const unsigned char* k(int st) const {
+    return ring + st * Fwd<D, 1>::kStage;
+  }
+  __device__ const unsigned char* v(int st) const {
+    return k(st) + Fwd<D, 1>::kSub * ptt::attn::kTile;
+  }
+  // the hull's f_hi lies below Tk: a full tile holds no key past Tk
+  __device__ void score(int, int st, float (&s)[32]) const {
+    const int k0 = step_k0[st];
+    if (keys.full(k0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] *= sl2;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1, c = 8 * (e >> 2) + col0 + (e & 1);
+      float x = s[e] * sl2;
+      if (!keys.kept(k0, r, c)) x = -INFINITY;
+      s[e] = x;
+    }
+  }
+  __device__ void prob(int, int, float (&)[32]) const {}
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(Fwd<D, NWG>::kThreads, 1)
+    varlen_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                     const __grid_constant__ CUtensorMap tmK,
+                     const __grid_constant__ CUtensorMap tmV,
+                     const VParams p) {
+  using L = Fwd<D, NWG>;
+  using ptt::attn::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base =
+      smem + ((1024 - (ptt::smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = base + L::kNWG * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qbar = empty + L::kStages;
+  int* step_k0 = reinterpret_cast<int*>(qbar + 1);  // [kStages]
+  const VParams ps = with_shared_cu(p, step_k0 + L::kStages);
+
+  const int group = p.H / p.KVH, rows = 64 / group;
+  const int kvh = blockIdx.x;
+  const int mt = gridDim.y - 1 - blockIdx.y;  // the last rows first
+  const int r0 = mt * L::kNWG * rows;
+  const int r_last = min(r0 + L::kNWG * rows, p.Tq) - 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], L::kNWG * 128);
+    }
+    ptt::mbar_init(qbar, 1);
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == L::kNWG * 4) {  // ------------------------------- producer
+    if (lane == 0) {  // Q first: it needs no walk
+      ptt::mbar_arrive_expect_tx(qbar, L::kNWG * L::kSub * group * rows * 128);
+      for (int wg = 0; wg < L::kNWG; ++wg)
+        for (int sub = 0; sub < L::kSub; ++sub)
+          ptt::tma_load_4d(base + wg * L::kQ + sub * kTile, &tmQ, qbar,
+                           sub * 64, kvh * group, r0 + wg * rows, 0);
+      KeyTiles walk(ps, r0, r_last);
+      for (int j = 0, kt = walk.next(ps); kt >= 0; kt = walk.next(ps), ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages)  // the consumers released this stage
+          ptt::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        step_k0[s] = kt * 64;  // published by the arrive below
+        unsigned char* st = ring + s * L::kStage;
+        ptt::mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int sub = 0; sub < L::kSub; ++sub) {
+          ptt::tma_load_4d(st + sub * kTile, &tmK, &full[s], sub * 64, kvh,
+                           kt * 64, 0);
+          ptt::tma_load_4d(st + (L::kSub + sub) * kTile, &tmV, &full[s],
+                           sub * 64, kvh, kt * 64, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int w0 = r0 + wg * rows;  // this warpgroup's rows w0..
+  const int pa0 = 16 * wq + g;    // this thread's pairs: pa0, pa0 + 8
+  Intervals keys;
+  keys.hull<false>(ps, w0, w0 + rows - 1, p.Tq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pair = pa0 + 8 * r, row = w0 + pair / group;
+    keys.lo[r] = 0;
+    keys.hi[r] = -1;
+    if (pair < rows * group && row < p.Tq)
+      row_interval(ps, row, keys.lo[r], keys.hi[r]);
+  }
+  const VarlenFwdHook<D> hook{ring, step_k0, keys, 2 * t,
+                              p.scale * kLog2e};
+  const int n = KeyTiles(ps, r0, r_last).count(ps);
+  float o[D / 2], m[2], l[2];
+  ptt::mbar_wait(qbar, 0);
+  ptt::attn::consume<D, L::kStages>(base + wg * L::kQ, full, empty, n, hook,
+                                    o, m, l);
+
+  // out = o / l; accumulator element 4 j + i is pair pa0 + 8 (i / 2),
+  // column 8 j + 2 t + i % 2
+  const int64_t qs = (int64_t)p.H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pair = pa0 + 8 * r;
+    const int row = w0 + pair / group, h = kvh * group + pair % group;
+    if (pair >= rows * group || row >= p.Tq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* dst = static_cast<bf16*>(p.out) + row * qs + h * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (t == 0)
+      p.lse[(int64_t)h * p.Tq + row] =
+          l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNoKeyLse;
+  }
+}
 
 // ---------------------------------------------------------- bf16 dK/dV
 // varlen_bwd_dkdv_wgmma: flash_bwd_dkdv_wgmma's shape (flash_attention.cu)
@@ -597,9 +610,9 @@ __global__ void __launch_bounds__(ptt::attn::Dkdv<D>::kThreads, 1)
 
 // ------------------------------------------------------------ bf16 dQ
 // varlen_bwd_dq_wgmma: one block per (kv head, NWG M tiles), on
-// attn::dq_step. NWG consumer warpgroups (up to 3 at D = 64, 2 at
-// D = 128, fewer where that would leave SMs without a block) and one
-// producer warp:
+// attn::dq_consume (shared with the dense dQ kernel). NWG consumer
+// warpgroups (up to 3 at D = 64, 2 at D = 128, fewer where that would
+// leave SMs without a block) and one producer warp:
 //   * M packing, as the forwards': an M tile is 64 (row, q head) pairs of
 //     one kv head's group, 64 / group consecutive rows x the group's heads
 //     (9 x 7 at Qwen2's group 7, 16 x 4 at group 4), one TMA box {64
@@ -617,28 +630,18 @@ __global__ void __launch_bounds__(ptt::attn::Dkdv<D>::kThreads, 1)
 //     enclose; a warpgroup skips a tile that none of its rows sees. The
 //     M tiles go last to first, so blocks whose rows walk the most keys
 //     (the late rows of long documents) tend to start first.
-// dQ stays in float32 registers and is written once.
-template <int D, int NWG>
-struct VDq {
-  static constexpr int kNWG = NWG;  // consumer warpgroups
-  static constexpr int kSub = D / 64;
-  static constexpr int kStages = D == 64 ? 5 : 4;  // K/V ring depth
-  static constexpr int kThreads = kNWG * 128 + 32;
-  static constexpr int kQdO = 2 * kSub * ptt::attn::kTile;  // Q and dO
-  static constexpr int kStage = 2 * kSub * ptt::attn::kTile;  // K and V
-  static constexpr int kBars = kNWG * kQdO + kStages * kStage;
-  static constexpr int kSmem =
-      1024 + kBars + 8 * (2 * kStages + 1) + 4 * kStages;
-};
+// dQ stays in float32 registers and is written once. Its shared memory is
+// attn::Dq's.
+using ptt::attn::Dq;
 
 template <int D, int NWG>
-__global__ void __launch_bounds__(VDq<D, NWG>::kThreads, 1)
+__global__ void __launch_bounds__(Dq<D, NWG>::kThreads, 1)
     varlen_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmQ,
                         const __grid_constant__ CUtensorMap tmO,
                         const __grid_constant__ CUtensorMap tmK,
                         const __grid_constant__ CUtensorMap tmV,
                         const VParams p) {
-  using L = VDq<D, NWG>;
+  using L = Dq<D, NWG>;
   using ptt::attn::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* base =
@@ -938,10 +941,46 @@ int launch_dkdv_wgmma(const VParams& p, cudaStream_t stream) {
 }
 
 template <int D, int NWG>
+int launch_fwd_wgmma(const VParams& p, const CUtensorMap& mq,
+                     const CUtensorMap& mk, const CUtensorMap& mv,
+                     cudaStream_t stream) {
+  using L = Fwd<D, NWG>;
+  const unsigned mtiles = blocks(p.Tq, NWG * (64 / (p.H / p.KVH)));
+  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = L::kSmem + shared_cu_bytes(p);
+  const cudaError_t e = cudaFuncSetAttribute(
+      varlen_fwd_wgmma<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  varlen_fwd_wgmma<D, NWG><<<dim3(p.KVH, mtiles), L::kThreads, smem,
+                             stream>>>(mq, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd(const VParams& p, cudaStream_t stream) {
+  const ptt::EncodeTiled enc = ptt::tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int group = p.H / p.KVH;
+  if (group > 64) return (int)cudaErrorInvalidValue;  // an M tile's pairs
+  const int rows = 64 / group;
+  CUtensorMap mq, mk, mv;
+  if (!ptt::map_heads_rows(enc, &mq, p.q, D, p.H, p.Tq, 1, group, rows) ||
+      !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Tk, 1, 64) ||
+      !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Tk, 1, 64))
+    return (int)cudaErrorInvalidValue;
+  const int nwg = consumer_warpgroups<D>(p.Tq, rows, p.KVH);
+  if constexpr (D == 64)
+    if (nwg == 3) return launch_fwd_wgmma<D, 3>(p, mq, mk, mv, stream);
+  return nwg == 2 ? launch_fwd_wgmma<D, 2>(p, mq, mk, mv, stream)
+                  : launch_fwd_wgmma<D, 1>(p, mq, mk, mv, stream);
+}
+
+template <int D, int NWG>
 int launch_dq_wgmma(const VParams& p, const CUtensorMap& mq,
                     const CUtensorMap& mo, const CUtensorMap& mk,
                     const CUtensorMap& mv, cudaStream_t stream) {
-  using L = VDq<D, NWG>;
+  using L = Dq<D, NWG>;
   const int64_t n =
       (int64_t)blocks(p.Tq, NWG * (64 / (p.H / p.KVH))) * p.KVH;
   if (n > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -968,10 +1007,7 @@ int launch_dq(const VParams& p, cudaStream_t stream) {
       !ptt::map_rows(enc, &mk, p.k, D, p.KVH, p.Tk, 1, 64) ||
       !ptt::map_rows(enc, &mv, p.v, D, p.KVH, p.Tk, 1, 64))
     return (int)cudaErrorInvalidValue;
-  // the most warpgroups a block (3 at D = 64, 2 at D = 128, where dQ
-  // takes twice the registers) that still give every SM a block
-  int nwg = D == 64 ? 3 : 2;
-  while (nwg > 1 && (int64_t)blocks(p.Tq, nwg * rows) * p.KVH < 132) --nwg;
+  const int nwg = consumer_warpgroups<D>(p.Tq, rows, p.KVH);
   if constexpr (D == 64)
     if (nwg == 3) return launch_dq_wgmma<D, 3>(p, mq, mo, mk, mv, stream);
   return nwg == 2 ? launch_dq_wgmma<D, 2>(p, mq, mo, mk, mv, stream)
@@ -998,10 +1034,9 @@ extern "C" int ptt_flash_varlen_fwd(const void* q, const void* k,
   p.out = out;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 gb(blocks(p.Tq, kBQ), p.H), gf(blocks(p.Tq, kWarps), p.H);
   if (dtype == ptt::kBFloat16)
-    return D == 64 ? launch(varlen_fwd_bf16<64>, gb, fwd_smem<64>(), s, p)
-                   : launch(varlen_fwd_bf16<128>, gb, fwd_smem<128>(), s, p);
+    return D == 64 ? launch_fwd<64>(p, s) : launch_fwd<128>(p, s);
+  const dim3 gf(blocks(p.Tq, kWarps), p.H);
   return D == 64 ? launch(varlen_fwd_f32<64>, gf, 0, s, p)
                  : launch(varlen_fwd_f32<128>, gf, 0, s, p);
 }

@@ -1,4 +1,4 @@
-"""The tiling of the CUDA varlen backward kernels, on the CPU.
+"""The tiling of the CUDA varlen kernels, on the CPU.
 
 ``csrc/flash_varlen.cu`` runs only on the card, so this file keeps a
 line-for-line model of the parts of it that decide which (row, key)
@@ -6,8 +6,8 @@ pairs a block computes: the segment helpers (``seg_of``, ``row_keys``,
 ``key_rows``, ``row_interval``, ``key_interval``), the walks
 (``KeyTiles``, ``QueryTiles<64>`` and their ``count``), the hull that
 makes a tile live or full (``Intervals``), the order of the dK/dV key
-tiles, and the M tiles of the dQ kernel. A change to one of those in the
-CUDA source changes the model here.
+tiles, and the M tiles of the dQ and forward kernels. A change to one of
+those in the CUDA source changes the model here.
 
 Against a brute-force enumeration of the kept pairs from the port's own
 plain definition (``flash_varlen.segments``: same segment and, with
@@ -256,17 +256,36 @@ def test_dkdv_steps_cover_each_kept_pair_once(case, nwg):
     assert np.array_equal(cover, keep.astype(np.int32))
 
 
+def _m_tile_pairs(sg, w0, rows_m, group):
+    """One warpgroup's M tile: (row, head, lo, hi, real) per pair. Pair p
+    is row w0 + p // group, q head p % group of the kv head's group; a
+    pair past the tile's rows x heads or a row past Tq is not real: its
+    interval is empty and it is never written."""
+    pair = np.arange(TILE)
+    row, head = w0 + pair // group, pair % group
+    real = (pair < rows_m * group) & (row < sg.tq)
+    iv = [sg.row_interval(int(r)) if ok else (0, -1)
+          for r, ok in zip(row, real)]
+    lo, hi = (np.array(x) for x in zip(*iv))
+    return row, head, lo, hi, real
+
+
+@pytest.mark.parametrize("kernel", ["dq", "fwd"])
 @pytest.mark.parametrize("group,nwg", [(7, 3), (4, 2), (1, 1)])
 @pytest.mark.parametrize("case", range(len(CASES)))
-def test_dq_steps_cover_each_kept_pair_once(case, group, nwg):
-    """varlen_bwd_dq_wgmma: M tiles of 64 // group rows (x the group's
-    heads), nwg of them a block, against the key tiles of the block
-    rows' walk."""
+def test_dq_steps_cover_each_kept_pair_once(case, group, nwg, kernel):
+    """The M-tile kernels, varlen_bwd_dq_wgmma ("dq") and varlen_fwd_wgmma
+    ("fwd"): M tiles of 64 (row, q head) pairs, 64 // group rows x the
+    group's heads, nwg of them a block, against the key tiles of the block
+    rows' walk. The dQ warpgroups skip a tile that is not live; the
+    forward's run every tile of the walk. Both score a tile unmasked where
+    the warpgroup's hull encloses it (full) and else only each pair's own
+    interval (the forward sets the rest to -inf). Every kept (row, head,
+    key) triple is scored by exactly one step, and no other triple."""
     cu_q, cu_k, tq, tk, causal = CASES[case]
     sg = Segs(cu_q, cu_k, tq, tk, causal)
     keep = _kept(cu_q, cu_k, tq, tk, causal)
-    cover = np.zeros((tq, tk), np.int32)
-    bad = np.zeros((tq, tk), bool)
+    cover = np.zeros((tq, group, tk), np.int32)
     rows_m = TILE // group
     for r0 in range(0, tq, nwg * rows_m):
         tiles, count = sg.key_tiles(r0, min(r0 + nwg * rows_m, tq) - 1)
@@ -275,20 +294,26 @@ def test_dq_steps_cover_each_kept_pair_once(case, group, nwg):
             w0 = r0 + wg * rows_m
             l_lo, l_hi, f_lo, f_hi = sg.hull(w0, w0 + rows_m - 1, tq,
                                              sg.row_interval)
-            rows = slice(w0, min(w0 + rows_m, tq))
-            if rows.stop <= rows.start:  # a warpgroup past the rows
-                continue
-            iv = [sg.row_interval(q) for q in range(rows.start, rows.stop)]
+            row, head, lo, hi, real = _m_tile_pairs(sg, w0, rows_m, group)
             for kt in tiles:
                 k0 = kt * TILE
-                keys = slice(k0, min(k0 + TILE, tk))
-                k = np.arange(keys.start, keys.stop)
-                kept = np.stack([(k >= lo) & (k <= hi) for lo, hi in iv])
-                _step(cover, bad, keep, rows, keys,
-                      k0 <= l_hi and k0 + TILE - 1 >= l_lo,
-                      f_lo <= k0 and k0 + TILE - 1 <= f_hi, kept)
-    assert not bad.any(), "a full tile holds a pair that is not kept"
-    assert np.array_equal(cover, keep.astype(np.int32))
+                live = k0 <= l_hi and k0 + TILE - 1 >= l_lo
+                if kernel == "dq" and not live:
+                    continue
+                keys = np.arange(k0, k0 + TILE)
+                if f_lo <= k0 and k0 + TILE - 1 <= f_hi:  # full
+                    scored = np.ones((TILE, TILE), bool)
+                else:
+                    scored = (keys >= lo[:, None]) & (keys <= hi[:, None])
+                scored = scored[real]
+                assert not scored[:, keys >= tk].any(), "a key past Tk"
+                inside = keys < tk
+                cover[row[real][:, None], head[real][:, None],
+                      keys[inside]] += scored[:, inside]
+    want = np.broadcast_to(keep[:, None, :], cover.shape).astype(np.int32)
+    assert not (cover[~want.astype(bool)]).any(), \
+        "a triple that is not kept is scored"
+    assert np.array_equal(cover, want)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
