@@ -10,7 +10,9 @@ It prints one JSON line per phase:
 1. ``env``: torch / CUDA versions and the card (``nvidia-smi`` name and
    power limit);
 2. ``build``: builds the hand-written CUDA kernels from
-   ``paddle_tpu_torch/ops/kernels/csrc`` and reports the seconds taken;
+   ``paddle_tpu_torch/ops/kernels/csrc`` and reports the seconds taken
+   and, from ``cuobjdump``, the wgmma and norm kernels' registers and
+   stack;
 3. ``kernels``: calls each kernel's wrapper at the shapes of the serving,
    training, packed-attention and LayerNorm paths and holds the result
    against its plain PyTorch version on the same inputs (tolerances
@@ -67,12 +69,15 @@ before doing anything.
 Narrower runs: ``--flash-cases NAMES`` builds the kernels and holds
 only those flash and varlen cases (names of ``FLASH_CASES`` and
 ``VARLEN_CASES``) against their plain versions, ``--attn-cases NAMES``
-those paged attention cases (names of ``ATTN_CASES``);
-``--fault-check`` plants each fault of ``FLASH_FAULTS`` and
-``PAGED_FAULTS`` in a copy of the repository and fails unless the
-gates catch every one (a paged fault only in the cases of the kernel it
-broke); ``--ablations NAMES`` times the cases of design choices
-(``ABLATIONS``) undone in a copy, beside an unchanged copy.
+those paged attention cases (names of ``ATTN_CASES``),
+``--norm-cases NAMES`` those rms_norm and layer_norm_fused cases (names
+of ``NORM_CASES``); ``--fault-check`` plants each fault of
+``FLASH_FAULTS``, ``PAGED_FAULTS`` and ``NORM_FAULTS`` in a copy of the
+repository and fails unless the gates catch every one (a paged fault
+only in the cases of the kernel it broke, a norm fault only in the
+cases of the kernels and launch classes it broke); ``--ablations
+NAMES`` times the cases of design choices (``ABLATIONS``) undone in a
+copy, beside an unchanged copy.
 """
 from __future__ import annotations
 
@@ -184,9 +189,15 @@ def cuda_time_ms(fn, iters=20, warmup=3, flush=None):
     return total / iters
 
 
-def _wgmma_kernel(mangled):
-    """``name<template arguments>`` of a mangled *_wgmma kernel, or None
-    for any other function."""
+# the norm kernels of csrc/rms_norm.cu whose registers the build line
+# reports beside the wgmma kernels'
+_NORM_KERNELS = ("rms_norm_kernel", "layer_norm_kernel",
+                 "rms_norm_kernel_scalar", "layer_norm_kernel_scalar")
+
+
+def _sass_kernel(mangled):
+    """``name<template arguments>`` of a mangled *_wgmma or norm kernel,
+    or None for any other function."""
     import re
 
     i = 3 if mangled.startswith("_ZN") else 2
@@ -197,21 +208,24 @@ def _wgmma_kernel(mangled):
         i += m.end()
         part = mangled[i:i + int(m.group())]
         i += len(part)
-        if part.endswith("_wgmma"):
+        if part.endswith("_wgmma") or part in _NORM_KERNELS:
             break
     m = re.match(r"I(.*?)EEv", mangled[i:])
-    args = re.sub(r"Li(\d+)E", r"\1,", m.group(1) if m else "")
+    args = re.sub(r"L[ib](\d+)E", r"\1,", m.group(1) if m else "")
     args = args.replace("13__nv_bfloat16", "bf16,")
     if args.startswith("a"):  # signed char: int8 pages
         args = "int8," + args[1:]
+    elif args.startswith("f"):
+        args = "float," + args[1:]
     return f"{part}<{args.rstrip(',')}>"
 
 
 def sass_summary(lib):
     """{kernel: {"hgmma": HGMMA instructions in its SASS, "registers": a
     thread's, "stack": bytes of local stack (spills)}} for the built
-    library's wgmma kernels, from the toolkit's cuobjdump; None where it
-    has none. A wgmma kernel without HGMMA fails the build phase."""
+    library's wgmma and norm kernels, from the toolkit's cuobjdump; None
+    where it has none. A wgmma kernel without HGMMA fails the build
+    phase."""
     import re
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -225,7 +239,7 @@ def sass_summary(lib):
                           text=True, timeout=600, check=True).stdout
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = _wgmma_kernel(line.split("Function :")[1].strip())
+            kernel = _sass_kernel(line.split("Function :")[1].strip())
             if kernel is not None:
                 out[kernel] = {"hgmma": 0}
         elif kernel is not None and "HGMMA" in line:
@@ -234,7 +248,7 @@ def sass_summary(lib):
                          text=True, timeout=600, check=True).stdout
     for fn, regs, stack in re.findall(
             r"Function (\S+?):\s*REG:(\d+) STACK:(\d+)", res):
-        kernel = _wgmma_kernel(fn)
+        kernel = _sass_kernel(fn)
         if kernel in out:
             out[kernel].update(registers=int(regs), stack=int(stack))
     return out
@@ -270,7 +284,26 @@ def tolerance_text(dtype):
 
 
 # ---------------------------------------------------------------- kernels
-def rms_case(n, h, flush, dtype="bfloat16"):
+def _norm_plan(h, dtype):
+    """The launch plan ``rms_norm.norm_launch_plan`` gives a case's
+    (fresh, 16-byte aligned) tensors, as a dict."""
+    from paddle_tpu_torch.ops.kernels.rms_norm import norm_launch_plan
+
+    return norm_launch_plan(h, torch_dtype(dtype), True)._asdict()
+
+
+def copy_ms(x, flush):
+    """Device time of torch's copy of x into a tensor of its shape,
+    timed as the kernels are: the same bytes as a norm without its
+    weight (x read once, y written once) and the same launch. What the
+    card reaches for those bytes under this timing, beside the bound."""
+    import torch
+
+    y = torch.empty_like(x)
+    return cuda_time_ms(lambda: y.copy_(x), flush=flush)
+
+
+def rms_case(name, n, h, flush, dtype="bfloat16"):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, \
@@ -289,8 +322,8 @@ def rms_case(n, h, flush, dtype="bfloat16"):
     nbytes = (2 * x.numel() + w.numel()) * x.element_size()
     b_ms, b_by = bound_ms(nbytes, 4 * x.numel(), dtype)
     return {
-        "case": f"rows{n}" + ("" if dtype == "bfloat16" else f"_{dtype}"),
-        "shape": [n, h], "dtype": dtype,
+        "case": name, "shape": [n, h], "dtype": dtype,
+        "plan": _norm_plan(h, dtype),
         "max_abs_err": float(d.max()),
         "max_rel_err": float((d / ref.float().abs().clamp_min(1e-6)).max()),
         "tolerance": tolerance_text(dtype),
@@ -301,11 +334,12 @@ def rms_case(n, h, flush, dtype="bfloat16"):
                                  flush=flush),
         "library_ms": cuda_time_ms(
             lambda: F.rms_norm(x, (h,), w, eps), flush=flush),
+        "copy_ms": copy_ms(x, flush),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
-def ln_case(n, h, flush, dtype="bfloat16", affine=True):
+def ln_case(name, n, h, flush, dtype="bfloat16", affine=True):
     """layer_norm_fused's kernel against its plain version at [n, h]
     (weight and bias, or neither), held like rms_norm."""
     import torch
@@ -328,9 +362,8 @@ def ln_case(n, h, flush, dtype="bfloat16", affine=True):
     nbytes = (2 * x.numel() + (2 * h if affine else 0)) * x.element_size()
     b_ms, b_by = bound_ms(nbytes, 8 * x.numel(), dtype)
     return {
-        "case": f"rows{n}_h{h}" + ("" if affine else "_no_affine")
-        + ("" if dtype == "bfloat16" else f"_{dtype}"),
-        "shape": [n, h], "dtype": dtype, "weight_and_bias": affine,
+        "case": name, "shape": [n, h], "dtype": dtype,
+        "weight_and_bias": affine, "plan": _norm_plan(h, dtype),
         "max_abs_err": float(d.max()),
         "max_rel_err": float((d / ref.float().abs().clamp_min(1e-6)).max()),
         "tolerance": tolerance_text(dtype),
@@ -341,8 +374,49 @@ def ln_case(n, h, flush, dtype="bfloat16", affine=True):
                                  flush=flush),
         "library_ms": cuda_time_ms(
             lambda: F.layer_norm(x, (h,), w, b, eps), flush=flush),
+        "copy_ms": copy_ms(x, flush),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+_RMS, _LN = "rms_norm", "layer_norm_fused"
+# (kernel, case name, shape and options) of rms_norm and layer_norm_fused
+NORM_CASES = [
+    # serving: a chunk call's 256 rows and a decode call's 8 (one per
+    # sequence), bf16 and float32
+    (_RMS, "rows256", dict(n=256, h=4096)),
+    (_RMS, "rows8", dict(n=8, h=4096)),
+    (_RMS, "rows8_float32", dict(n=8, h=4096, dtype="float32")),
+    # the training path: Qwen2-0.5B at batch 8 x 2048, and the gradient
+    # check's one sequence
+    (_RMS, "rows16384", dict(n=16384, h=896)),
+    (_RMS, "rows2048", dict(n=2048, h=896)),
+    # a chunk call's real rows (7 decode rows and a 248-token chunk); the
+    # warp class's masked tail (125 vectors); the scalar path (a width of
+    # no whole number of 16-byte vectors)
+    (_RMS, "rows255", dict(n=255, h=4096)),
+    (_RMS, "rows64_h1000", dict(n=64, h=1000)),
+    (_RMS, "rows64_h100", dict(n=64, h=100)),
+    # LayerNorm at GPT-2 / BERT-base and BERT-large widths, a wide short
+    # block, a width the TPU kernel cannot take, no affine, float32
+    (_LN, "rows16384_h768", dict(n=16384, h=768)),
+    (_LN, "rows16384_h1024", dict(n=16384, h=1024)),
+    (_LN, "rows8_h4096", dict(n=8, h=4096)),
+    (_LN, "rows2048_h1000", dict(n=2048, h=1000)),
+    (_LN, "rows2048_h768_no_affine", dict(n=2048, h=768, affine=False)),
+    (_LN, "rows2048_h768_float32", dict(n=2048, h=768, dtype="float32")),
+]
+
+
+def norm_cases(flush, names=None):
+    """{kernel name: [case results]} over NORM_CASES (those in ``names``
+    only, when given)."""
+    out = {_RMS: [], _LN: []}
+    for kernel, name, kw in NORM_CASES:
+        if names is None or name in names:
+            case = rms_case if kernel == _RMS else ln_case
+            out[kernel].append(case(name, flush=flush, **kw))
+    return out
 
 
 def attn_work(seq_lens, q_lens, t, h, kvh, d, window, page, itemsize,
@@ -1331,6 +1405,35 @@ PAGED_FAULTS = [
 ]
 
 
+# faults of the norm kernels, each run against every case of NORM_CASES
+# (``--norm-cases``): (name, source, text, replacement, the "kernel:plan
+# kind" whose cases it may fail). The vector classes share one body
+# (norm_rows), and the block class and the scalar path one reduction.
+_NORM_VECTOR = tuple(f"{k}:{c}" for k in (_RMS, _LN) for c in ("warp",
+                                                               "block"))
+NORM_FAULTS = [
+    # the warp class's rows lose their last 16-byte vector (not read, not
+    # written)
+    ("norm_warp_drops_last_vector", _NORM_CU,
+     "const int nv = a.hidden / N;",
+     "const int nv = a.hidden / N - (kBlock ? 0 : 1);",
+     (f"{_RMS}:warp", f"{_LN}:warp")),
+    # the weight (and bias) vectors are read one vector off
+    ("norm_weight_one_vector_off", _NORM_CU,
+     "if (has_w) load_vectors<VPL>(a.w, t, lanes, nv, w);",
+     "if (has_w) load_vectors<VPL>(static_cast<const uint4*>(a.w) + 1, t, "
+     "lanes, nv, w);", _NORM_VECTOR),
+    # LayerNorm's variance taken about 0 instead of the mean
+    ("layer_norm_variance_without_mean", _NORM_CU,
+     "const float c = elem<T>(x[j], k) - mean;",
+     "const float c = elem<T>(x[j], k);", (f"{_LN}:warp", f"{_LN}:block")),
+    # the block reduction leaves out its last warp's partial sum
+    ("norm_block_sum_drops_a_warp", _NORM_CU,
+     "v = lane < nw ? red[lane] : 0.f;", "v = lane < nw - 1 ? red[lane] : 0.f;",
+     tuple(f"{k}:{c}" for k in (_RMS, _LN) for c in ("block", "scalar"))),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase):
     """Plants one fault in a copy of the repository in a temporary
     directory, runs the named cases there (a child process that builds
@@ -1370,9 +1473,10 @@ def _run_with_fault(name, source, old, new, option, cases, phase):
 
 
 def fault_check_phase():
-    """Plants each fault of FLASH_FAULTS and PAGED_FAULTS in a copy of
-    the repository and runs its cases there; fails unless every fault
-    fails a gate, and a paged fault only in the cases it may fail."""
+    """Plants each fault of FLASH_FAULTS, PAGED_FAULTS and NORM_FAULTS in
+    a copy of the repository and runs its cases there; fails unless
+    every fault fails a gate, and a paged or norm fault only in the
+    cases it may fail."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1394,6 +1498,20 @@ def fault_check_phase():
         if not line["failed"] or any(
                 f not in broken and f.split(":")[0] not in broken
                 for f in line["failed"]):
+            missed.append(name)
+    norm_names = [name for _, name, _ in NORM_CASES]
+    for name, source, old, new, broken in NORM_FAULTS:
+        line = _run_with_fault(name, source, old, new, "--norm-cases",
+                               norm_names, "norm_cases")
+        kind = {f"{k['name']}:{c['case']}": f"{k['name']}:{c['plan']['kind']}"
+                for k in line["kernels"] for c in k["cases"]}
+        results.append({"fault": name, "may_fail": list(broken),
+                        "failed": line["failed"],
+                        "max_abs_err": {
+                            f"{k['name']}:{c['case']}": c["max_abs_err"]
+                            for k in line["kernels"] for c in k["cases"]}})
+        if not line["failed"] or any(kind[f] not in broken
+                                     for f in line["failed"]):
             missed.append(name)
     emit("fault_check", tolerance=FLASH_TOL, faults=results, missed=missed)
     if missed:
@@ -1425,7 +1543,34 @@ ABLATIONS = [
     ("varlen_fwd_m_tiles_in_pack_order", _VARLEN_CU,
      "const int mt = gridDim.y - 1 - blockIdx.y;", "const int mt = blockIdx.y;",
      ("varlen_train", "varlen_8k")),
+    # bf16 rows widened once and kept in float32 (the compiler's choice)
+    # instead of widened at each use from the packed vectors
+    ("norm_rows_kept_in_float32", _NORM_CU,
+     "constexpr bool kWidenAtUse = true;", "constexpr bool kWidenAtUse = false;",
+     ("rows16384", "rows256", "rows16384_h768", "rows16384_h1024")),
+    # the norms' weight and bias loaded after the reductions (per row)
+    # instead of beside x
+    ("norm_weight_after_reduction", _NORM_CU,
+     "constexpr bool kWeightFirst = true;",
+     "constexpr bool kWeightFirst = false;",
+     ("rows16384", "rows256", "rows8", "rows16384_h768")),
+    # the warp class on a grid of 528 blocks (4 resident a SM of the H100
+    # at 56-71 registers a thread) walking rows grid-stride, each warp
+    # keeping the weight in registers across its rows, instead of one row
+    # a warp
+    ("norm_warp_rows_grid_stride", _NORM_CU,
+     "const unsigned grid = (unsigned)blocks;",
+     "const unsigned grid = (unsigned)(blocks < 528 ? blocks : 528);",
+     ("rows16384", "rows2048", "rows16384_h768", "rows2048_h1000")),
 ]
+
+
+def _cases_option(cases):
+    """The option and phase line of the narrow run that holds ``cases``:
+    the norm cases', or the flash and varlen cases'."""
+    if set(cases) <= {name for _, name, _ in NORM_CASES}:
+        return "--norm-cases", "norm_cases"
+    return "--flash-cases", "flash_cases"
 
 
 def ablations_phase(names=None):
@@ -1437,8 +1582,8 @@ def ablations_phase(names=None):
     for name, source, old, new, cases in ABLATIONS:
         if names is not None and name not in names:
             continue
-        runs = [_run_with_fault(name, src, old, new, "--flash-cases",
-                                cases, "flash_cases")
+        option, phase = _cases_option(cases)
+        runs = [_run_with_fault(name, src, old, new, option, cases, phase)
                 for src in (None, source, source, None)]
         times = {}
         for which, line in zip(("base", "ablated", "ablated", "base"),
@@ -1465,23 +1610,13 @@ def kernels_phase():
             a @ a
         torch.cuda.synchronize()
     del a
-    rms = [rms_case(256, 4096, flush), rms_case(8, 4096, flush),
-           rms_case(8, 4096, flush, dtype="float32"),
-           # the training path: Qwen2-0.5B at batch 8 x 2048, and the
-           # gradient check's one sequence
-           rms_case(16384, 896, flush), rms_case(2048, 896, flush)]
+    norm = norm_cases(flush)
     attn = attn_cases(flush)
-    # LayerNorm at GPT-2 / BERT-base and BERT-large widths, a wide short
-    # block, a width the TPU kernel cannot take, no affine, float32
-    ln = [ln_case(16384, 768, flush), ln_case(16384, 1024, flush),
-          ln_case(8, 4096, flush), ln_case(2048, 1000, flush),
-          ln_case(2048, 768, flush, affine=False),
-          ln_case(2048, 768, flush, dtype="float32")]
     fused = [fused_step_case(flush)]
     flash = flash_cases(flush)
     varlen = varlen_cases(flush)
     del flush
-    cases = {"rms_norm": rms, "layer_norm_fused": ln, **attn,
+    cases = {**norm, **attn,
              "paged_ragged_fused_step": fused, **flash, **varlen}
     bad = [f"{name}:{c['case']}" for name, cs in cases.items() for c in cs
            if not c["ok"]]
@@ -2201,9 +2336,14 @@ def main(argv=None):
                     "cases (comma-separated names of ATTN_CASES, in "
                     "whichever kernel has them) against their plain "
                     "versions")
+    ap.add_argument("--norm-cases", default=None, metavar="NAMES",
+                    help="only build and hold these rms_norm and "
+                    "layer_norm_fused cases (comma-separated names of "
+                    "NORM_CASES) against their plain versions")
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
-                    "FLASH_FAULTS and PAGED_FAULTS, planted in a copy")
+                    "FLASH_FAULTS, PAGED_FAULTS and NORM_FAULTS, planted "
+                    "in a copy")
     ap.add_argument("--ablations", default=None, metavar="NAMES",
                     help="only time the cases of these ABLATIONS "
                     "(comma-separated names, or 'all') in a changed "
@@ -2244,8 +2384,13 @@ def main(argv=None):
     emit("build", seconds=seconds, compiled=_build.build_seconds is not None,
          nvcc_flags=" ".join(_build.NVCC_FLAGS),
          sources=list(_build.SOURCES), warnings=_build.build_warnings,
-         wgmma_sass=sass)
-    scalar = [k for k, v in (sass or {}).items() if not v["hgmma"]]
+         wgmma_sass={k: v for k, v in (sass or {}).items()
+                     if "_wgmma<" in k},
+         norm_sass={k: {"registers": v.get("registers"),
+                        "stack": v.get("stack")}
+                    for k, v in (sass or {}).items() if "_wgmma<" not in k})
+    scalar = [k for k, v in (sass or {}).items()
+              if "_wgmma<" in k and not v["hgmma"]]
     if scalar:
         raise RuntimeError(f"wgmma kernels without HGMMA: {scalar}")
     if args.flash_cases:
@@ -2272,6 +2417,18 @@ def main(argv=None):
         emit("attn_cases", failed=bad, kernels=[
             {"name": k, "cases": v} for k, v in attn.items() if v])
         return 1 if bad else 0
+    if args.norm_cases:
+        names = args.norm_cases.split(",")
+        known = {c[1] for c in NORM_CASES}
+        if set(names) - known:
+            raise ValueError(f"unknown norm cases {set(names) - known}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        norm = norm_cases(flush, names)
+        bad = [f"{k}:{c['case']}" for k, cs in norm.items() for c in cs
+               if not c["ok"]]
+        emit("norm_cases", failed=bad, kernels=[
+            {"name": k, "cases": v} for k, v in norm.items() if v])
+        return 1 if bad else 0
 
     cases = kernels_phase()
     varlen_launches = varlen_phase(args.seed)
@@ -2286,7 +2443,12 @@ def main(argv=None):
     train_launches = train_phase(model, opt, x, y)
     train_profile_phase(model, opt, x, y)
 
-    def summary(name, main_case):
+    def case_times(c):
+        return {"case": c["case"], "ms": c["kernel_ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+
+    def summary(name, main_case, beside=()):
         c = next(x for x in cases[name] if x["case"] == main_case)
         by_path = {path: launches[name] for path, launches in
                    (*serve_launches.items(), ("train", train_launches),
@@ -2300,9 +2462,12 @@ def main(argv=None):
                 "max_abs_err": max(x["max_abs_err"] for x in cases[name]),
                 "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"], "case": main_case}
+                "library_ms": c["library_ms"], "case": main_case,
+                **({"beside": [case_times(x) for x in cases[name]
+                               if x["case"] in beside]} if beside else {})}
 
-    kernels = [summary("rms_norm", "rows256"),
+    # rms_norm: the serving chunk's case, and the training width's beside
+    kernels = [summary("rms_norm", "rows256", beside=("rows16384",)),
                summary("layer_norm_fused", "rows16384_h768"),
                summary("paged_ragged_attention", "mixed"),
                summary("paged_decode_attention", "decode")] + [

@@ -46,10 +46,13 @@ _F32 = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p (a pointer
 # passed as a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
-    # x, w, y, rows, hidden, eps, dtype, stream
-    "ptt_rms_norm": (_P, _P, _P, _I64, _I64, _F32, _I32, _P),
-    # x, w, b, y, rows, hidden, eps, dtype, stream
-    "ptt_layer_norm": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _P),
+    # x, w, y, rows, hidden, eps, dtype, then the plan (kind, vpl,
+    # threads, rows_per_block: rms_norm.norm_launch_plan), stream
+    "ptt_rms_norm": (_P, _P, _P, _I64, _I64, _F32, _I32,
+                     _I32, _I32, _I32, _I32, _P),
+    # x, w, b, y, rows, hidden, eps, dtype, the plan, stream
+    "ptt_layer_norm": (_P, _P, _P, _P, _I64, _I64, _F32, _I32,
+                       _I32, _I32, _I32, _I32, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
     # q_lens, out, workspace, B, T, H, KVH, D, NP, P, MP, chunk_pages,
     # scale, window, dtype, kv_dtype, stream

@@ -6,7 +6,9 @@ PyTorch versions (the counterpart of the reference's
 ``rms_norm`` dispatches on the tensor's device: a CPU tensor takes
 :func:`rms_norm_plain`, a CUDA tensor launches ``csrc/rms_norm.cu`` or
 raises. Unlike the reference, which takes its Pallas path only when the
-width is a multiple of 128, the kernel takes any width.
+width is a multiple of 128, the kernel takes any width: the wrapper
+hands it the launch plan of :func:`norm_launch_plan` (a warp or a block
+per row holding the row in registers, or the scalar path).
 
 The gradient is ``_RMSNormFn``: its forward is the same dispatch, its
 backward the closed form of the reference's ``_rms_bwd`` (the XLA vjp of
@@ -20,9 +22,69 @@ the reference's Pallas path needs a multiple of 128), and
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build, record_launch
+
+# csrc/rms_norm.cu's instantiations: VPL (16-byte vectors a lane holds)
+# of each class, the rows (warps) of a warp-class block, the widest
+# block class and the scalar path's threads
+WARP_VPL = (1, 2, 3, 4)
+BLOCK_VPL = (3, 4)
+WARP_ROWS = 8
+BLOCK_MAX_THREADS = 512
+SCALAR_THREADS = 256
+_KIND_CODES = {"scalar": 0, "warp": 1, "block": 2}
+
+
+class NormPlan(NamedTuple):
+    """How ``csrc/rms_norm.cu`` lays a row on its threads. ``kind``:
+    ``"warp"`` (a warp per row, ``rows_per_block`` rows a block),
+    ``"block"`` (a block of ``threads`` per row) or ``"scalar"``
+    (``threads`` per row, element loads strided by ``threads``). In the
+    two vector classes lane t of ``threads`` holds the row's 16-byte
+    vectors j * threads + t for j < ``vpl``; ``vpl`` is 0 for scalar."""
+    kind: str
+    vpl: int
+    threads: int
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=256)
+def norm_launch_plan(hidden, dtype, aligned):
+    """The plan for rows of ``hidden`` elements of ``dtype``
+    (``torch.float32`` or ``torch.bfloat16``); ``aligned``: x, y and the
+    weight and bias all start on 16 bytes. A row of up to 128 vectors
+    takes a warp, a wider one up to 4 x 512 vectors a block; the rest
+    (a width that is not a whole number of vectors, a pointer off 16
+    bytes, a wider row) the scalar path."""
+    per_vec = 16 // dtype.itemsize
+    nv = hidden // per_vec
+    if (not aligned or hidden % per_vec or hidden <= 0
+            or nv > 4 * BLOCK_MAX_THREADS):
+        return NormPlan("scalar", 0, SCALAR_THREADS, 1)
+    if nv <= 4 * 32:
+        return NormPlan("warp", _cdiv(nv, 32), 32, WARP_ROWS)
+    threads = 32 * _cdiv(_cdiv(nv, 4), 32)
+    return NormPlan("block", _cdiv(nv, threads), threads, 1)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _plan_args(x2, *params):
+    """The C entries' plan arguments for the contiguous [rows, hidden]
+    x2 and its row parameters (None or tensors); y is a fresh tensor,
+    16-byte aligned."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, *params)
+                  if t is not None)
+    plan = norm_launch_plan(x2.shape[1], x2.dtype, aligned)
+    return (_KIND_CODES[plan.kind], plan.vpl, plan.threads,
+            plan.rows_per_block)
 
 
 def rms_norm_plain(x, weight=None, eps=1e-6):
@@ -65,7 +127,7 @@ def _rms_norm_cuda(x, weight, eps):
             x2.data_ptr(),
             weight.data_ptr() if weight is not None else None,
             y.data_ptr(), x2.shape[0], h, float(eps),
-            _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[x.dtype], *_plan_args(x2, weight),
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(status, "rms_norm")
         record_launch("rms_norm")
@@ -149,7 +211,7 @@ def _layer_norm_cuda(x, weight, bias, eps):
             weight.data_ptr() if weight is not None else None,
             bias.data_ptr() if bias is not None else None,
             y.data_ptr(), x2.shape[0], h, float(eps),
-            _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[x.dtype], *_plan_args(x2, weight, bias),
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(status, "layer_norm_fused")
         record_launch("layer_norm_fused")

@@ -150,3 +150,31 @@ def test_no_grad_path_skips_autograd():
         y = layer_norm_fused(x)
     assert y.grad_fn is None
     assert layer_norm_fused(x).grad_fn is not None
+
+
+# the widths the port's kernel takes on the main path: GPT-2's 768 (the
+# warp class), Qwen2-0.5B's 896 (warp, tail masked), 4096 (the block
+# class) and 1000 (125 vectors: the warp class's masked tail)
+@pytest.mark.parametrize("width", [768, 896, 4096, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_main_path_widths_match_jax(interpret, width, dtype):
+    """At 768, 896 and 4096 the JAX side runs its Pallas ``_ln_kernel``
+    in interpret mode. 1000 is not a multiple of 128, so there the JAX
+    package itself takes ``_ln_ref`` (its width test at
+    ``rms_norm.py:163``); the port takes any width. float32 within
+    FWD_TOL, bf16 within one bf16 spacing, as above."""
+    x, w, b, _ = _inputs(width, True, True, rows=(5,))
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    interpret(reset=True)
+    want = np.asarray(rn.layer_norm_fused(
+        *(jnp.asarray(a).astype(jd) for a in (x, w, b))).astype(jnp.float32))
+    route = "pallas" if width % 128 == 0 else "xla_fallback"
+    assert interpret(reset=True).get(f"layer_norm_fused:{route}", 0) >= 1
+    got = layer_norm_fused(*(torch.from_numpy(a).to(td) for a in (x, w, b)))
+    assert got.dtype == td
+    if dtype == "float32":
+        _close(got.numpy(), want, FWD_TOL)
+    else:
+        err = np.abs(got.float().numpy() - want)
+        assert np.all(err <= np.abs(want) * 2.0 ** -7 + 1e-5), err.max()

@@ -144,7 +144,8 @@ CHIP_SMOKE = _chip_smoke()
 
 
 @pytest.mark.parametrize(
-    "fault", CHIP_SMOKE.FLASH_FAULTS + CHIP_SMOKE.PAGED_FAULTS,
+    "fault", CHIP_SMOKE.FLASH_FAULTS + CHIP_SMOKE.PAGED_FAULTS
+    + CHIP_SMOKE.NORM_FAULTS,
     ids=lambda f: f[0])
 def test_every_planted_fault_names_live_kernel_text(fault):
     """--fault-check replaces each fault's text in its CUDA source and

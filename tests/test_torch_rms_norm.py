@@ -114,6 +114,38 @@ def test_width_not_multiple_of_128(width, dtype):
         _close_bf16(got, want)
 
 
+# the widths the port's kernel takes on the main path: Qwen2-0.5B's 896
+# (the warp class, tail masked), GPT-2's 768, Llama-3-8B's 4096 (the
+# block class) and 1000 (125 vectors: the warp class's masked tail)
+MAIN_PATH_WIDTHS = [896, 768, 4096, 1000]
+
+
+@pytest.mark.parametrize("width", MAIN_PATH_WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_main_path_widths_match_jax(interp_flag, width, dtype):
+    """At 896, 768 and 4096 the JAX side runs its Pallas kernel in
+    interpret mode. 1000 is not a multiple of 128, so there the JAX
+    package itself takes ``_rms_ref`` (its width test at
+    ``rms_norm.py:78``); the port takes any width. Tolerances as above:
+    float32 1e-6, bf16 one spacing."""
+    from paddle_tpu.ops.kernels import kernel_dispatch_stats
+
+    x, w = _np((5, width), 60), _np((width,), 61)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    kernel_dispatch_stats(reset=True)
+    want = np.asarray(rn.rms_norm(_jax(x, jd), _jax(w, jd), 1e-5),
+                      np.float32)
+    route = "pallas" if width % 128 == 0 else "xla_fallback"
+    assert kernel_dispatch_stats(reset=True).get(f"rms_norm:{route}", 0) >= 1
+    got = rms_norm(_torch(x, td), _torch(w, td), 1e-5)
+    assert got.dtype == td
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+    else:
+        _close_bf16(got.float().numpy(), want)
+
+
 def test_weight_multiplies_before_the_cast():
     """The reference multiplies by the weight in float32 and casts once;
     casting the normalized row first and multiplying in bf16 rounds
