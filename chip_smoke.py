@@ -44,6 +44,16 @@ It prints one JSON line per phase:
    launch counters reset just before and read just after, exact launch
    counts, and the served logits of two requests held against the dense
    float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``);
+   then ``serve_prefix`` and ``serve_prefix_int8`` (``PREFIX_RUNS``): 16
+   requests sharing one 1,000-token prefix, ``r0`` served alone first,
+   then the other 15 together through ``prefix_cache=True`` from bf16 or
+   int8 pages, with the hit and copy-on-write fork counts, every fork's
+   bytes against its source, the cached prefix chain's bytes across the
+   run and the drained pools gated (``serve_prefix`` also serves the
+   same traffic without the cache beside it); and ``serve_preempt``:
+   six priority-0 requests fill a small pool, two priority-1 requests
+   preempt them to the host swap tier, the first victim is cancelled,
+   and every restored chain is held against its swapped-out bytes;
 7. ``profile``, ``profile_int8``, ``profile_off`` and
    ``profile_off_int8``: the four serving runs served again under
    ``torch.profiler``: device time by kernel class and the device's
@@ -77,7 +87,14 @@ repository and fails unless the gates catch every one (a paged fault
 only in the cases of the kernel it broke, a norm fault only in the
 cases of the kernels and launch classes it broke); ``--ablations
 NAMES`` times the cases of design choices (``ABLATIONS``) undone in a
-copy, beside an unchanged copy.
+copy, beside an unchanged copy. ``--serve-runs NAMES`` builds the
+kernels and serves only those runs (names of ``SERVE_RUN_NAMES``),
+unprofiled, at ``--layers`` depth, listing each failed run in a
+``serve_runs`` line; ``--fault-check`` also plants ``SERVE_FAULTS`` in
+the page pool and runs ``--serve-runs`` on them at two layers.
+``--serve-ab DIR`` serves the ``serve`` run from another checkout (an
+unpacked earlier tree) and from this one in turns (DIR, this, this,
+DIR), each in a child process, on one ``serve_ab`` line.
 """
 from __future__ import annotations
 
@@ -1434,11 +1451,31 @@ NORM_FAULTS = [
 ]
 
 
-def _run_with_fault(name, source, old, new, option, cases, phase):
+# faults of the serving path's page pool, each run against the runs of
+# _SERVE_FAULT_RUNS at two layers (``--serve-runs``): (name, source, text,
+# replacement, the runs it may fail)
+_POOL_PY = "paddle_tpu_torch/incubate/nn/paged_cache.py"
+_SERVE_FAULT_RUNS = ("serve_prefix", "serve_prefix_int8", "serve_preempt")
+SERVE_FAULTS = [
+    # a copy-on-write fork hands the writer a page without its source's
+    # bytes (and, in an int8 pool, with zeroed scale rows)
+    ("fork_skips_copy", _POOL_PY, "        self._copy_page(dst, src)\n",
+     "", ("serve_prefix", "serve_prefix_int8")),
+    # swap_in writes the host copies of the private pages in reverse order
+    ("swap_in_restores_reversed", _POOL_PY,
+     "pg = torch.tensor(new_priv, dtype=torch.int64,",
+     "pg = torch.tensor(new_priv[::-1], dtype=torch.int64,",
+     ("serve_preempt",)),
+]
+
+
+def _run_with_fault(name, source, old, new, option, cases, phase,
+                    extra=()):
     """Plants one fault in a copy of the repository in a temporary
     directory, runs the named cases there (a child process that builds
-    the faulty kernels) and returns the child's ``phase`` line. With
-    ``source`` None the copy is left as it is."""
+    the faulty kernels; ``extra``: more arguments) and returns the
+    child's ``phase`` line. With ``source`` None the copy is left as it
+    is."""
     import shutil
     import tempfile
 
@@ -1459,7 +1496,7 @@ def _run_with_fault(name, source, old, new, option, cases, phase):
                 f.write(text.replace(old, new))
         child = subprocess.run(
             [sys.executable, os.path.join(tree, "chip_smoke.py"), option,
-             ",".join(cases)],
+             ",".join(cases), *extra],
             cwd=tree, capture_output=True, text=True, timeout=900)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1473,10 +1510,10 @@ def _run_with_fault(name, source, old, new, option, cases, phase):
 
 
 def fault_check_phase():
-    """Plants each fault of FLASH_FAULTS, PAGED_FAULTS and NORM_FAULTS in
-    a copy of the repository and runs its cases there; fails unless
-    every fault fails a gate, and a paged or norm fault only in the
-    cases it may fail."""
+    """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS and
+    SERVE_FAULTS in a copy of the repository and runs its cases there;
+    fails unless every fault fails a gate, and a paged, norm or serving
+    fault only in the cases it may fail."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1512,6 +1549,14 @@ def fault_check_phase():
                             for k in line["kernels"] for c in k["cases"]}})
         if not line["failed"] or any(kind[f] not in broken
                                      for f in line["failed"]):
+            missed.append(name)
+    for name, source, old, new, broken in SERVE_FAULTS:
+        line = _run_with_fault(name, source, old, new, "--serve-runs",
+                               _SERVE_FAULT_RUNS, "serve_runs",
+                               extra=("--layers", "2"))
+        results.append({"fault": name, "may_fail": list(broken),
+                        "failed": line["failed"], "errors": line["errors"]})
+        if not line["failed"] or set(line["failed"]) - set(broken):
             missed.append(name)
     emit("fault_check", tolerance=FLASH_TOL, faults=results, missed=missed)
     if missed:
@@ -1813,6 +1858,104 @@ def build_server(seed, layers):
     return model, prompts, init_s
 
 
+def record_prefill_chunk(adapter, watch):
+    """Wraps ``adapter.prefill_chunk`` (an instance attribute: ``del
+    adapter.prefill_chunk`` restores the method) to keep the served
+    logits of the ``watch`` requests by absolute position, and to count
+    the model calls that carry a single-token (decode) row and a
+    multi-token (prefill) row. Returns ``(captured, row_kinds)``."""
+    captured = {w: {} for w in watch}
+    row_kinds = {"single": 0, "multi": 0}
+    serve_fn = adapter.prefill_chunk
+
+    def recording_prefill_chunk(token_ids, seq_ids, start_positions=None,
+                                pad_to=None, logits_rows=None):
+        out = serve_fn(token_ids, seq_ids, start_positions,
+                       pad_to=pad_to, logits_rows=logits_rows)
+        row_kinds["single"] += any(len(t) == 1 for t in token_ids)
+        row_kinds["multi"] += any(len(t) > 1 for t in token_ids)
+        for i, s in enumerate(seq_ids):
+            if s in captured:
+                p = int(start_positions[i]) + len(token_ids[i]) - 1
+                captured[s][p] = out[i].float()
+        return out
+
+    adapter.prefill_chunk = recording_prefill_chunk
+    return captured, row_kinds
+
+
+def launch_problems(launches, adapter, calls, row_kinds, mode):
+    """Exact launch counts of a serving run of ``calls`` model calls:
+    one RMSNorm per layer norm and the final one per call; under
+    auto/on one ragged launch per layer and call; under off one decode
+    launch per layer and call with a decode row, one ragged launch per
+    layer and call with a multi-token row. Also the attention kinds the
+    adapter ran. Returns ``(problems, kinds)``."""
+    n_layers = len(adapter.caches)
+    want = {"rms_norm": (2 * n_layers + 1) * calls}
+    if mode == "off":
+        want["paged_decode_attention"] = n_layers * row_kinds["single"]
+        want["paged_ragged_attention"] = n_layers * row_kinds["multi"]
+    else:
+        want["paged_ragged_attention"] = n_layers * calls
+        want["paged_decode_attention"] = 0
+    problems = [f"{k} launches {launches.get(k, 0)} != {v}"
+                for k, v in want.items() if launches.get(k, 0) != v]
+    kinds = sorted(set().union(*map(set, adapter.attend_kinds_by_bucket
+                                    .values())))
+    want_kinds = {"off": ["decode", "prefill"], "on": ["ragged"],
+                  "auto": ["ragged"] if adapter.caches[0].quantized
+                  else ["ragged_fused"]}[mode]
+    if kinds != want_kinds:
+        problems.append(f"attention kinds {kinds} != {want_kinds}")
+    return problems, kinds
+
+
+def oracle_check(model, done, captured, watch, gate, problems):
+    """Teacher-forced dense float32 forward over each watched request's
+    prompt + the generated tokens that were fed back; its logits at each
+    sampled position against the served ones, cosine >= ``gate``.
+    Appends to ``problems``; returns the per-request readings."""
+    import torch
+    from paddle_tpu_torch.testing import dense_reference_logits
+
+    oracle = {}
+    for rid in sorted(watch):
+        r = done[rid]
+        seq = r.prompt_ids + r.generated_ids[:-1]
+        # positions whose logits sampled a token: the prompt's last one
+        # and every decode row (mid-prompt chunk ends sample nothing)
+        positions = sorted(p for p in captured[rid]
+                           if p >= len(r.prompt_ids) - 1)
+        want_pos = list(range(len(r.prompt_ids) - 1, len(seq)))
+        if positions != want_pos:
+            problems.append(f"{rid}: captured positions {positions[:3]}.. "
+                            f"!= sampled positions {want_pos[:3]}..")
+            continue
+        ref = dense_reference_logits(model, seq, positions=positions)[0]
+        served = torch.stack([captured[rid][p] for p in positions])
+        cos = torch.nn.functional.cosine_similarity(served, ref, dim=-1)
+        s_top, r_top = served.argmax(-1), ref.argmax(-1)
+        top1 = (s_top == r_top).float().mean()
+        # for each top-1 miss: how far the oracle ranks the served token
+        # below its own top-1 (a near-tie when small)
+        miss = (s_top != r_top).nonzero().flatten()
+        margins = (ref[miss, r_top[miss]] - ref[miss, s_top[miss]]
+                   if miss.numel() else torch.zeros(1, device=ref.device))
+        oracle[rid] = {"positions": len(positions),
+                       "min_cosine": float(cos.min()),
+                       "mean_cosine": float(cos.mean()),
+                       "top1_agreement": float(top1),
+                       "top1_miss_max_oracle_margin": float(margins.max()),
+                       "max_abs_logit_err": float(
+                           (served - ref).abs().max()),
+                       "max_abs_logit": float(ref.abs().max())}
+        if float(cos.min()) < gate:
+            problems.append(f"{rid}: min cosine {float(cos.min()):.6f} "
+                            f"< {gate}")
+    return oracle
+
+
 def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
               pool_bytes=None, base=None):
     """Serves the 8 prompts (32 new tokens each, greedy,
@@ -1831,7 +1974,6 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     from paddle_tpu_torch.inference import (BatchScheduler,
                                             PagedLlamaAdapter, Request)
     from paddle_tpu_torch.ops.kernels import kernel_launch_stats
-    from paddle_tpu_torch.testing import dense_reference_logits
 
     cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
@@ -1844,28 +1986,8 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
                                     kv_cache_dtype=kv_cache_dtype,
                                     page_pool_bytes=pool_bytes)
     prompt_lens = [len(p) for p in prompts]
-
-    # served logits of the watched requests, by absolute position, and
-    # the model calls that carry a single-token (decode) row and a
-    # multi-token (prefill) row
     watch = {"r0", "r1"}
-    captured = {w: {} for w in watch}
-    row_kinds = {"single": 0, "multi": 0}
-    serve_fn = adapter.prefill_chunk
-
-    def recording_prefill_chunk(token_ids, seq_ids, start_positions=None,
-                                pad_to=None, logits_rows=None):
-        out = serve_fn(token_ids, seq_ids, start_positions,
-                       pad_to=pad_to, logits_rows=logits_rows)
-        row_kinds["single"] += any(len(t) == 1 for t in token_ids)
-        row_kinds["multi"] += any(len(t) > 1 for t in token_ids)
-        for i, s in enumerate(seq_ids):
-            if s in watch:
-                p = int(start_positions[i]) + len(token_ids[i]) - 1
-                captured[s][p] = out[i].float()
-        return out
-
-    adapter.prefill_chunk = recording_prefill_chunk
+    captured, row_kinds = record_prefill_chunk(adapter, watch)
     with ragged_mode(mode):
         # warm-up: one short request (cuBLAS handles, GEMM heuristics)
         warm = BatchScheduler(adapter, max_batch_size=8,
@@ -1919,69 +2041,14 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.num_hidden_layers
     pool = adapter.caches[0]
-    # exact launch counts: one RMSNorm per layer norm and the final one
-    # per model call; under auto/on one ragged launch per layer and call;
-    # under off one decode launch per layer and call with a decode row,
-    # one ragged launch per layer and call with a multi-token row
-    want = {"rms_norm": (2 * n_layers + 1) * calls}
-    if mode == "off":
-        want["paged_decode_attention"] = n_layers * row_kinds["single"]
-        want["paged_ragged_attention"] = n_layers * row_kinds["multi"]
-    else:
-        want["paged_ragged_attention"] = n_layers * calls
-        want["paged_decode_attention"] = 0
-    problems = [f"{k} launches {launches.get(k, 0)} != {v}"
-                for k, v in want.items() if launches.get(k, 0) != v]
-    kinds = sorted(set().union(*map(set, adapter.attend_kinds_by_bucket
-                                    .values())))
-    want_kinds = {"off": ["decode", "prefill"], "on": ["ragged"],
-                  "auto": ["ragged"] if pool.quantized
-                  else ["ragged_fused"]}[mode]
-    if kinds != want_kinds:
-        problems.append(f"attention kinds {kinds} != {want_kinds}")
+    problems, kinds = launch_problems(launches, adapter, calls, row_kinds,
+                                      mode)
     if kv_cache_dtype == "int8" and pool.k_pages.dtype != torch.int8:
         problems.append(f"pool pages are {pool.k_pages.dtype}, not int8")
     if any(len(r.generated_ids) != 32 for r in done.values()):
         problems.append("a request did not generate 32 tokens")
-
-    # oracle: teacher-forced dense float32 forward over prompt + the
-    # generated tokens that were fed back; its logits at each sampled
-    # position against the served ones
     gate = COSINE_GATE if kv_cache_dtype is None else INT8_COSINE_GATE
-    oracle = {}
-    for rid in sorted(watch):
-        r = done[rid]
-        seq = r.prompt_ids + r.generated_ids[:-1]
-        # positions whose logits sampled a token: the prompt's last one
-        # and every decode row (mid-prompt chunk ends sample nothing)
-        positions = sorted(p for p in captured[rid]
-                           if p >= len(r.prompt_ids) - 1)
-        want_pos = list(range(len(r.prompt_ids) - 1, len(seq)))
-        if positions != want_pos:
-            problems.append(f"{rid}: captured positions {positions[:3]}.. "
-                            f"!= sampled positions {want_pos[:3]}..")
-            continue
-        ref = dense_reference_logits(model, seq, positions=positions)[0]
-        served = torch.stack([captured[rid][p] for p in positions])
-        cos = torch.nn.functional.cosine_similarity(served, ref, dim=-1)
-        s_top, r_top = served.argmax(-1), ref.argmax(-1)
-        top1 = (s_top == r_top).float().mean()
-        # for each top-1 miss: how far the oracle ranks the served token
-        # below its own top-1 (a near-tie when small)
-        miss = (s_top != r_top).nonzero().flatten()
-        margins = (ref[miss, r_top[miss]] - ref[miss, s_top[miss]]
-                   if miss.numel() else torch.zeros(1, device=ref.device))
-        oracle[rid] = {"positions": len(positions),
-                       "min_cosine": float(cos.min()),
-                       "mean_cosine": float(cos.mean()),
-                       "top1_agreement": float(top1),
-                       "top1_miss_max_oracle_margin": float(margins.max()),
-                       "max_abs_logit_err": float(
-                           (served - ref).abs().max()),
-                       "max_abs_logit": float(ref.abs().max())}
-        if float(cos.min()) < gate:
-            problems.append(f"{rid}: min cosine {float(cos.min()):.6f} "
-                            f"< {gate}")
+    oracle = oracle_check(model, done, captured, watch, gate, problems)
     streams = {r: d.generated_ids for r, d in done.items()}
     vs_serve = None
     if base is not None:
@@ -2027,28 +2094,534 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
                                    c.pool_nbytes for c in adapter.caches)}
 
 
-def serve_phase(seed, layers):
-    """The four serving runs of SERVE_RUNS on one model, each followed
-    by nothing but its release; the runs of PROFILED_RUNS are also
-    served again under the profiler. Returns {run: launches}."""
+def serve_pool_bytes(model):
+    """The bytes of ``serve``'s pool (SERVE_PAGES bf16 pages of 16 a
+    layer): what the int8 runs size their pools by."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
+
+    cfg = model.config
+    return SERVE_PAGES * cfg.num_hidden_layers * PagedKVCacheManager \
+        .page_bytes(16, cfg.num_key_value_heads, cfg.head_dim,
+                    dtype=torch.bfloat16)
+
+
+# the prefix and preemption runs: (run, KV pages)
+PREFIX_RUNS = [("serve_prefix", None), ("serve_prefix_int8", "int8")]
+SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
+    r for r, _ in PREFIX_RUNS] + ["serve_preempt"]
+
+
+def serve_phase(seed, layers, names=None):
+    """The serving runs on one model: the four of SERVE_RUNS (each
+    followed by nothing but its release; those of PROFILED_RUNS served
+    again under the profiler), then PREFIX_RUNS and ``serve_preempt``.
+    Returns ``({run: launches}, failed)``. With ``names`` only those
+    runs go, unprofiled, and a run that fails is listed in ``failed``
+    while the others go on (``--serve-runs``); without it the first
+    failure raises."""
     import torch
 
     model, prompts, init_s = build_server(seed, layers)
-    out, base = {}, None
-    for run, kv, mode in SERVE_RUNS:
-        launches, adapter, result = serve_run(
-            run, model, prompts, init_s, layers, kv, mode,
-            pool_bytes=None if kv is None else base["kv_pool_bytes"],
-            base=base)
-        out[run] = launches
-        if base is None:
-            base = result
-        if run in PROFILED_RUNS:
-            with ragged_mode(mode):
-                profile_phase(adapter, prompts, PROFILED_RUNS[run])
-        del adapter
+    pool_bytes = serve_pool_bytes(model)
+    out, failed = {}, []
+
+    def attempt(run, fn):
+        if names is not None and run not in names:
+            return None
+        try:
+            got = fn()
+        except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
+            if names is None:
+                raise
+            failed.append({"run": run, "error": repr(e)[-600:]})
+            return None
         torch.cuda.empty_cache()
-    return out
+        return got
+
+    base = None
+    for run, kv, mode in SERVE_RUNS:
+        def one(run=run, kv=kv, mode=mode):
+            launches, adapter, result = serve_run(
+                run, model, prompts, init_s, layers, kv, mode,
+                pool_bytes=None if kv is None else pool_bytes, base=base)
+            if run in PROFILED_RUNS and names is None:
+                with ragged_mode(mode):
+                    profile_phase(adapter, prompts, PROFILED_RUNS[run])
+            return launches, result
+
+        got = attempt(run, one)
+        if got is not None:
+            out[run] = got[0]
+            if run == "serve":
+                base = got[1]
+    vocab = model.config.vocab_size
+    traffic = prefix_traffic(seed, vocab)
+    for run, kv in PREFIX_RUNS:
+        got = attempt(run, lambda run=run, kv=kv: serve_prefix_run(
+            run, model, traffic, layers, kv,
+            None if kv is None else pool_bytes))
+        if got is not None:
+            out[run] = got
+    got = attempt("serve_preempt", lambda: serve_preempt_run(
+        model, preempt_traffic(seed, vocab), layers))
+    if got is not None:
+        out["serve_preempt"] = got
+    return out, failed
+
+
+# one `serve` run in a child process whose working directory is a
+# checkout: it imports that checkout's chip_smoke.py, builds its kernels
+# and serves (argv: seed, layers or "None")
+_SERVE_AB_CHILD = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.ops.kernels import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.library()
+layers = None if sys.argv[2] == "None" else int(sys.argv[2])
+model, prompts, init_s = cs.build_server(int(sys.argv[1]), layers)
+cs.serve_run("serve", model, prompts, init_s, layers, None, "auto")
+"""
+
+
+def serve_ab_phase(other, seed, layers):
+    """Serves the `serve` run from the checkout ``other`` (an unpacked
+    earlier tree) and from this one in turns (other, this, this, other),
+    each in a child process of its own, and emits their tokens/s, TTFT
+    and TPOT on one line. Fails if a child fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    runs = []
+    for tree, path in (("other", other), ("this", root), ("this", root),
+                       ("other", other)):
+        child = subprocess.run(
+            [sys.executable, "-c", _SERVE_AB_CHILD, str(seed), str(layers)],
+            cwd=path, capture_output=True, text=True, timeout=900)
+        line = next((json.loads(s) for s in child.stdout.splitlines()
+                     if s.startswith('{"phase": "serve"')), None)
+        if child.returncode or line is None:
+            raise RuntimeError(f"serve from {path} failed (exit "
+                               f"{child.returncode}):\n"
+                               f"{child.stderr[-2000:]}")
+        runs.append({"tree": tree, "path": path,
+                     "total_tok_per_s": line["total_tok_per_s"],
+                     "generated_tok_per_s": line["generated_tok_per_s"],
+                     "ttft_ms_median": line["ttft_ms"]["median"],
+                     "tpot_ms_median": line["tpot_ms"]["median"],
+                     "wall_s": line["wall_s"], "launches": line["launches"]})
+    emit("serve_ab", runs=runs)
+
+
+# serve_prefix's traffic: PREFIX_REQUESTS prompts of one shared prefix
+# of PREFIX_TOKENS tokens (1,000 % 16 = 8: the prefix ends mid-page, so
+# every hit forks its tail page) and a distinct suffix each
+PREFIX_TOKENS, PREFIX_REQUESTS = 1000, 16
+
+
+def prefix_traffic(seed, vocab):
+    """The shared prefix (from ``seed``) plus a suffix of 24-200 tokens
+    per request, each suffix's first token distinct from the others'."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 1)
+    prefix = rng.randint(0, vocab, PREFIX_TOKENS).tolist()
+    firsts = rng.choice(vocab, PREFIX_REQUESTS, replace=False)
+    lens = rng.randint(24, 201, PREFIX_REQUESTS)
+    return [prefix + [int(f)] + rng.randint(0, vocab, n - 1).tolist()
+            for f, n in zip(firsts, lens)]
+
+
+def watch_forks(adapter, layers):
+    """Wraps ``adapter._book_step`` (an instance attribute: ``del``
+    restores it) so that every copy-on-write fork a booking makes is
+    held, right after the booking and before any layer writes, against
+    its source page in the listed layers: payload and, for an int8
+    pool, the scale rows, bit for bit. Returns the list of readings
+    (True: the fork equals its source)."""
+    import torch
+
+    book = adapter._book_step
+    seen = []
+
+    def booking(seq_ids, counts, **kw):
+        c0 = adapter.caches[0]
+        pending = [(s, len(c0._tables[s]) - 1, c0._tables[s][-1])
+                   for s in seq_ids if c0.pending_cow(s)]
+        step = book(seq_ids, counts, **kw)
+        for s, i, src in pending:
+            for li in layers:
+                c = adapter.caches[li]
+                dst = c._tables[s][i]
+                parts = [c.k_pages, c.v_pages] + (
+                    [c.k_scales, c.v_scales] if c.quantized else [])
+                seen.append(dst != src and all(
+                    torch.equal(t[dst], t[src]) for t in parts))
+        return step
+
+    adapter._book_step = booking
+    return seen
+
+
+def _page_bytes_of(cache, pages):
+    """Clones of the listed pages' payload (and scale rows), in order."""
+    import torch
+
+    pg = torch.tensor(pages, dtype=torch.int64,
+                      device=cache.k_pages.device)
+    parts = [cache.k_pages, cache.v_pages] + (
+        [cache.k_scales, cache.v_scales] if cache.quantized else [])
+    return [t[pg].clone() for t in parts]
+
+
+def _same_bytes(a, b):
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def prefix_traffic_run(model, prompts, kv_cache_dtype, pool_bytes,
+                       prefix_cache, watch):
+    """``r0`` served alone to completion (filling the tree when
+    ``prefix_cache``), then ``r1``-``r15`` submitted together, greedy, 32
+    new tokens each, ``max_batch_size=8``, ``prefill_chunk_tokens=248``,
+    under ``FLAGS_ragged_attention=auto``, the launch counters reset
+    just before ``r1`` and read after the last token. Checks every
+    fork's bytes, the cached prefix chain's bytes across the run (first
+    and last layer), the hit and fork counts, the launch counts and the
+    watched requests' logits against the oracle; then clears the tree
+    and checks that every pool drained. Returns ``(readings,
+    problems, launches, streams)``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    if pool_bytes is None:
+        adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES,
+                                    page_size=16)
+    else:
+        adapter = PagedLlamaAdapter(model, page_size=16,
+                                    kv_cache_dtype=kv_cache_dtype,
+                                    page_pool_bytes=pool_bytes)
+    n_layers = len(adapter.caches)
+    ends = sorted({0, n_layers - 1})
+    captured, row_kinds = record_prefill_chunk(adapter, watch)
+    forks = watch_forks(adapter, ends)
+    tok_times = {}
+
+    def on_token(req, tok, is_prompt):
+        if not is_prompt:
+            tok_times.setdefault(req.req_id, []).append(time.perf_counter())
+
+    problems = []
+    with ragged_mode("auto"):
+        sched = BatchScheduler(adapter, max_batch_size=8,
+                               prefill_chunk_tokens=248,
+                               prefix_cache=prefix_cache)
+        sched.submit(Request("r0", prompts[0], max_new_tokens=32))
+        sched.run_until_complete()
+        chains = None
+        if prefix_cache:
+            chains = sched.prefix_cache.match(
+                prompts[1][:PREFIX_TOKENS]).chains
+            before = [_page_bytes_of(adapter.caches[li], chains[li])
+                      for li in ends]
+        forks0 = [c.cow_forks for c in adapter.caches]
+        calls0 = adapter.chunk_stats["calls"]
+        for k in row_kinds:
+            row_kinds[k] = 0
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts[1:], 1):
+            sched.submit(Request(f"r{i}", p, max_new_tokens=32,
+                                 on_token=on_token))
+        hits = prefill = steps = 0
+        while sched.num_active or sched.num_queued:
+            ev = sched.step()
+            hits += ev["prefix_hit_tokens"]
+            prefill += ev["prefill_tokens"]
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    del adapter.prefill_chunk, adapter._book_step
+    calls = adapter.chunk_stats["calls"] - calls0
+    done = {f"r{i}": sched.result(f"r{i}") for i in range(len(prompts))}
+    cows = [c.cow_forks - f for c, f in zip(adapter.caches, forks0)]
+    prompt_tokens = sum(len(p) for p in prompts[1:])
+    n_hit = len(prompts) - 1 if prefix_cache else 0
+    if hits != n_hit * PREFIX_TOKENS:
+        problems.append(f"prefix hit tokens {hits} != "
+                        f"{n_hit * PREFIX_TOKENS}")
+    if prefill != prompt_tokens - hits:
+        problems.append(f"prefill tokens {prefill} != prompt tokens "
+                        f"{prompt_tokens} - hits {hits}")
+    if any(n != n_hit for n in cows):
+        problems.append(f"copy-on-write forks per layer {sorted(set(cows))}"
+                        f" != {n_hit}")
+    if len(forks) != n_hit * len(ends) or not all(forks):
+        problems.append(f"forks equal to their source page: {sum(forks)} "
+                        f"of {len(forks)} ({n_hit * len(ends)} expected)")
+    if chains is not None:
+        after = [_page_bytes_of(adapter.caches[li], chains[li])
+                 for li in ends]
+        if not all(_same_bytes(a, b) for a, b in zip(before, after)):
+            problems.append("the cached prefix chain's bytes changed")
+    if any(len(r.generated_ids) != 32 for r in done.values()):
+        problems.append("a request did not generate 32 tokens")
+    lp, kinds = launch_problems(launches, adapter, calls, row_kinds, "auto")
+    problems += lp
+    gate = COSINE_GATE if kv_cache_dtype is None else INT8_COSINE_GATE
+    oracle = oracle_check(model, done, captured, watch, gate, problems)
+    stats = sched.page_pool_stats()
+    if prefix_cache:
+        sched.prefix_cache.clear()
+    for c in adapter.caches:
+        c.assert_ref_invariants()
+    if any(c.num_free_pages != c.num_pages for c in adapter.caches):
+        problems.append("a pool did not drain after prefix_cache.clear()")
+    ttft = sorted((v[0] - t0) * 1e3 for v in tok_times.values())
+    gen = sum(len(done[f"r{i}"].generated_ids)
+              for i in range(1, len(prompts)))
+    readings = {
+        "kv_cache_dtype": kv_cache_dtype or "bfloat16",
+        "prefix_cache": bool(prefix_cache),
+        "num_pages": adapter.caches[0].num_pages,
+        "kv_pool_bytes": sum(c.pool_nbytes for c in adapter.caches),
+        "steps": steps, "model_calls": calls, "wall_s": wall,
+        "prefix_hit_tokens": hits, "prompt_tokens": prompt_tokens,
+        "prefill_tokens": prefill, "generated_tokens": gen,
+        "cow_forks_per_layer": sorted(set(cows)),
+        "forks_checked": len(forks), "forks_equal_to_source": sum(forks),
+        "shared_pages_at_end": stats["shared_pages"],
+        "total_tok_per_s": (prompt_tokens + gen) / wall,
+        "generated_tok_per_s": gen / wall,
+        "ttft_ms": {"median": float(np.median(ttft)), "max": ttft[-1],
+                    "n": len(ttft)},
+        "launches": launches, "attention_kinds": kinds,
+        "oracle": oracle, "cosine_gate": gate}
+    streams = {r: d.generated_ids for r, d in done.items()}
+    return readings, problems, launches, streams
+
+
+def serve_prefix_run(run, model, prompts, layers, kv_cache_dtype,
+                     pool_bytes):
+    """``serve_prefix`` (bf16 pages, 512 of 16) or ``serve_prefix_int8``
+    (int8 pages in serve's pool bytes): the prefix traffic through
+    ``prefix_cache=True`` (:func:`prefix_traffic_run`), the served logits
+    of two hit requests held against the oracle; ``serve_prefix`` also
+    serves the same traffic with ``prefix_cache=False`` beside it
+    (reported, its launch counts gated). Emits the run's line; returns
+    the cache run's launches."""
+    readings, problems, launches, streams = prefix_traffic_run(
+        model, prompts, kv_cache_dtype, pool_bytes, True, {"r1", "r2"})
+    off = None
+    if kv_cache_dtype is None:
+        off, off_problems, _, off_streams = prefix_traffic_run(
+            model, prompts, None, None, False, set())
+        problems += [f"prefix_cache=False: {p}" for p in off_problems]
+        same = [a == b for r in streams
+                for a, b in zip(streams[r], off_streams[r])]
+        off["same_token_share"] = sum(same) / len(same)
+        off["identical_requests"] = sum(
+            streams[r] == off_streams[r] for r in streams)
+    cfg = model.config
+    emit(run, model="llama3_8b", layers=cfg.num_hidden_layers,
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)", ragged_attention="auto",
+         page_size=16, max_batch_size=8, prefill_chunk_tokens=248,
+         new_tokens=32, prefix_tokens=PREFIX_TOKENS,
+         prompt_lens=[len(p) for p in prompts], cache=readings,
+         no_cache=off, problems=problems)
+    if problems:
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
+    return launches
+
+
+# serve_preempt's traffic: PREEMPT_LOW priority-0 prompts of 300-400
+# tokens that fill the pool, then after PREEMPT_AFTER steps two
+# priority-1 prompts of ~600; 64 new tokens each
+PREEMPT_LOW, PREEMPT_AFTER, PREEMPT_NEW = 6, 4, 64
+
+
+def preempt_traffic(seed, vocab):
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 2)
+    low = [rng.randint(0, vocab, n).tolist()
+           for n in rng.randint(300, 401, PREEMPT_LOW)]
+    high = [rng.randint(0, vocab, n).tolist()
+            for n in rng.randint(580, 621, 2)]
+    return low, high
+
+
+def serve_preempt_run(model, traffic, layers):
+    """``serve_preempt``: bf16 pages, a pool sized so that the
+    priority-0 requests fill it and admitting the first priority-1
+    request alone needs two victims, ``swap_bytes=1 << 30``,
+    ``max_batch_size=8``. The first request swapped out is cancelled
+    right after; every victim's pages in every layer, read just before
+    ``swap_out``, must equal its restored pages after ``swap_in`` bit
+    for bit. Gates: >= 2 preemptions, every other victim resumed, the
+    cancelled request ``aborted_deadline`` with its swap record gone,
+    64 tokens for every other request, one resumed victim's logits
+    against the oracle, the swap space empty and every pool drained at
+    the end, exact launch counts. Emits the run's line; returns the
+    launches."""
+    import torch
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request,
+                                            RequestState)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    low, high = traffic
+    page = 16
+    worst = [-(-(len(p) + PREEMPT_NEW) // page) for p in low + high]
+    # every priority-0 request fits with two pages to spare (per layer)
+    num_pages = -(-(sum(worst[:PREEMPT_LOW]) + 2) * 100 // 95)
+    adapter = PagedLlamaAdapter(model, num_pages=num_pages, page_size=page)
+    lows = [f"lo{i}" for i in range(len(low))]
+    captured, row_kinds = record_prefill_chunk(adapter, set(lows))
+    snaps, swaps, restored_equal = {}, [], []
+    swap_out, swap_in = adapter.swap_out, adapter.swap_in
+
+    def chain_bytes(sid):
+        return [_page_bytes_of(c, c.seq_pages(sid)) for c in adapter.caches]
+
+    def timed_swap_out(seq_id, space):
+        snaps[seq_id] = chain_bytes(seq_id)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        freed, nbytes = swap_out(seq_id, space)
+        swaps.append({"op": "swap_out", "req": seq_id, "bytes": nbytes,
+                      "pages": freed,
+                      "ms": (time.perf_counter() - t) * 1e3})
+        return freed, nbytes
+
+    def timed_swap_in(seq_id, space):
+        nbytes = space.used_bytes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pages = swap_in(seq_id, space)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        swaps.append({"op": "swap_in", "req": seq_id, "pages": pages,
+                      "bytes": nbytes - space.used_bytes, "ms": ms})
+        restored_equal.append(all(
+            _same_bytes(a, b) for a, b in zip(snaps.pop(seq_id),
+                                              chain_bytes(seq_id))))
+        return pages
+
+    adapter.swap_out, adapter.swap_in = timed_swap_out, timed_swap_in
+    tok_times = {}
+
+    def on_token(req, tok, is_prompt):
+        if not is_prompt:
+            tok_times.setdefault(req.req_id, []).append(time.perf_counter())
+
+    problems, cancelled, preempted, resumed = [], None, 0, 0
+    with ragged_mode("auto"):
+        sched = BatchScheduler(adapter, max_batch_size=8,
+                               prefill_chunk_tokens=248, preempt=True,
+                               swap_bytes=1 << 30)
+        calls0 = adapter.chunk_stats["calls"]
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        for rid, p in zip(lows, low):
+            sched.submit(Request(rid, p, max_new_tokens=PREEMPT_NEW))
+        steps = 0
+        t_high = None
+        while sched.num_active or sched.num_queued or sched.num_swapped:
+            if steps == PREEMPT_AFTER:
+                t_high = time.perf_counter()
+                for i, p in enumerate(high):
+                    sched.submit(Request(f"hi{i}", p, priority=1,
+                                         max_new_tokens=PREEMPT_NEW,
+                                         on_token=on_token))
+            ev = sched.step()
+            steps += 1
+            preempted += ev.get("preempted", 0)
+            resumed += ev.get("resumed", 0)
+            if cancelled is None and sched.num_swapped:
+                cancelled = next(iter(sched._swapped))
+                sched.cancel(cancelled)
+                if sched.swap_space.holds(cancelled):
+                    problems.append(f"{cancelled}: swap record kept")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    del adapter.prefill_chunk, adapter.swap_out, adapter.swap_in
+    calls = adapter.chunk_stats["calls"] - calls0
+    done = {r: sched.result(r) for r in lows + ["hi0", "hi1"]}
+    victims = sorted(r for r, d in done.items() if d._preemptions)
+    if preempted < 2:
+        problems.append(f"{preempted} preemptions (>= 2 expected)")
+    if cancelled is None or done[cancelled].state != \
+            RequestState.ABORTED_DEADLINE:
+        problems.append(f"cancelled {cancelled} did not end aborted")
+    others = [r for r in done if r != cancelled]
+    if any(not done[r].finished or len(done[r].generated_ids)
+           != PREEMPT_NEW for r in others):
+        problems.append(f"a request other than {cancelled} did not "
+                        f"generate {PREEMPT_NEW} tokens")
+    if resumed != len(restored_equal) or resumed < len(victims) - 1:
+        problems.append(f"{resumed} resumes for victims {victims}")
+    if not all(restored_equal):
+        problems.append(f"restored pages differ from the swapped-out ones: "
+                        f"{restored_equal}")
+    resumed_victims = [r for r in victims if r != cancelled]
+    oracle = {}
+    if resumed_victims:
+        oracle = oracle_check(model, done, captured, resumed_victims[:1],
+                              COSINE_GATE, problems)
+    else:
+        problems.append("no victim resumed")
+    lp, kinds = launch_problems(launches, adapter, calls, row_kinds, "auto")
+    problems += lp
+    if sched.swap_space.used_bytes:
+        problems.append(f"swap space holds {sched.swap_space.used_bytes} "
+                        "bytes at the end")
+    for c in adapter.caches:
+        c.assert_ref_invariants()
+    if any(c.num_free_pages != c.num_pages for c in adapter.caches):
+        problems.append("a pool did not drain")
+    cfg = model.config
+    outs = [s for s in swaps if s["op"] == "swap_out"]
+    ins = [s for s in swaps if s["op"] == "swap_in"]
+    ttft_high = {r: (tok_times[r][0] - t_high) * 1e3 for r in ("hi0", "hi1")
+                 if tok_times.get(r)}
+    emit("serve_preempt", model="llama3_8b", layers=cfg.num_hidden_layers,
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)", ragged_attention="auto",
+         kv_cache_dtype="bfloat16", page_size=page, num_pages=num_pages,
+         watermark_pages=0.95 * num_pages, worst_case_pages=worst,
+         prompt_lens=[len(p) for p in low + high], priorities=[0] * len(
+             low) + [1, 1], new_tokens=PREEMPT_NEW, max_batch_size=8,
+         prefill_chunk_tokens=248, swap_bytes=1 << 30,
+         high_submitted_at_step=PREEMPT_AFTER, steps=steps,
+         model_calls=calls, wall_s=wall, preemptions=preempted,
+         resumes=resumed, victims=victims, cancelled=cancelled,
+         restored_bitwise=restored_equal, swaps=swaps,
+         swap_out_ms_total=sum(s["ms"] for s in outs),
+         swap_out_bytes_total=sum(s["bytes"] for s in outs),
+         swap_in_ms_total=sum(s["ms"] for s in ins),
+         swap_in_bytes_total=sum(s["bytes"] for s in ins),
+         swap_peak_bytes=sched.swap_space.peak_used_bytes,
+         ttft_high_ms=ttft_high,
+         generated_tokens=sum(len(d.generated_ids) for d in done.values()),
+         launches=launches, attention_kinds=kinds, oracle=oracle,
+         cosine_gate=COSINE_GATE, problems=problems)
+    if problems:
+        raise RuntimeError("serve_preempt phase failed: "
+                           + "; ".join(problems))
+    return launches
 
 
 def _kernel_class(name):
@@ -2344,6 +2917,14 @@ def main(argv=None):
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS, PAGED_FAULTS and NORM_FAULTS, planted "
                     "in a copy")
+    ap.add_argument("--serve-runs", default=None, metavar="NAMES",
+                    help="only build the kernels and serve these runs "
+                    "(comma-separated names of SERVE_RUN_NAMES), "
+                    "unprofiled, each failure listed")
+    ap.add_argument("--serve-ab", default=None, metavar="DIR",
+                    help="only serve the `serve` run from the checkout "
+                    "DIR and from this one in turns (DIR, this, this, "
+                    "DIR), each in a child process")
     ap.add_argument("--ablations", default=None, metavar="NAMES",
                     help="only time the cases of these ABLATIONS "
                     "(comma-separated names, or 'all') in a changed "
@@ -2375,6 +2956,9 @@ def main(argv=None):
     if args.ablations:
         ablations_phase(None if args.ablations == "all"
                         else args.ablations.split(","))
+        return 0
+    if args.serve_ab:
+        serve_ab_phase(args.serve_ab, args.seed, args.layers)
         return 0
 
     t0 = time.perf_counter()
@@ -2430,11 +3014,21 @@ def main(argv=None):
             {"name": k, "cases": v} for k, v in norm.items() if v])
         return 1 if bad else 0
 
+    if args.serve_runs:
+        names = args.serve_runs.split(",")
+        if set(names) - set(SERVE_RUN_NAMES):
+            raise ValueError(f"unknown serve runs "
+                             f"{set(names) - set(SERVE_RUN_NAMES)}")
+        _, failed = serve_phase(args.seed, args.layers, names)
+        emit("serve_runs", runs=names, failed=[f["run"] for f in failed],
+             errors=failed)
+        return 1 if failed else 0
+
     cases = kernels_phase()
     varlen_launches = varlen_phase(args.seed)
     ln_launches = layer_norm_phase()
     torch.cuda.empty_cache()
-    serve_launches = serve_phase(args.seed, args.layers)
+    serve_launches, _ = serve_phase(args.seed, args.layers)
     torch.cuda.empty_cache()
 
     model, opt = build_trainer(args.seed)

@@ -1,7 +1,6 @@
 """FLAGS registry of the PyTorch/CUDA port — its own copy of the
 reference's ``framework/flags.py`` registry (``define_flag`` / ``flag`` /
-``set_flags`` / ``get_flags``), holding only the flags the serving slice
-reads.
+``set_flags`` / ``get_flags``), holding only the flags the port reads.
 
 Flags are registered with a type and a default, overridable by
 ``FLAGS_*`` environment variables at import and by :func:`set_flags` at
@@ -85,3 +84,24 @@ define_flag("serving_buckets", "8,16,32,64,128,256",
             "prefill ragged dispatch: the per-step packed token count is "
             "padded up to the smallest bucket >= count; counts beyond "
             "the largest bucket round up to the next power of two")
+define_flag("serving_max_queue", 0,
+            "bound on the BatchScheduler submit queue (inference/"
+            "serving.py): submit() past this many waiting requests "
+            "raises QueueFullError instead of growing the backlog "
+            "without limit. 0 (default) keeps the queue unbounded")
+define_flag("serving_swap_bytes", 256 << 20,
+            "host-memory budget for the KV swap space (incubate/nn/"
+            "paged_cache.py HostKVSwapSpace): preempted sequences page "
+            "their PRIVATE KV pages (payload + int8 scale rows) out to "
+            "host tensors under this byte cap and restore them bit for "
+            "bit on re-admission; shared (prefix) pages stay on the "
+            "device under an external reference. 0 disables the swap "
+            "tier (preemption then declines and admission blocks)")
+define_flag("serving_preempt", True,
+            "sequence preemption for the serving scheduler "
+            "(inference/serving.py): when admission cannot reserve "
+            "pages for a request, victims with STRICTLY lower priority "
+            "(lowest priority first, then most pages held, then least "
+            "progress) are swapped out to the host tier "
+            "(FLAGS_serving_swap_bytes) instead of the request being "
+            "blocked behind them. Off restores wait-in-queue admission")

@@ -8,6 +8,20 @@ whose arrays are immutable and rebuilt on every write, the port writes
 the pages IN PLACE (``index_put_``): at Llama-3-8B shapes one layer's K
 and V pages are 33.5 MB.
 
+Pages are reference-counted so they can be shared across owners, the
+enabler of the prefix cache (``inference/prefix_cache.py``):
+
+* ``attach(seq_id, pages, length)`` registers a sequence on an existing
+  (shared) page chain; each chain page gains a reference;
+* a write into a shared page (refcount > 1) forks it first
+  (copy-on-write): the booking (:meth:`PagedKVCacheManager.book_ragged`)
+  draws a private page and copies the shared one into it on the device
+  before any layer writes, so the other owners keep the original bytes;
+* ``free``/``truncate`` only drop references; a page returns to the pool
+  when its last reference dies;
+* ``incref``/``decref`` let a non-sequence owner (the radix prefix tree)
+  hold pages alive after the sequence that wrote them retires.
+
 Int8 pools (``kv_dtype="int8"``) store int8 codes with per-page,
 per-head float32 scale sidecars ``k_scales``/``v_scales``
 ``(num_pages, kv_heads)`` (``ops/kernels/quant.py``); the attention
@@ -15,15 +29,24 @@ kernels dequantize after the load. A write grows each written page's
 scale to cover the token, requantizes the page's stored codes by
 ``round(q * old/new)`` and stores the token against the new scale, in
 the reference's per-token order, so the pages and scales are the
-reference's bit for bit (:meth:`PagedKVCacheManager._quant_write`).
+reference's bit for bit (:meth:`PagedKVCacheManager._quant_write`). The
+scale rows ride the page ids: a fork copies its source's scale row.
 
-Not ported yet: ``attach``/copy-on-write and the prefix-cache hooks,
-``HostKVSwapSpace`` and swap, ``dense_kv``, the page sanitizer and
-telemetry. Without ``attach`` no page is ever shared, so every write
-lands on a page its sequence owns alone.
+Host swap (:class:`HostKVSwapSpace`): preemption pages a victim's KV out
+to host tensors and back. ``swap_out`` copies the sequence's PRIVATE
+pages (refcount 1: payload and, when quantized, the scale rows) to the
+host bit for bit and releases them; SHARED pages stay on the device
+under an external "swap hold" reference. ``swap_in`` draws fresh pages,
+restores the private bytes and drops the holds, so greedy decode
+resumes where it stopped.
+
+Not ported yet: the page-chain wire format (``export_seq`` /
+``import_seq``), ``dense_kv``, the page sanitizer and telemetry.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +60,11 @@ from ...ops.kernels.paged_attention import (  # noqa: F401 (re-exported)
     paged_ragged_fused_step as _fused_step_fn,
 )
 from ...ops.kernels.quant import kv_head_scale, quantize_kv
+
+__all__ = ["PagedKVCacheManager", "paged_attention", "HostKVSwapSpace",
+           "SwapSpaceFull"]
+
+_pool_uids = itertools.count()
 
 _KV_DTYPES = {"int8": torch.int8,
               "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -58,10 +86,116 @@ class RaggedStepInputs(NamedTuple):
     passes: tuple = None
 
 
+class SwapSpaceFull(RuntimeError):
+    """The host swap space cannot hold another record under its byte
+    budget (FLAGS_serving_swap_bytes): the caller should pick a different
+    victim or fall back to blocking admission."""
+
+
+class _SwapRecord:
+    """One swapped-out sequence for ONE layer pool: the page chain as it
+    stood (``pages``/``kept``/``length``) and host copies of the private
+    pages' payload (+ int8 scale rows)."""
+
+    __slots__ = ("pages", "kept", "length", "k_host", "v_host",
+                 "k_scales_host", "v_scales_host", "nbytes")
+
+    def __init__(self, pages, kept, length, k_host, v_host,
+                 k_scales_host, v_scales_host, nbytes):
+        self.pages = pages
+        self.kept = kept
+        self.length = length
+        self.k_host = k_host
+        self.v_host = v_host
+        self.k_scales_host = k_scales_host
+        self.v_scales_host = v_scales_host
+        self.nbytes = nbytes
+
+
+class HostKVSwapSpace:
+    """Byte-budgeted host tier for swapped-out KV page chains.
+
+    One space is shared by every layer pool of a model (and budgets them
+    jointly); records are keyed by (pool uid, seq id). The store
+    (``_swap_store``/``_swap_used``) is written only through the pool's
+    ``swap_out`` / ``swap_in`` / ``swap_discard``; serving code reads the
+    public byte and record accessors."""
+
+    def __init__(self, capacity_bytes):
+        self.capacity_bytes = int(capacity_bytes)
+        self._swap_store = {}
+        self._swap_used = 0
+        # lifetime counters
+        self.swapped_out_records = 0
+        self.swapped_in_records = 0
+        self.peak_used_bytes = 0
+
+    @property
+    def used_bytes(self) -> int:
+        return self._swap_used
+
+    @property
+    def free_bytes(self) -> int:
+        return max(self.capacity_bytes - self._swap_used, 0)
+
+    @property
+    def num_records(self) -> int:
+        return len(self._swap_store)
+
+    def would_fit(self, nbytes: int) -> bool:
+        return self._swap_used + int(nbytes) <= self.capacity_bytes
+
+    def holds(self, seq_id) -> bool:
+        """True if ANY pool holds a swap record for ``seq_id``."""
+        return any(k[1] == seq_id for k in self._swap_store)
+
+    def summary(self) -> dict:
+        return {
+            "capacity_bytes": self.capacity_bytes,
+            "used_bytes": self._swap_used,
+            "peak_used_bytes": self.peak_used_bytes,
+            "records": len(self._swap_store),
+            "swapped_out_records": self.swapped_out_records,
+            "swapped_in_records": self.swapped_in_records,
+        }
+
+    # -- pool-only entry points --------------------------------------------
+    def _swap_put(self, key, rec):
+        if key in self._swap_store:
+            raise ValueError(
+                f"swap space already holds a record for {key!r}")
+        if self._swap_used + rec.nbytes > self.capacity_bytes:
+            raise SwapSpaceFull(
+                f"swap space full: record needs {rec.nbytes} bytes, "
+                f"{self.free_bytes} of {self.capacity_bytes} free")
+        self._swap_store[key] = rec
+        self._swap_used += rec.nbytes
+        self.swapped_out_records += 1
+        if self._swap_used > self.peak_used_bytes:
+            self.peak_used_bytes = self._swap_used
+
+    def _swap_get(self, key):
+        rec = self._swap_store.get(key)
+        if rec is None:
+            raise KeyError(f"no swap record for {key!r}")
+        return rec
+
+    def _swap_pop(self, key):
+        """Remove and return a record (a swap-in restore or an abort's
+        discard; the caller counts which)."""
+        rec = self._swap_get(key)
+        del self._swap_store[key]
+        self._swap_used -= rec.nbytes
+        return rec
+
+
 class PagedKVCacheManager:
     """Fixed pool of KV pages shared by many sequences.
 
     * ``alloc(seq_id)`` registers a sequence;
+    * ``attach(seq_id, pages, length)`` registers a sequence on a SHARED
+      page chain (prefix-cache hit); its first write past ``length``
+      into a shared tail page forks that page (copy-on-write);
     * the append methods book the next slots (:meth:`book_ragged`),
       growing each sequence's page list from the free list, and write
       K/V in place;
@@ -111,7 +245,14 @@ class PagedKVCacheManager:
         self._free = list(range(self.num_pages))[::-1]
         self._tables = {}   # seq_id -> [page ids]
         self._lens = {}     # seq_id -> token count
+        # stable identity for swap-space keys (the layer pools of one
+        # model share ONE HostKVSwapSpace; records key on (uid, seq))
+        self._uid = next(_pool_uids)
         self._refcnt = [0] * self.num_pages
+        # references held by non-sequence owners (the prefix tree and
+        # swap holds), tracked apart so the invariants are checkable
+        self._ext_refs = collections.Counter()
+        self.cow_forks = 0  # lifetime count of copy-on-write forks
         # high watermark: most pages ever simultaneously in use
         self.peak_used_pages = 0
 
@@ -121,6 +262,28 @@ class PagedKVCacheManager:
             raise ValueError(f"sequence {seq_id!r} already allocated")
         self._tables[seq_id] = []
         self._lens[seq_id] = 0
+
+    def attach(self, seq_id, pages, length):
+        """Register ``seq_id`` on an existing page chain covering its
+        first ``length`` tokens (a prefix-cache hit). Every chain page
+        gains a reference; the content is shared until this sequence
+        writes into the (partial) last page, which forks it."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already allocated")
+        need = -(-int(length) // self.page_size) if length else 0
+        if len(pages) != need:
+            raise ValueError(
+                f"attach({seq_id!r}): {length} tokens span {need} "
+                f"pages, got a chain of {len(pages)}")
+        for p in pages:
+            if self._refcnt[p] == 0:
+                raise ValueError(
+                    f"attach({seq_id!r}): page {p} is on the free "
+                    "list (dangling chain)")
+        for p in pages:
+            self._refcnt[p] += 1
+        self._tables[seq_id] = list(pages)
+        self._lens[seq_id] = int(length)
 
     def free(self, seq_id):
         tbl = self._tables.get(seq_id)
@@ -133,6 +296,33 @@ class PagedKVCacheManager:
             self._release_page(p)
         self._lens.pop(seq_id)
 
+    # -- reference counting ------------------------------------------------
+    def incref(self, pages):
+        """Add an external (non-sequence) reference to each page: the
+        prefix tree keeps a retired sequence's prefix alive past
+        ``free``."""
+        pages = list(pages)
+        for p in pages:
+            if self._refcnt[p] == 0:
+                raise ValueError(
+                    f"incref: page {p} is free (cannot resurrect)")
+            self._refcnt[p] += 1
+            self._ext_refs[p] += 1
+
+    def decref(self, pages):
+        """Drop external references; returns how many pages that
+        released back to the pool."""
+        freed = 0
+        for p in pages:
+            if self._ext_refs[p] <= 0:
+                raise ValueError(
+                    f"decref: page {p} holds no external reference")
+            self._ext_refs[p] -= 1
+            if self._ext_refs[p] == 0:
+                del self._ext_refs[p]
+            freed += self._release_page(p)
+        return freed
+
     def _release_page(self, p):
         c = self._refcnt[p] - 1
         if c < 0:
@@ -140,6 +330,8 @@ class PagedKVCacheManager:
         self._refcnt[p] = c
         if c == 0:
             self._free.append(p)
+            return 1
+        return 0
 
     def _alloc_page(self):
         if not self._free:
@@ -155,17 +347,241 @@ class PagedKVCacheManager:
             self._scales[:, p] = 0.0
         return p
 
+    def _fork_page(self, src):
+        """Copy-on-write: give the writer a private copy of ``src``
+        (which stays intact for its other owners)."""
+        dst = self._alloc_page()
+        self._copy_page(dst, src)
+        self._refcnt[src] -= 1  # src was shared: cannot hit zero here
+        self.cow_forks += 1
+        return dst
+
+    def _copy_page(self, dst, src):
+        """In-place device copy of page ``src`` into ``dst``, issued on
+        the pool's stream at booking, so it runs before any layer of the
+        step writes either page. An int8 pool copies both halves of its
+        codes and the scale rows (over the zeros ``_alloc_page`` left);
+        from here the two pages recalibrate independently."""
+        if self.quantized:
+            self._kv[:, dst] = self._kv[:, src]
+            self._scales[:, dst] = self._scales[:, src]
+        else:
+            self.k_pages[dst] = self.k_pages[src]
+            self.v_pages[dst] = self.v_pages[src]
+
+    def _needs_fork(self, page) -> bool:
+        """A mid-page write must fork when the page is shared."""
+        return self._refcnt[page] > 1
+
     def seq_len(self, seq_id):
         return self._lens[seq_id]
+
+    def seq_pages(self, seq_id):
+        """The sequence's physical page chain (copy)."""
+        return list(self._tables[seq_id])
+
+    def seq_page_count(self, seq_id) -> int:
+        """Pages the sequence holds, without copying the chain."""
+        return len(self._tables[seq_id])
+
+    def pending_cow(self, seq_id) -> bool:
+        """True if the sequence's next append must fork a shared page
+        (admission accounting: that fork draws one page from the
+        pool)."""
+        tbl = self._tables[seq_id]
+        return (bool(tbl) and self._lens[seq_id] % self.page_size != 0
+                and self._needs_fork(tbl[-1]))
+
+    def truncate(self, seq_id, n):
+        """Roll a sequence back to ``n`` tokens: K/V beyond ``n`` is
+        never attended (the kernels mask by seq_len), and pages past
+        ceil(n / page_size) drop this sequence's reference."""
+        cur = self._lens[seq_id]
+        if n > cur:
+            raise ValueError(
+                f"truncate({seq_id!r}, {n}): sequence has only {cur}")
+        keep = -(-n // self.page_size) if n else 0
+        tbl = self._tables[seq_id]
+        while len(tbl) > keep:
+            self._release_page(tbl.pop())
+        self._lens[seq_id] = n
 
     @property
     def num_free_pages(self) -> int:
         return len(self._free)
 
+    @property
+    def num_shared_pages(self) -> int:
+        """Pages currently owned by more than one reference."""
+        return sum(1 for c in self._refcnt if c > 1)
+
+    def assert_ref_invariants(self):
+        """Crash loudly if the refcount state is inconsistent: each
+        page's refcount equals its occurrences across sequence tables
+        plus its external references, and the free list is exactly the
+        refcount-zero set (no duplicates)."""
+        expect = collections.Counter()
+        for tbl in self._tables.values():
+            expect.update(tbl)
+        expect.update(self._ext_refs)
+        for p in range(self.num_pages):
+            if self._refcnt[p] != expect.get(p, 0):
+                raise AssertionError(
+                    f"page {p}: refcount {self._refcnt[p]} != "
+                    f"{expect.get(p, 0)} tracked references")
+        free_set = set(self._free)
+        if len(free_set) != len(self._free):
+            raise AssertionError("duplicate pages on the free list")
+        zero = {p for p in range(self.num_pages) if self._refcnt[p] == 0}
+        if free_set != zero:
+            raise AssertionError(
+                f"free list {sorted(free_set)} != refcount-zero set "
+                f"{sorted(zero)}")
+        return True
+
+    # -- host swap (preemption; HostKVSwapSpace) -----------------------------
+    def swap_out_pages(self, seq_id) -> int:
+        """Device pages a ``swap_out`` of this sequence would FREE (its
+        PRIVATE pages only: shared pages stay on the device under a
+        hold). Read-only."""
+        tbl = self._tables.get(seq_id)
+        if tbl is None:
+            raise KeyError(f"swap_out_pages({seq_id!r}): unknown "
+                           "sequence")
+        return sum(1 for p in tbl if self._refcnt[p] == 1)
+
+    def swap_out_nbytes(self, seq_id) -> int:
+        """Host bytes a ``swap_out`` of this sequence would store (its
+        PRIVATE pages only). Read-only."""
+        return self.swap_out_pages(seq_id) * self.page_nbytes
+
+    def _gather_host(self, pages):
+        """Host copies (synchronous) of the listed pages' K and V and,
+        for an int8 pool, their scale rows: ``(k, v, k_scales,
+        v_scales)``, the scales None for a float pool."""
+        pg = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        if self.quantized:
+            kv = self._kv[:, pg].cpu()
+            sc = self._scales[:, pg].cpu()
+            return kv[0], kv[1], sc[0], sc[1]
+        return self.k_pages[pg].cpu(), self.v_pages[pg].cpu(), None, None
+
+    def swap_out(self, seq_id, space):
+        """Page the sequence out to the host tier: private pages
+        (refcount 1) are copied to host tensors bit for bit (payload and
+        int8 scale rows) and released to the pool; shared pages (prefix
+        chains, still-shared COW tails) stay on the device under an
+        external "swap hold" reference, so they can be neither freed nor
+        recycled while the sequence is out. Atomic: the host copy and the
+        swap-space reservation both happen before any bookkeeping
+        changes, so a full space (:class:`SwapSpaceFull`) leaves the
+        pool untouched. The host copy is synchronous, so a released page
+        is never rewritten while its bytes are still in flight. Returns
+        ``(pages_freed, nbytes_swapped)``."""
+        tbl = self._tables.get(seq_id)
+        if tbl is None:
+            raise KeyError(f"swap_out({seq_id!r}): unknown sequence")
+        kept = [self._refcnt[p] > 1 for p in tbl]
+        priv = [p for p, k in zip(tbl, kept) if not k]
+        shared = [p for p, k in zip(tbl, kept) if k]
+        host = self._gather_host(priv) if priv else (None,) * 4
+        rec = _SwapRecord(list(tbl), kept, self._lens[seq_id], *host,
+                          nbytes=len(priv) * self.page_nbytes)
+        space._swap_put((self._uid, seq_id), rec)
+        # the swap hold: each shared page gains an external reference
+        # BEFORE the sequence's own references drop, so its refcount
+        # never transits zero
+        for p in shared:
+            self._refcnt[p] += 1
+            self._ext_refs[p] += 1
+        del self._tables[seq_id]
+        self._lens.pop(seq_id)
+        freed = 0
+        for p in reversed(tbl):
+            freed += self._release_page(p)
+        return freed, rec.nbytes
+
+    def swap_in_pages_needed(self, seq_id, space,
+                             worst_tokens=None) -> int:
+        """Free-list draws a ``swap_in`` (plus, with ``worst_tokens``,
+        growing to that worst-case length afterwards) would make: one per
+        private page to restore, the growth pages past the restored
+        length, and the pending COW fork when the restored tail page is
+        shared and mid-page."""
+        rec = space._swap_get((self._uid, seq_id))
+        need = sum(1 for k in rec.kept if not k)
+        have = -(-rec.length // self.page_size) if rec.length else 0
+        if worst_tokens is not None:
+            need += max(-(-int(worst_tokens) // self.page_size) - have, 0)
+        if rec.kept and rec.kept[-1] and rec.length % self.page_size:
+            need += 1
+        return need
+
+    def swap_in(self, seq_id, space):
+        """Restore a swapped-out sequence: draw fresh pages for the
+        private positions and write their host bytes back bit for bit,
+        re-take the sequence's references on the kept (shared) pages and
+        drop their swap holds. The restored chain holds the swapped-out
+        bytes in the same order (the ids of private positions change).
+        Atomic: capacity is checked before any change. Returns the
+        number of pages restored from the host."""
+        if seq_id in self._tables:
+            raise ValueError(
+                f"swap_in({seq_id!r}): sequence already allocated")
+        key = (self._uid, seq_id)
+        rec = space._swap_get(key)
+        priv_n = sum(1 for k in rec.kept if not k)
+        if priv_n > len(self._free):
+            raise RuntimeError(
+                f"KV page pool exhausted: swap_in needs {priv_n} "
+                f"pages, {len(self._free)} free")
+        chain = []
+        new_priv = []
+        for p, k in zip(rec.pages, rec.kept):
+            if k:
+                chain.append(p)
+            else:
+                chain.append(self._alloc_page())
+                new_priv.append(chain[-1])
+        if new_priv:
+            pg = torch.tensor(new_priv, dtype=torch.int64,
+                              device=self.device)
+            if self.quantized:
+                self._kv[:, pg] = torch.stack(
+                    [rec.k_host, rec.v_host]).to(self.device)
+                self._scales[:, pg] = torch.stack(
+                    [rec.k_scales_host, rec.v_scales_host]).to(self.device)
+            else:
+                self.k_pages[pg] = rec.k_host.to(self.device)
+                self.v_pages[pg] = rec.v_host.to(self.device)
+        for p, k in zip(rec.pages, rec.kept):
+            if k:
+                # the sequence reference replaces the swap hold: net
+                # refcount unchanged, ownership moves back
+                self._ext_refs[p] -= 1
+                if self._ext_refs[p] == 0:
+                    del self._ext_refs[p]
+        self._tables[seq_id] = chain
+        self._lens[seq_id] = rec.length
+        space._swap_pop(key)
+        space.swapped_in_records += 1
+        return len(new_priv)
+
+    def swap_discard(self, seq_id, space):
+        """Drop a swap record without restoring it (the abort of a
+        swapped-out request): releases the swap holds on the kept pages
+        and frees the host bytes. Returns the pages released back to
+        the pool."""
+        rec = space._swap_pop((self._uid, seq_id))
+        shared = [p for p, k in zip(rec.pages, rec.kept) if k]
+        return self.decref(shared) if shared else 0
+
     # -- appends -----------------------------------------------------------
     def ragged_pages_needed(self, seq_ids, counts) -> int:
         """Free-list draws a ragged append of ``counts[i]`` tokens per
-        sequence would make: new pages opened past each tail."""
+        sequence would make: new pages opened past each tail, plus one
+        per sequence whose first write lands mid-page on a SHARED page
+        (the copy-on-write fork)."""
         need = 0
         for s, c in zip(seq_ids, counts):
             if not c:
@@ -173,6 +589,8 @@ class PagedKVCacheManager:
             n = self._lens[s]
             have = -(-n // self.page_size) if n else 0
             need += -(-(n + c) // self.page_size) - have
+            if self.pending_cow(s):
+                need += 1
         return need
 
     def book_ragged(self, seq_ids, counts):
@@ -180,8 +598,11 @@ class PagedKVCacheManager:
         sequence ``seq_ids[i]``: an atomic capacity precheck (a short
         pool changes nothing), then the page draws, in the order the
         reference's token-by-token ``_next_slot`` makes them, and the
-        length advance. The device write belongs to the caller. Returns
-        the page ids drawn, in order."""
+        length advance. A sequence whose first write lands mid-page on a
+        shared tail page forks it first (:meth:`_fork_page`: the device
+        copy is issued here, before any layer writes). The device write
+        belongs to the caller. Returns the page ids drawn, fork
+        destinations included, in order."""
         counts = [int(c) for c in counts]
         need = self.ragged_pages_needed(seq_ids, counts)
         if need > len(self._free):
@@ -191,6 +612,9 @@ class PagedKVCacheManager:
         drawn = []
         for s, c in zip(seq_ids, counts):
             tbl = self._tables[s]
+            if c and self.pending_cow(s):
+                tbl[-1] = self._fork_page(tbl[-1])
+                drawn.append(tbl[-1])
             n = self._lens[s] + c
             while len(tbl) * self.page_size < n:
                 tbl.append(self._alloc_page())
@@ -216,12 +640,13 @@ class PagedKVCacheManager:
         """The int8 write's pass plan, host int64 (3, n): the token row,
         page and slot of each write, ordered by pass, and the passes'
         (start, end) column bounds. Pass k holds the k-th write of this
-        call to every page it touches. Without ``attach`` a page has one
-        writer, whose tokens are consecutive in the packed order, and
-        pages do not interact, so these passes give each page the writes
-        of the reference's waves (the j-th token of every chunk) in the
-        same order: at most ``page_size`` passes instead of
-        ``max(counts)``."""
+        call to every page it touches. A page has one writer, whose
+        tokens are consecutive in the packed order: a shared page is
+        forked at booking (:meth:`book_ragged`), before any write, so
+        the writer holds a private copy. Pages do not interact, so these
+        passes give each page the writes of the reference's waves (the
+        j-th token of every chunk) in the same order: at most
+        ``page_size`` passes instead of ``max(counts)``."""
         n = slot_plan.shape[1]
         pages = slot_plan[0]
         idx = np.arange(n)

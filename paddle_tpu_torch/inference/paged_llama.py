@@ -15,8 +15,14 @@ sequences). ``FLAGS_ragged_attention=off`` takes the historical
 two-kernel routing: decode rows through the dedicated paged decode
 kernel, prefill rows through the q_lens-masked ragged kernel.
 
+The prefix-cache hooks (``attach_prefix``, ``seq_page_chains``) and the
+preemption hooks (``swap_out``, ``swap_in``) act on every layer's pool
+alike; the step's device inputs are built once from the first layer's
+pool, so every pool must hold the same page tables, and each hook checks
+that they do.
+
 Not ported yet: ``decode_window`` (legacy speculative verify),
-weight-only quantized serving, the prefix-cache and swap hooks.
+weight-only quantized serving.
 """
 from __future__ import annotations
 
@@ -168,6 +174,48 @@ class PagedLlamaAdapter:
         for c in self.caches:
             c.free(seq_id)
 
+    def _check_tables(self, seq_id):
+        tbl = self.caches[0].seq_pages(seq_id)
+        if any(c.seq_pages(seq_id) != tbl for c in self.caches[1:]):
+            raise AssertionError("the layers' KV page pools diverged")
+
+    # -- prefix-cache hooks (inference/prefix_cache.py) --------------------
+    def attach_prefix(self, seq_id, chains, length):
+        """Cached prefill: register ``seq_id`` on shared page chains (one
+        per layer) covering its first ``length`` tokens. The pages stay
+        shared until the sequence's first write into the partial tail
+        page, which the pool forks copy-on-write."""
+        if len(chains) != len(self.caches):
+            raise ValueError(
+                f"{len(chains)} chains for {len(self.caches)} layers")
+        for c, chain in zip(self.caches, chains):
+            c.attach(seq_id, chain, length)
+        self._check_tables(seq_id)
+
+    def seq_page_chains(self, seq_id):
+        """The sequence's physical page chain per layer: what the
+        scheduler hands the radix tree at retire."""
+        return [c.seq_pages(seq_id) for c in self.caches]
+
+    # -- preemption hooks (HostKVSwapSpace) --------------------------------
+    def swap_out(self, seq_id, space):
+        """Page the sequence out of EVERY layer pool into the shared host
+        swap space. Returns (pages_freed, nbytes_swapped) summed across
+        layers."""
+        freed = nbytes = 0
+        for c in self.caches:
+            fp, nb = c.swap_out(seq_id, space)
+            freed += fp
+            nbytes += nb
+        return freed, nbytes
+
+    def swap_in(self, seq_id, space):
+        """Restore a swapped-out sequence into every layer pool (bit for
+        bit). Returns the pages restored from the host."""
+        restored = sum(c.swap_in(seq_id, space) for c in self.caches)
+        self._check_tables(seq_id)
+        return restored
+
     def _check_positions(self, seq_ids, lens, counts):
         # torch indexing faults on an out-of-range RoPE position (the
         # reference's jnp.take would clamp it, silently rotating with the
@@ -185,9 +233,10 @@ class PagedLlamaAdapter:
         """Book one step's new tokens in every layer's pool, then build
         the step's device inputs ONCE for all layers (per row group with
         ``groups``, :meth:`PagedKVCacheManager.ragged_step_inputs`).
-        Every pool goes through the same alloc/append/free calls, so
-        their page tables agree; the pages each draws are checked to be
-        the same."""
+        Every pool goes through the same alloc/attach/append/free and
+        swap calls, so their page tables agree; the pages each draws
+        (copy-on-write fork destinations included) are checked to be the
+        same."""
         drawn = self.caches[0].book_ragged(seq_ids, counts)
         for c in self.caches[1:]:
             if c.book_ragged(seq_ids, counts) != drawn:

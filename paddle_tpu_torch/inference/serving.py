@@ -8,20 +8,47 @@ step packs EVERY active decode row plus up to ``prefill_chunk_tokens``
 pending prompt tokens into ONE ragged model call, padded up to a bucket
 of ``FLAGS_serving_buckets`` (:func:`bucket_packed_tokens`).
 
-Admission control (FIFO): a request is admitted only while the active
-batch is below ``max_batch_size`` and the page pool stays under the
-watermark after reserving the request's worst-case page need (prompt +
+Admission control: a request is admitted only while the active batch
+is below ``max_batch_size`` and the page pool stays under the watermark
+after reserving the request's worst-case page need (prompt +
 max_new_tokens, across every layer's cache).
 
+Prefix caching (``prefix_cache=True``): a radix tree over token ids
+(``inference/prefix_cache.py``) remembers retired sequences' KV pages.
+On admission the prompt is matched against the tree, the matched page
+chains are pinned and ATTACHED (shared, refcounted:
+``incubate/nn/paged_cache.py``), and prefill starts at the first
+uncached token; the worst-case reservation shrinks by the full pages the
+hit covers. On retire the sequence's cached tokens are inserted into the
+tree, and an LRU-by-leaf evictor reclaims unpinned cached pages whenever
+admission would otherwise cross the watermark.
+
+Overload: the submit queue can be bounded (``FLAGS_serving_max_queue``
+-> :class:`QueueFullError`) and is ordered by per-request ``priority``
+(FIFO within a priority; ``max_inflight_per_tenant`` caps any one
+tenant's active share). When admission cannot reserve pages for a
+request even after prefix-cache eviction, the scheduler PREEMPTS
+strictly-lower-priority victims (lowest priority, then most pages held,
+then least progress): a victim's private KV pages swap out bit for bit
+to the host tier (``HostKVSwapSpace``, ``FLAGS_serving_swap_bytes``;
+shared prefix pages stay on the device under swap holds) and come back
+on re-admission, which is one more packed prompt or decode row.
+Per-request deadlines (``deadline_s``) abort expired work at step
+boundaries into the terminal ``aborted_deadline`` state, releasing every
+reservation (queued, active or swapped out alike); :meth:`BatchScheduler.
+cancel` does the same for one request on demand. With every priority 0
+no victim qualifies, so the default behaviour is FIFO admission that
+waits for pages.
+
 The scheduler is host-side bookkeeping only. Not ported yet, and
-refused at construction or submit rather than ignored: the prefix
-cache, speculative decoding, preemption and host swap, fault injection,
-SLO/watchdog telemetry, deadlines, priorities and tenant caps, the
-bounded queue.
+refused at construction rather than ignored: speculative decoding
+(``draft_model``, ``spec_decode``), fault injection, SLO accounting and
+the watchdog.
 """
 from __future__ import annotations
 
 import collections
+import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -29,9 +56,21 @@ import numpy as np
 import torch
 
 from ..framework.flags import flag
+from ..incubate.nn.paged_cache import HostKVSwapSpace
+from .prefix_cache import RadixPrefixCache
 
 __all__ = ["Request", "BatchScheduler", "RequestState",
-           "bucket_packed_tokens"]
+           "bucket_packed_tokens", "QueueFullError"]
+
+# the deadline clock (seconds); a module attribute so that tests can
+# patch it, as the reference's tests patch its telemetry clock
+clock = time.monotonic
+
+
+class QueueFullError(RuntimeError):
+    """submit() backpressure: the bounded queue
+    (``FLAGS_serving_max_queue`` / ``max_queue=``) is at capacity; the
+    caller should shed load or retry later."""
 
 
 def _parse_buckets(spec) -> tuple:
@@ -65,7 +104,13 @@ class RequestState:
     QUEUED = "queued"
     PREFILL = "prefill"
     DECODE = "decode"
+    # preempted: KV paged out to the host tier, awaiting re-admission
+    SWAPPED = "swapped"
     FINISHED = "finished"
+    # terminal, DISTINCT from finished: the deadline expired (or the
+    # request was cancelled) before completion and every reservation
+    # was released
+    ABORTED_DEADLINE = "aborted_deadline"
 
 
 @dataclass
@@ -78,16 +123,32 @@ class Request:
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     on_token: Optional[Callable] = None
-    # not ported yet: submit refuses a nonzero priority or a deadline
+    # admission orders by priority (higher wins; FIFO within), and
+    # preemption only ever evicts STRICTLY lower-priority victims;
+    # tenant feeds max_inflight_per_tenant; deadline_s (seconds from
+    # submit) aborts expired work at step boundaries
     priority: int = 0
+    tenant: str = "default"
     deadline_s: Optional[float] = None
     state: str = RequestState.QUEUED
     generated_ids: List[int] = field(default_factory=list)
     _pos: int = 0  # prompt tokens consumed so far
+    _prefix_hit: int = 0  # prompt tokens served from the prefix cache
+    _prefix_path: tuple = ()  # pinned radix nodes (unpinned at retire)
+    _order: int = 0  # submit sequence number (FIFO within priority)
+    _t_deadline: float = 0.0  # absolute clock() deadline (0 = none)
+    _preemptions: int = 0  # times this request was swapped out
 
     @property
     def finished(self) -> bool:
         return self.state == RequestState.FINISHED
+
+    @property
+    def terminal(self) -> bool:
+        """Finished OR deadline-aborted: the request left the scheduler
+        either way (both land in ``result()``)."""
+        return self.state in (RequestState.FINISHED,
+                              RequestState.ABORTED_DEADLINE)
 
     def total_tokens(self) -> int:
         return len(self.prompt_ids) + self.max_new_tokens
@@ -113,6 +174,9 @@ class BatchScheduler:
       * optionally ``prefill_chunk(token_ids, seq_ids, start_positions,
         pad_to=) -> logits (B, vocab)`` for chunked prefill
       * ``caches`` — the per-layer page pools (admission watermark)
+      * ``attach_prefix`` / ``seq_page_chains`` (prefix cache) and
+        ``swap_out`` / ``swap_in`` (preemption); ``attach_prefix`` and
+        ``swap_in`` check every layer's page table against the first's
     """
 
     def __init__(self, model, max_batch_size=32, page_watermark=0.95,
@@ -123,23 +187,15 @@ class BatchScheduler:
                  max_queue=None, max_inflight_per_tenant=None,
                  preempt=None, swap_bytes=None, fault_injector=None,
                  spec_decode=None):
-        for what, val in (("prefix_cache", prefix_cache),
-                          ("speculative decoding (draft_model)",
+        for what, val in (("speculative decoding (draft_model)",
                            draft_model),
                           ("spec_decode", spec_decode),
-                          ("preemption (preempt)", preempt),
-                          ("host swap (swap_bytes)", swap_bytes),
                           ("fault injection (fault_injector)",
                            fault_injector),
                           ("SLO accounting (slo)", slo),
-                          ("the watchdog", watchdog),
-                          ("the bounded queue (max_queue)", max_queue),
-                          ("tenant caps (max_inflight_per_tenant)",
-                           max_inflight_per_tenant)):
+                          ("the watchdog", watchdog)):
             if val:
                 _not_ported(what)
-        if int(prefix_align) != 1:
-            _not_ported("prefix_align")
         self.model = model
         self.max_batch_size = int(max_batch_size)
         self.page_watermark = float(page_watermark)
@@ -165,6 +221,43 @@ class BatchScheduler:
             "steps": 0, "chunk_calls": 0, "prefill_tokens": 0,
             "decode_tokens": 0, "packed_tokens": 0, "padded_tokens": 0,
         }
+        # cross-request prefix KV cache: True builds a RadixPrefixCache
+        # over the model's own caches; or pass a built one
+        if prefix_cache is True:
+            prefix_cache = RadixPrefixCache(list(model.caches))
+        self.prefix_cache = prefix_cache or None
+        # chunk-aligned prefix lookups (prefix_cache.match(align=)):
+        # align=page_size makes every cached-prefill resume start at a
+        # page boundary, trading <= align-1 hit tokens for never paying
+        # the shared-tail copy-on-write draw
+        self.prefix_align = max(1, int(prefix_align))
+        # (req_id, tree mutation count) -> PrefixMatch: a head-of-queue
+        # request blocked on admission does not re-walk the tree every
+        # step (see _try_admit)
+        self._match_memo = None
+        self.prefix_stats = {
+            "requests": 0, "request_hits": 0,
+            "prompt_tokens": 0, "hit_tokens": 0,
+            "inserted_tokens": 0,
+        }
+        # overload: bounded submit queue, per-tenant in-flight cap,
+        # preemption onto the host swap tier, deadline aborts
+        self.max_queue = int(flag("serving_max_queue")
+                             if max_queue is None else max_queue)
+        self.max_inflight_per_tenant = (
+            None if max_inflight_per_tenant is None
+            else max(1, int(max_inflight_per_tenant)))
+        self._submit_seq = 0
+        self._swapped = {}  # req_id -> Request (insertion = FIFO)
+        preempt = bool(flag("serving_preempt")
+                       if preempt is None else preempt)
+        swap_bytes = int(flag("serving_swap_bytes")
+                         if swap_bytes is None else swap_bytes)
+        self.swap_space = (HostKVSwapSpace(swap_bytes)
+                           if preempt and swap_bytes > 0 else None)
+        # per-step overload annotations (preempted / resumed / aborted)
+        self._step_extras = {}
+        self._admitted_step = 0
 
     # -- pool accounting ---------------------------------------------------
     def _pool(self):
@@ -173,17 +266,30 @@ class BatchScheduler:
         free = sum(c.num_free_pages for c in caches)
         return total, free
 
-    def _pages_needed(self, req: Request) -> int:
-        return sum(-(-req.total_tokens() // c.page_size)
-                   for c in self.model.caches)
+    def _pages_needed(self, req: Request, hit_tokens=0) -> int:
+        need = 0
+        for c in self.model.caches:
+            n = -(-req.total_tokens() // c.page_size)
+            # a prefix hit shares its FULL pages; the hit's partial tail
+            # page still costs one draw (the COW fork on the first
+            # divergent write), so only full pages reduce the worst case
+            need += max(n - hit_tokens // c.page_size, 0)
+        return need
 
     def _growth_pages(self, req: Request, c) -> int:
         """Worst-case free-list draws still ahead of ``req`` on cache
         ``c``: pages to reach the worst-case table size, measured from
-        the cache's actual state."""
+        the cache's actual state (an attached prefix chain was shared,
+        not drawn), plus one draw while the partial tail page is still
+        shared (the pending copy-on-write fork). ONE definition, shared
+        by the admission reservation and the preemption relief
+        guard."""
         n = c.seq_len(req.req_id)
         have = -(-n // c.page_size) if n else 0
-        return max(-(-req.total_tokens() // c.page_size) - have, 0)
+        rem = -(-req.total_tokens() // c.page_size) - have
+        if c.pending_cow(req.req_id):
+            rem += 1
+        return max(rem, 0)
 
     def _reserved_pages_outstanding(self) -> int:
         return sum(self._growth_pages(req, c)
@@ -193,11 +299,13 @@ class BatchScheduler:
     def page_pool_stats(self):
         total, free = self._pool()
         caches = list(self.model.caches)
-        return {
+        stats = {
             "total_pages": total,
             "free_pages": free,
             "reserved_pages": self._reserved_pages_outstanding(),
             "utilization": 1.0 - free / max(total, 1),
+            "shared_pages": sum(c.num_shared_pages for c in caches),
+            "cow_forks": sum(c.cow_forks for c in caches),
             "peak_used_pages": sum(getattr(c, "peak_used_pages", 0)
                                    for c in caches),
             "kv_dtype": sorted({getattr(c, "kv_dtype", "unknown")
@@ -207,17 +315,22 @@ class BatchScheduler:
                               * (c.num_pages - c.num_free_pages)
                               for c in caches),
         }
+        if self.prefix_cache is not None:
+            # admission-level counters and the tree's lookup-level ones
+            # share names like hit_tokens but mean different things
+            stats["prefix_cache"] = dict(self.prefix_stats)
+            stats["prefix_cache"]["tree"] = self.prefix_cache.summary()
+        if self.swap_space is not None:
+            stats["swap"] = self.swap_space.summary()
+            stats["swap"]["swapped_requests"] = len(self._swapped)
+        return stats
 
-    # -- admission ---------------------------------------------------------
+    # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> str:
         if not req.prompt_ids:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
-        if req.deadline_s is not None:
-            _not_ported("per-request deadlines (deadline_s)")
-        if req.priority:
-            _not_ported("request priorities")
         # context-length bound: rejecting at submit beats a mid-batch
         # crash for every co-batched request
         limit = getattr(self.model, "max_length", None)
@@ -226,7 +339,7 @@ class BatchScheduler:
                 f"request {req.req_id!r} needs {req.total_tokens()} "
                 f"positions but the model serves at most {limit}")
         # reject requests that could NEVER be admitted instead of letting
-        # them block the FIFO queue forever
+        # them block the queue forever
         need = self._pages_needed(req)
         total, _ = self._pool()
         if need > self.page_watermark * total:
@@ -234,34 +347,368 @@ class BatchScheduler:
                 f"request {req.req_id!r} needs {need} pages worst-case but "
                 f"the pool watermark admits at most "
                 f"{int(self.page_watermark * total)} of {total}")
+        # bounded-queue backpressure: shedding load at submit beats an
+        # unbounded backlog
+        if self.max_queue and len(self._queue) >= self.max_queue:
+            raise QueueFullError(
+                f"request {req.req_id!r} rejected: submit queue at "
+                f"capacity ({self.max_queue}); shed load or retry "
+                "(FLAGS_serving_max_queue)")
+        if req.deadline_s is not None:
+            if req.deadline_s <= 0:
+                raise ValueError(
+                    f"request {req.req_id!r}: deadline_s must be "
+                    f"positive, got {req.deadline_s}")
+            req._t_deadline = clock() + float(req.deadline_s)
+        self._submit_seq += 1
+        req._order = self._submit_seq
         self._queue.append(req)
         return req.req_id
 
+    def _tenant_full(self, tenant) -> bool:
+        """True when the tenant already holds its max in-flight share of
+        the active batch (None = no cap)."""
+        if self.max_inflight_per_tenant is None:
+            return False
+        n = sum(1 for r in self._active.values() if r.tenant == tenant)
+        return n >= self.max_inflight_per_tenant
+
+    def _pick_queued(self):
+        """The admission candidate: highest priority first, FIFO within a
+        priority, skipping tenant-capped requests."""
+        cap = self.max_inflight_per_tenant
+        counts = (collections.Counter(r.tenant
+                                      for r in self._active.values())
+                  if cap is not None else None)
+        best, bk = None, None
+        for req in self._queue:
+            if counts is not None and counts[req.tenant] >= cap:
+                continue
+            k = (-req.priority, req._order)
+            if best is None or k < bk:
+                best, bk = req, k
+        return best
+
+    def _pop_queued(self, req):
+        """Remove an admitted candidate from the queue (O(1) for the
+        head)."""
+        if self._queue and self._queue[0] is req:
+            self._queue.popleft()
+        else:
+            self._queue.remove(req)
+
     def _try_admit(self) -> int:
-        admitted = 0
+        """Admit queued requests while they fit (swapped-out requests
+        first, by :meth:`_admit_swapped`); returns the prompt tokens the
+        admitted requests take from the prefix cache."""
+        hit_tokens_admitted = 0
+        head = self._pick_queued()
+        self._admit_swapped(None if head is None else head.priority)
         while self._queue and len(self._active) < self.max_batch_size:
-            req = self._queue[0]
-            need = self._pages_needed(req)
+            # the head pick stays the candidate unless the swap-ins
+            # above filled its tenant's in-flight share
+            if head is not None and not self._tenant_full(head.tenant):
+                req = head
+            else:
+                req = self._pick_queued()
+            head = None
+            if req is None:
+                break  # every queued request is tenant-capped
+            hit = None
+            if self.prefix_cache is not None:
+                # a blocked head-of-queue request reuses its previous
+                # match while the tree is unchanged (no re-walk, no
+                # inflated lookup stats, no LRU bump)
+                key = (req.req_id, self.prefix_cache.mutations)
+                if self._match_memo is not None \
+                        and self._match_memo[0] == key:
+                    hit = self._match_memo[1]
+                else:
+                    # cap the match one token short of the prompt: the
+                    # LAST prompt position must run through the model
+                    # to give the logits of the first new token
+                    hit = self.prefix_cache.match(
+                        req.prompt_ids, limit=len(req.prompt_ids) - 1,
+                        align=self.prefix_align)
+                    self._match_memo = (key, hit)
+                if hit.length:
+                    # protect the matched chain from the evictor until
+                    # the request retires
+                    self.prefix_cache.pin(hit.path)
+            hit_len = hit.length if hit is not None else 0
+            need = self._pages_needed(req, hit_tokens=hit_len)
             total, free = self._pool()
             # admit only if the worst-case reservation keeps the pool
-            # under the watermark (already-used pages are no longer free,
-            # so active reservations count only their remaining growth)
+            # under the watermark (already-used pages are no longer
+            # free, so active reservations count only their growth)
             projected = (total - free) + self._reserved_pages_outstanding() \
                 + need
+            if (projected > self.page_watermark * total
+                    and self.prefix_cache is not None):
+                # cached pages count as used: reclaim unpinned cached
+                # chains (LRU leaf first) before refusing
+                deficit = int(np.ceil(
+                    projected - self.page_watermark * total))
+                if self.prefix_cache.evict(deficit):
+                    total, free = self._pool()
+                    projected = ((total - free)
+                                 + self._reserved_pages_outstanding()
+                                 + need)
+            if (projected > self.page_watermark * total
+                    and self.swap_space is not None):
+                # preempt instead of refusing: swap strictly-lower-
+                # priority victims out until the candidate fits, but
+                # only when the victims' reachable relief covers the
+                # deficit: a victim swapped out for a candidate that
+                # still does not fit would be swapped in by the next
+                # step's idle capacity and out again, a host-copy
+                # ping-pong until the blocking peer retires
+                relief = self._releasable_pages(req.priority)
+                if relief >= projected - self.page_watermark * total:
+                    while projected > self.page_watermark * total:
+                        victim = self._pick_victim(
+                            max_priority=req.priority)
+                        if victim is None or not self._preempt(victim):
+                            break
+                        total, free = self._pool()
+                        projected = ((total - free)
+                                     + self._reserved_pages_outstanding()
+                                     + need)
             if projected > self.page_watermark * total:
-                break
-            self._queue.popleft()
-            self.model.alloc(req.req_id)
+                if hit_len:
+                    self.prefix_cache.unpin(hit.path)
+                return hit_tokens_admitted
+            self._pop_queued(req)
+            self._match_memo = None
+            if hit_len:
+                # cached prefill: share the matched chain and start
+                # prefill at the first uncached token
+                self.model.attach_prefix(req.req_id, hit.chains, hit_len)
+                req._prefix_hit = hit_len
+                req._prefix_path = hit.path
+                req._pos = hit_len
+                hit_tokens_admitted += hit_len
+                if req.on_token is not None:
+                    # the skipped prompt tokens still stream in order
+                    for t in req.prompt_ids[:hit_len]:
+                        req.on_token(req, t, True)
+            else:
+                self.model.alloc(req.req_id)
+            if self.prefix_cache is not None:
+                self.prefix_stats["requests"] += 1
+                self.prefix_stats["prompt_tokens"] += len(req.prompt_ids)
+                self.prefix_stats["hit_tokens"] += hit_len
+                if hit_len:
+                    self.prefix_stats["request_hits"] += 1
             req.state = RequestState.PREFILL
             self._active[req.req_id] = req
-            admitted += 1
-        return admitted
+            self._admitted_step += 1
+        return hit_tokens_admitted
+
+    # -- preemption and the host swap tier ---------------------------------
+    def _admit_swapped(self, queued_priority=None):
+        """Re-admit swapped-out requests (highest priority first, FIFO
+        within) while their restore and worst-case growth fit under the
+        watermark. A blocked request blocks the ones behind it, so late
+        small arrivals never starve a swapped one. ``queued_priority``
+        is the best queued candidate's priority: a swapped request of
+        STRICTLY lower priority yields to it (restoring first would take
+        the last batch slot from the arrival or be preempted again right
+        after); equal priority resumes first (it was admitted once and
+        its submit order is older)."""
+        if not self._swapped:
+            return
+        order = sorted(self._swapped.values(),
+                       key=lambda r: (-r.priority, r._order))
+        for req in order:
+            if queued_priority is not None \
+                    and req.priority < queued_priority:
+                break  # the queue's best outranks the rest of the set
+            if len(self._active) >= self.max_batch_size:
+                break
+            if self._tenant_full(req.tenant):
+                continue
+            need = sum(c.swap_in_pages_needed(req.req_id, self.swap_space,
+                                              req.total_tokens())
+                       for c in self.model.caches)
+            total, free = self._pool()
+            projected = (total - free) + self._reserved_pages_outstanding() \
+                + need
+            if (projected > self.page_watermark * total
+                    and self.prefix_cache is not None):
+                deficit = int(np.ceil(
+                    projected - self.page_watermark * total))
+                if self.prefix_cache.evict(deficit):
+                    total, free = self._pool()
+                    projected = ((total - free)
+                                 + self._reserved_pages_outstanding()
+                                 + need)
+            if projected > self.page_watermark * total:
+                break
+            self._swap_in(req)
+
+    def _swap_in(self, req: Request):
+        """Restore a swapped-out request bit for bit through the pools'
+        swap tier and put it back in the active set: resuming is one more
+        packed prompt or decode row next step."""
+        rid = req.req_id
+        self.model.swap_in(rid, self.swap_space)
+        del self._swapped[rid]
+        req.state = (RequestState.DECODE if req.generated_ids
+                     else RequestState.PREFILL)
+        self._active[rid] = req
+        self._admitted_step += 1
+        self._step_extras["resumed"] = \
+            self._step_extras.get("resumed", 0) + 1
+
+    def _victim_key(self, r):
+        """Victim order: lowest priority first, then most pages held
+        (frees the most room), then least progress (throws away the
+        least work), then submit order. ONE definition, shared by the
+        preempt loop's pick and the relief guard's walk."""
+        held = sum(c.seq_page_count(r.req_id) for c in self.model.caches)
+        return (r.priority, -held, len(r.generated_ids), r._order)
+
+    def _pick_victim(self, max_priority=None):
+        """The preemption victim by :meth:`_victim_key`; ``max_priority``
+        restricts to STRICTLY lower priorities (a candidate never
+        preempts its own class)."""
+        cands = [r for r in self._active.values()
+                 if max_priority is None or r.priority < max_priority]
+        return min(cands, key=self._victim_key) if cands else None
+
+    def _releasable_pages(self, max_priority) -> int:
+        """The relief, in pages, that preempting the strictly-lower-
+        priority active victims would buy. Each victim frees its private
+        pages (shared pages stay under swap holds) and its remaining
+        worst-case reservation leaves the projection with it. Victims
+        are walked in the preempt loop's order and stop counting at the
+        first whose host copy no longer fits the swap space: the loop
+        would stop there too."""
+        space = self.swap_space
+        victims = sorted((r for r in self._active.values()
+                          if r.priority < max_priority),
+                         key=self._victim_key)
+        budget = space.free_bytes
+        pages = 0
+        for r in victims:
+            nbytes = sum(c.swap_out_nbytes(r.req_id)
+                         for c in self.model.caches)
+            if nbytes > budget:
+                break
+            budget -= nbytes
+            for c in self.model.caches:
+                pages += (c.swap_out_pages(r.req_id)
+                          + self._growth_pages(r, c))
+        return pages
+
+    def _preempt(self, req: Request) -> bool:
+        """Swap one active request out to the host tier. Returns False
+        (and changes nothing) when the swap space cannot hold the
+        victim's private pages."""
+        rid = req.req_id
+        space = self.swap_space
+        est = sum(c.swap_out_nbytes(rid) for c in self.model.caches)
+        if not space.would_fit(est):
+            return False
+        self.model.swap_out(rid, space)
+        req.state = RequestState.SWAPPED
+        req._preemptions += 1
+        self._active.pop(rid)
+        self._swapped[rid] = req
+        self._step_extras["preempted"] = \
+            self._step_extras.get("preempted", 0) + 1
+        return True
+
+    # -- deadlines and cancel ----------------------------------------------
+    def _expire_deadlines(self):
+        """Abort every request whose deadline passed, queued, active or
+        swapped out alike, at the step boundary (never mid-model-call)."""
+        now = clock()
+
+        def gone(req):
+            return req._t_deadline and now >= req._t_deadline
+
+        for req in [r for r in self._queue if gone(r)]:
+            self._queue.remove(req)
+            self._abort_deadline(req, "queued")
+        for req in [r for r in self._active.values() if gone(r)]:
+            self._abort_deadline(req, "active")
+        for req in [r for r in self._swapped.values() if gone(r)]:
+            self._abort_deadline(req, "swapped")
+
+    def _abort_deadline(self, req: Request, where: str):
+        """Terminal abort: release EVERY reservation the request holds
+        (pins, pages, swap records). Lands in ``result()`` with state
+        ``aborted_deadline``."""
+        rid = req.req_id
+        if self.prefix_cache is not None and req._prefix_path:
+            self.prefix_cache.unpin(req._prefix_path)
+            req._prefix_path = ()
+        if where == "active":
+            self.model.free(rid)
+            self._active.pop(rid)
+        elif where == "swapped":
+            for c in self.model.caches:
+                c.swap_discard(rid, self.swap_space)
+            del self._swapped[rid]
+        req.state = RequestState.ABORTED_DEADLINE
+        self._finished[rid] = req
+        self._step_extras["aborted"] = \
+            self._step_extras.get("aborted", 0) + 1
+
+    def expire_queued_deadlines(self) -> int:
+        """Abort *queued* requests whose deadline already passed without
+        waiting for the next step boundary. Returns how many were
+        aborted."""
+        if not self._queue:
+            return 0
+        now = clock()
+        expired = [r for r in self._queue
+                   if r._t_deadline and now >= r._t_deadline]
+        for req in expired:
+            self._queue.remove(req)
+            self._abort_deadline(req, "queued")
+        return len(expired)
+
+    def cancel(self, req_id: str) -> bool:
+        """Abort one request by id wherever it lives (queued, active or
+        swapped out), releasing every reservation it holds, exactly like
+        a deadline abort (the same terminal ``aborted_deadline``
+        state). Returns False when the id is unknown or already
+        terminal."""
+        for req in self._queue:
+            if req.req_id == req_id:
+                self._queue.remove(req)
+                self._abort_deadline(req, "queued")
+                return True
+        if req_id in self._active:
+            self._abort_deadline(self._active[req_id], "active")
+            return True
+        if req_id in self._swapped:
+            self._abort_deadline(self._swapped[req_id], "swapped")
+            return True
+        return False
 
     def _retire(self, req: Request):
-        self.model.free(req.req_id)
+        rid = req.req_id
+        if self.prefix_cache is not None:
+            # keep the sequence's prefix: insert the cached tokens
+            # (everything appended; the newest sampled token never was)
+            # into the tree, which increfs the pages, so the free()
+            # below drops only THIS sequence's references
+            n = self.model.caches[0].seq_len(rid)
+            toks = (req.prompt_ids + req.generated_ids)[:n]
+            self.prefix_stats["inserted_tokens"] += \
+                self.prefix_cache.insert(toks,
+                                         self.model.seq_page_chains(rid))
+            if req._prefix_path:
+                self.prefix_cache.unpin(req._prefix_path)
+                req._prefix_path = ()
+        self.model.free(rid)
         req.state = RequestState.FINISHED
-        del self._active[req.req_id]
-        self._finished[req.req_id] = req
+        del self._active[rid]
+        self._finished[rid] = req
 
     def _commit_token(self, req: Request, tok: int) -> int:
         """Append a generated token; returns 1 if the request retired."""
@@ -275,19 +722,38 @@ class BatchScheduler:
 
     # -- the step ----------------------------------------------------------
     def step(self) -> dict:
-        """One scheduler iteration: admit, advance the active set, retire
-        completions. Returns event counters (admitted/advanced/finished
-        plus the prefill/decode token split and, under chunked prefill,
-        chunk_utilization and the adapter's packed-shape count)."""
-        return self._step_impl()
+        """One scheduler iteration: expire deadlines, admit (swapped-out
+        requests first), advance the active set, retire completions.
+        Returns event counters (admitted/advanced/finished, the prompt
+        tokens taken from the prefix cache, the prefill/decode token
+        split and, under chunked prefill, chunk_utilization and the
+        adapter's packed-shape count) plus, on steps that had them, the
+        ``preempted``/``resumed``/``aborted`` counts."""
+        ev = self._step_impl()
+        if self._step_extras:
+            ev.update(self._step_extras)
+        return ev
 
     def _step_impl(self) -> dict:
-        admitted = self._try_admit()
+        self._step_extras = {}
+        self._expire_deadlines()
+        self._admitted_step = 0
+        hit_tokens = self._try_admit()
+        if (self._swapped and self._admitted_step == 0
+                and len(self._active) < self.max_batch_size):
+            # the queue's best candidate (which swapped requests of lower
+            # priority yielded to) turned out to be blocked this step:
+            # hand the idle capacity to the swapped set after all
+            self._admit_swapped(None)
+        # admissions and swap-in resumes, not the active-set delta (a
+        # preempt-then-reject step would report a negative count)
+        admitted = self._admitted_step
         if not self._active:
             return {"admitted": admitted, "advanced": 0, "finished": 0,
+                    "prefix_hit_tokens": hit_tokens,
                     "prefill_tokens": 0, "decode_tokens": 0}
         if self.chunked_prefill:
-            return self._step_chunked(admitted)
+            return self._step_chunked(admitted, hit_tokens)
 
         sids = sorted(self._active)
         feed = []
@@ -325,6 +791,7 @@ class BatchScheduler:
             "admitted": admitted,
             "advanced": len(sids),
             "finished": finished,
+            "prefix_hit_tokens": hit_tokens,
             "prefill_tokens": n_pre,
             "decode_tokens": len(sids) - n_pre,
         }
@@ -369,7 +836,7 @@ class BatchScheduler:
         req.state = RequestState.DECODE
         return self._commit_token(req, self.sampler(logits_row))
 
-    def _step_chunked(self, admitted) -> dict:
+    def _step_chunked(self, admitted, hit_tokens) -> dict:
         """Chunked-prefill step: one ragged ``prefill_chunk`` call
         advances every decode row by one token and every budget-reached
         prefill row by its whole chunk."""
@@ -399,6 +866,7 @@ class BatchScheduler:
             "admitted": admitted,
             "advanced": len(rows),
             "finished": finished,
+            "prefix_hit_tokens": hit_tokens,
             "prefill_tokens": n_pre,
             "decode_tokens": n_dec,
             "chunk_utilization": round(packed / pad_to, 4),
@@ -413,13 +881,17 @@ class BatchScheduler:
         return len(req.generated_ids) >= req.max_new_tokens
 
     def run_until_complete(self, max_steps=10_000) -> dict:
-        """Drain the queue and the active set; returns finished requests
-        by id."""
+        """Drain the queue and the active and swapped sets; returns the
+        terminal requests by id (finished AND aborted: check
+        ``req.state``)."""
         for _ in range(max_steps):
-            if not self._queue and not self._active:
+            if not self._queue and not self._active and not self._swapped:
                 break
             ev = self.step()
-            if ev["advanced"] == 0 and ev["admitted"] == 0 and self._queue:
+            if (ev["advanced"] == 0 and ev["admitted"] == 0
+                    and (self._queue or self._swapped)
+                    and not ev.get("aborted")
+                    and not ev.get("preempted")):
                 # submit() rejects never-admissible requests and active
                 # requests always finish, so this fires only on an
                 # accounting bug or external pool interference
@@ -438,6 +910,10 @@ class BatchScheduler:
     @property
     def num_queued(self):
         return len(self._queue)
+
+    @property
+    def num_swapped(self):
+        return len(self._swapped)
 
     def result(self, req_id: str) -> Request:
         return self._finished[req_id]

@@ -13,8 +13,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
-from paddle_tpu_torch.inference import (BatchScheduler, PagedLlamaAdapter,
-                                        Request)
+from paddle_tpu_torch.inference import BatchScheduler, PagedLlamaAdapter
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -173,10 +172,9 @@ def test_unported_training_options_raise(call):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"prefix_cache": True}, {"draft_model": object()},
-    {"preempt": True}, {"swap_bytes": 1 << 20},
+    {"draft_model": object()}, {"spec_decode": "ragged"},
     {"fault_injector": object()}, {"slo": object()},
-    {"watchdog": object()}, {"max_queue": 4},
+    {"watchdog": object()},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_scheduler_features_raise(kwargs):
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
@@ -187,9 +185,5 @@ def test_unported_scheduler_features_raise(kwargs):
 
 def test_unported_request_and_adapter_options_raise():
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-    a = PagedLlamaAdapter(m, num_pages=8, page_size=4)
-    s = BatchScheduler(a)
-    with pytest.raises(NotImplementedError):
-        s.submit(Request("r", [1, 2], deadline_s=1.0))
     with pytest.raises(NotImplementedError):
         PagedLlamaAdapter(m, weight_dtype="int8")
