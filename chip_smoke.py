@@ -58,16 +58,34 @@ It prints one JSON line per phase:
    ``profile_off_int8``: the four serving runs served again under
    ``torch.profiler``: device time by kernel class and the device's
    busy share of the wall;
-8. ``train_check``: Qwen2-0.5B at its published shape (random bf16
+8. the dense-KV generation runs (``GEN_RUN_NAMES``) on the served
+   model's shape: ``hf_load`` exports the served weights as an HF
+   state dict (HF names, [out, in], CPU tensors) and loads them with
+   ``from_hf`` into a fresh model from another seed (every parameter
+   bit for bit; device memory rising by at most twice the largest
+   tensor); then, on the loaded model, ``generate`` (greedy, 4 prompts
+   of 512 tokens, 64 new: each token the argmax of its step's logits,
+   two rows against the float32 oracle, 2 L + 1 RMSNorm launches a
+   step), ``generate_sample`` (temperature, top-k, top-p, repetition
+   penalty from a seeded generator, twice: equal tokens, each inside
+   its step's filtered support), ``generate_beam`` (2 prompts, 4
+   beams, 32 new: the best beam's kept score against its float32
+   re-score) and ``spec_generate`` (1 prompt, 64 new, draft_k 4, with
+   a 2-layer layer-skip draft, a self-draft and a self-draft spoiled at
+   a seeded quarter of the positions: every committed token the
+   target's argmax, the self-draft accepting >= 80%, the spoiled one
+   rejected in mid-window at least once and at its first spoiled
+   position in >= 80% of its windows);
+9. ``train_check``: Qwen2-0.5B at its published shape (random bf16
    weights from the seed, fused CE head): the loss and every
    parameter's gradient on one 2048-token sequence against the float32
    oracle (``paddle_tpu_torch.testing.dense_reference_loss_and_grads``);
-9. ``train``: ``bench.py``'s training loop at batch 8 x 2048 (forward,
+10. ``train``: ``bench.py``'s training loop at batch 8 x 2048 (forward,
    fused CE head, backward, ``AdamW(3e-4, multi_precision=True)``):
    2 warm-up and 5 timed steps on the same batch, with the launch
    counters reset around the timed steps; step time, tokens/s, MFU,
    peak memory, and the loss of every step;
-10. ``train_profile``: one training step under ``torch.profiler``.
+11. ``train_profile``: one training step under ``torch.profiler``.
 
 Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
@@ -92,9 +110,14 @@ kernels and serves only those runs (names of ``SERVE_RUN_NAMES``),
 unprofiled, at ``--layers`` depth, listing each failed run in a
 ``serve_runs`` line; ``--fault-check`` also plants ``SERVE_FAULTS`` in
 the page pool and runs ``--serve-runs`` on them at two layers.
-``--serve-ab DIR`` serves the ``serve`` run from another checkout (an
-unpacked earlier tree) and from this one in turns (DIR, this, this,
-DIR), each in a child process, on one ``serve_ab`` line.
+``--gen-runs NAMES`` builds the kernels and runs only those generation
+runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
+failed run in a ``gen_runs`` line; ``--fault-check`` also plants
+``GEN_FAULTS`` in the model, generation and loader modules and runs
+``--gen-runs`` on them at two layers. ``--serve-ab DIR`` serves the
+``serve`` run from another checkout (an unpacked earlier tree) and from
+this one in turns (DIR, this, this, DIR), each in a child process, on
+one ``serve_ab`` line.
 """
 from __future__ import annotations
 
@@ -1469,6 +1492,53 @@ SERVE_FAULTS = [
 ]
 
 
+# Faults in the generation path and the HF loader, each run through every
+# run of GEN_RUN_NAMES at two layers (``--gen-runs``): (name, source,
+# text, replacement, the runs it may fail)
+_LLAMA_PY = "paddle_tpu_torch/models/llama.py"
+_GENERATION_PY = "paddle_tpu_torch/models/generation.py"
+_CONVERT_PY = "paddle_tpu_torch/models/convert.py"
+GEN_FAULTS = [
+    # the decode step writes the new tokens' K/V one slot late: each
+    # token misses its own key and reads an empty slot
+    ("decode_kv_one_slot_late", _LLAMA_PY,
+     "        cache_k[:, step.pos:step.pos + s] = k\n"
+     "        cache_v[:, step.pos:step.pos + s] = v\n",
+     "        cache_k[:, step.pos + 1:step.pos + 1 + s] = k\n"
+     "        cache_v[:, step.pos + 1:step.pos + 1 + s] = v\n",
+     ("generate", "generate_beam", "spec_generate")),
+    # beam search keeps the caches on their old lanes after a re-index
+    ("beam_skips_cache_reindex", _GENERATION_PY,
+     "            caches = [(ck.index_select(0, lane), cv.index_select(0, lane))"
+     "\n                      for ck, cv in caches]\n", "",
+     ("generate_beam",)),
+    # after a full acceptance the draft never consumes its last proposal:
+    # a hole in the draft cache every such round
+    ("spec_draft_cache_hole", _GENERATION_PY,
+     "d_next = base + min(draft_k - 1, n_acc) + 1",
+     "d_next = base + min(draft_k, n_acc) + 1", ("spec_generate",)),
+    # greedy acceptance counts every proposal that matches, not the
+    # matching prefix: after a rejection in mid-window the rejected
+    # proposal is committed (only a draft rejected in mid-window shows it)
+    ("spec_accepts_past_a_rejection", _GENERATION_PY,
+     "                n_acc = 0\n"
+     "                while (n_acc < draft_k\n"
+     "                       and proposal[n_acc] == preds[n_acc]):\n"
+     "                    n_acc += 1\n"
+     "                    if proposal[n_acc - 1] == eos_token_id:\n"
+     "                        break\n",
+     "                n_acc = sum(p == t for p, t in zip(proposal, preds))\n",
+     ("spec_generate",)),
+    # the loader leaves square 2-D weights (q_proj, o_proj) in HF's
+    # [out, in] orientation
+    ("hf_load_square_untransposed", _CONVERT_PY,
+     'and "embed_tokens" not in name)',
+     'and "embed_tokens" not in name\n'
+     "                     and src.shape[0] != src.shape[1])",
+     ("hf_load",)),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1510,10 +1580,10 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 
 def fault_check_phase():
-    """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS and
-    SERVE_FAULTS in a copy of the repository and runs its cases there;
-    fails unless every fault fails a gate, and a paged, norm or serving
-    fault only in the cases it may fail."""
+    """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
+    SERVE_FAULTS and GEN_FAULTS in a copy of the repository and runs its
+    cases there; fails unless every fault fails a gate, and a paged,
+    norm, serving or generation fault only in the cases it may fail."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1553,6 +1623,14 @@ def fault_check_phase():
     for name, source, old, new, broken in SERVE_FAULTS:
         line = _run_with_fault(name, source, old, new, "--serve-runs",
                                _SERVE_FAULT_RUNS, "serve_runs",
+                               extra=("--layers", "2"))
+        results.append({"fault": name, "may_fail": list(broken),
+                        "failed": line["failed"], "errors": line["errors"]})
+        if not line["failed"] or set(line["failed"]) - set(broken):
+            missed.append(name)
+    for name, source, old, new, broken in GEN_FAULTS:
+        line = _run_with_fault(name, source, old, new, "--gen-runs",
+                               GEN_RUN_NAMES, "gen_runs",
                                extra=("--layers", "2"))
         results.append({"fault": name, "may_fail": list(broken),
                         "failed": line["failed"], "errors": line["errors"]})
@@ -2112,17 +2190,16 @@ SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
     r for r, _ in PREFIX_RUNS] + ["serve_preempt"]
 
 
-def serve_phase(seed, layers, names=None):
-    """The serving runs on one model: the four of SERVE_RUNS (each
-    followed by nothing but its release; those of PROFILED_RUNS served
-    again under the profiler), then PREFIX_RUNS and ``serve_preempt``.
-    Returns ``({run: launches}, failed)``. With ``names`` only those
-    runs go, unprofiled, and a run that fails is listed in ``failed``
-    while the others go on (``--serve-runs``); without it the first
-    failure raises."""
+def serve_phase(model, prompts, init_s, seed, layers, names=None):
+    """The serving runs on one model (``build_server``'s): the four of
+    SERVE_RUNS (each followed by nothing but its release; those of
+    PROFILED_RUNS served again under the profiler), then PREFIX_RUNS and
+    ``serve_preempt``. Returns ``({run: launches}, failed)``. With
+    ``names`` only those runs go, unprofiled, and a run that fails is
+    listed in ``failed`` while the others go on (``--serve-runs``);
+    without it the first failure raises."""
     import torch
 
-    model, prompts, init_s = build_server(seed, layers)
     pool_bytes = serve_pool_bytes(model)
     out, failed = {}, []
 
@@ -2703,6 +2780,588 @@ def profile_phase(adapter, prompts, phase="profile"):
     emit(phase, steps=steps, **device_summary(prof, wall_us))
 
 
+# ------------------------------------------------------------- generation
+# The dense-KV generation phases, on the served model's shape: hf_load
+# (its weights through an HF-layout state dict into a fresh model), then
+# greedy, sampled, beam and speculative decoding with the loaded model.
+GEN_RUN_NAMES = ["hf_load", "generate", "generate_sample", "generate_beam",
+                 "spec_generate"]
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 64
+SAMPLE_OPTS = {"do_sample": True, "temperature": 0.8, "top_k": 50,
+               "top_p": 0.9, "repetition_penalty": 1.1}
+BEAM_BATCH, BEAM_WIDTH, BEAM_NEW = 2, 4, 32
+SPEC_NEW, SPEC_K, SPEC_DRAFT_LAYERS = 64, 4, 2
+# The self-draft's acceptance gate: a draft that is the target itself
+# proposes the target's own greedy tokens, so a proposal is rejected only
+# where a bf16 near-tie flips between the 1-token draft step and the
+# 5-token verify step (serve_prefix's same-token share across chunkings
+# was 0.961 on an H100 80GB HBM3 at 700 W).
+SPEC_SELF_ACCEPT_GATE = 0.8
+# The share of positions whose proposal the spoiled self-draft replaces
+# by its second choice: with draft_k 4 about a third of the windows hold
+# no spoiled position and the rest are rejected at 0, 1, 2 or 3.
+SPEC_SPOIL_SHARE = 0.25
+
+
+def hf_state_of(model):
+    """``model``'s weights as a HuggingFace checkpoint holds them: HF
+    names, 2-D weights other than the embedding as [out, in], contiguous
+    CPU tensors in the model's dtype."""
+    out = {}
+    for name, p in model.state_dict().items():
+        t = p.t() if p.dim() == 2 and "embed_tokens" not in name else p
+        out[name] = t.contiguous().cpu()
+    return out
+
+
+def hf_load_phase(served, seed):
+    """Exports the served model's weights as an HF state dict, loads it
+    with ``from_hf`` into a fresh ``LlamaForCausalLM`` drawn from another
+    seed, and gates: every parameter equal to the served one bit for
+    bit, and the rise of ``torch.cuda.max_memory_allocated`` during the
+    load within twice the largest tensor. Returns the loaded model."""
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, from_hf
+
+    t0 = time.perf_counter()
+    state = hf_state_of(served)
+    export_s = time.perf_counter() - t0
+    fresh = LlamaForCausalLM(served.config, device=served.device,
+                             dtype=served.dtype, seed=seed + 1)
+    differed = not torch.equal(fresh.model.embed_tokens.weight,
+                               served.model.embed_tokens.weight)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    from_hf(fresh, state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - before
+    largest = max(t.numel() * t.element_size() for t in state.values())
+    served_params = served.state_dict()
+    unequal = [n for n, p in fresh.state_dict().items()
+               if not torch.equal(p, served_params[n])]
+    problems = []
+    if not differed:
+        problems.append("the fresh model's embedding equals the served one "
+                        "before the load")
+    if unequal:
+        problems.append(f"{len(unequal)} parameters differ after the load: "
+                        f"{unequal[:4]}")
+    if rise > 2 * largest:
+        problems.append(f"device memory rose {rise} bytes during the load, "
+                        f"> twice the largest tensor ({largest})")
+    emit("hf_load", tensors=len(state),
+         bytes=sum(t.numel() * t.element_size() for t in state.values()),
+         export_s=export_s, load_s=load_s, memory_rise_bytes=rise,
+         largest_tensor_bytes=largest, unequal=len(unequal),
+         problems=problems)
+    if problems:
+        raise RuntimeError("hf_load phase failed: " + "; ".join(problems))
+    return fresh
+
+
+def record_decode_steps(model, window_argmax=False):
+    """Wraps ``model.decode_step`` (an instance attribute: ``del
+    model.decode_step`` restores the method) to keep, per call, its
+    position, its input ids, the float32 logits of the last position,
+    with ``window_argmax`` the argmax of every position (taken on the
+    model's own logits: the first maximum either way) and CUDA events
+    around the call."""
+    import torch
+
+    calls = []
+    step = model.decode_step
+
+    def recording(input_ids, caches, pos):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = step(input_ids, caches, pos)
+        end.record()
+        calls.append({"pos": int(pos), "ids": input_ids,
+                      "last": logits[:, -1].float(),
+                      "argmax": (logits.argmax(-1) if window_argmax
+                                 else None),
+                      "events": (start, end)})
+        return logits, caches
+
+    model.decode_step = recording
+    return calls
+
+
+def gen_prompts(seed, vocab, device):
+    """GEN_BATCH prompts of GEN_PROMPT tokens uniform over the vocab."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed + 7)
+    return torch.from_numpy(rng.randint(0, vocab, size=(
+        GEN_BATCH, GEN_PROMPT))).to(device)
+
+
+def rms_launch_problems(launches, want):
+    """The RMSNorm launch count against ``want``; any other kernel's
+    launches are a problem too (the dense path runs only #1)."""
+    problems = [f"{k} launches {v}" for k, v in launches.items()
+                if k != "rms_norm" and v]
+    if launches.get("rms_norm", 0) != want:
+        problems.append(f"rms_norm launches {launches.get('rms_norm', 0)} "
+                        f"!= {want}")
+    return problems
+
+
+def oracle_rows(model, out, rows, s0, n):
+    """The float32 oracle's logits at the n positions that produced the
+    generated tokens out[r, s0:s0 + n] of each row r: [len(rows), n, V]."""
+    import torch
+    from paddle_tpu_torch.testing import dense_reference_logits
+
+    positions = list(range(s0 - 1, s0 + n - 1))
+    return torch.stack([dense_reference_logits(
+        model, out[r, :s0 + n - 1], positions=positions)[0] for r in rows])
+
+
+def oracle_scores(ref, tokens):
+    """Teacher-forced sums of log-probabilities: ref [R, n, V] float32
+    oracle logits, tokens [R, n]."""
+    import torch
+
+    lp = torch.log_softmax(ref, dim=-1)
+    return lp.gather(-1, tokens.long()[..., None])[..., 0].sum(-1)
+
+
+def generate_run(model, prompts):
+    """Greedy generate: GEN_BATCH prompts, GEN_NEW new tokens, each
+    step's logits recorded. Gates: every token the argmax of its own
+    step's logits; at every generated position of rows 0 and 1 the
+    served logits against the float32 oracle, cosine >= COSINE_GATE;
+    exactly 2 L + 1 RMSNorm launches a step. Returns the output, the
+    oracle's logits of rows 0 and 1 and the launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    n_layers = model.config.num_hidden_layers
+    generate(model, prompts[:, :16], max_new_tokens=2)  # warm-up
+    calls = record_decode_steps(model)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        out = generate(model, prompts, max_new_tokens=GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    finally:
+        del model.decode_step
+    peak = torch.cuda.max_memory_allocated()
+    s0 = prompts.shape[1]
+    new = out[:, s0:]
+    step_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in calls]
+    problems = rms_launch_problems(launches, (2 * n_layers + 1) * GEN_NEW)
+    picks = torch.stack([c["last"].argmax(-1) for c in calls], dim=1)
+    if not torch.equal(picks, new.long()):
+        problems.append(f"{int((picks != new).sum())} tokens are not the "
+                        "argmax of their step's logits")
+    ref = oracle_rows(model, out, (0, 1), s0, GEN_NEW)
+    served = torch.stack([c["last"][:2] for c in calls], dim=1)
+    cos = torch.nn.functional.cosine_similarity(served, ref, dim=-1)
+    if float(cos.min()) < COSINE_GATE:
+        problems.append(f"min cosine {float(cos.min()):.6f} < {COSINE_GATE}")
+    emit("generate", batch=GEN_BATCH, prompt=s0, new_tokens=GEN_NEW,
+         layers=n_layers, wall_s=wall,
+         generated_tok_per_s=GEN_BATCH * GEN_NEW / wall,
+         prefill_step_ms=step_ms[0],
+         decode_step_ms={"median": float(np.median(step_ms[1:])),
+                         "p90": float(np.percentile(step_ms[1:], 90)),
+                         "max": max(step_ms[1:])},
+         max_memory_allocated=peak, launches=launches,
+         min_cosine=float(cos.min()), mean_cosine=float(cos.mean()),
+         cosine_gate=COSINE_GATE,
+         oracle_argmax_share=float((served.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()),
+         problems=problems)
+    if problems:
+        raise RuntimeError("generate phase failed: " + "; ".join(problems))
+    return out, ref, launches
+
+
+def generate_profile_phase(model, prompts, new_tokens=16):
+    """Where a greedy decode step's time goes: one ``generate`` of
+    ``new_tokens`` on the GEN_BATCH prompts under ``torch.profiler``
+    from its first decode step on (the prefill step runs before the
+    profiler starts); device time by kernel class, the busy share and
+    the device events a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models import generate
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step = model.decode_step
+    started = []
+
+    def profiled(input_ids, caches, pos):
+        if not started and int(pos) > 0:
+            torch.cuda.synchronize()
+            prof.start()
+            started.append(time.perf_counter())
+        return step(input_ids, caches, pos)
+
+    model.decode_step = profiled
+    try:
+        generate(model, prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - started[0]) * 1e6
+        prof.stop()
+    finally:
+        del model.decode_step
+    steps = new_tokens - 1
+    summary = device_summary(prof, wall_us)
+    emit("generate_profile", decode_steps=steps,
+         step_ms=wall_us / 1e3 / steps,
+         device_events_per_step=summary["device_events"] / steps, **summary)
+
+
+def generate_sample_run(model, prompts, seed):
+    """Sampled generate (SAMPLE_OPTS) twice from one seeded generator.
+    Gates: equal tokens; every drawn token inside the support of the
+    filters applied to its own step's penalised, tempered logits."""
+    import torch
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.models.generation import (
+        _apply_repetition_penalty, _filter_top_k_top_p)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    n_layers = model.config.num_hidden_layers
+    outs, walls = [], []
+    calls = record_decode_steps(model)
+    try:
+        for _ in range(2):
+            calls.clear()
+            gen = torch.Generator(device=model.device).manual_seed(seed)
+            torch.cuda.synchronize()
+            kernel_launch_stats(reset=True)
+            t0 = time.perf_counter()
+            outs.append(generate(model, prompts, max_new_tokens=GEN_NEW,
+                                 generator=gen, **SAMPLE_OPTS))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = kernel_launch_stats(reset=True)
+    finally:
+        del model.decode_step
+    out, s0 = outs[1], prompts.shape[1]
+    problems = rms_launch_problems(launches, (2 * n_layers + 1) * GEN_NEW)
+    if not torch.equal(outs[0], outs[1]):
+        problems.append("two runs from one seed differ")
+    outside, support = 0, []
+    for i, c in enumerate(calls):
+        seen = torch.zeros_like(c["last"], dtype=torch.bool)
+        seen.scatter_(1, out[:, :s0 + i].long(), True)
+        lg = _apply_repetition_penalty(c["last"], seen,
+                                       SAMPLE_OPTS["repetition_penalty"])
+        lg = _filter_top_k_top_p(lg / SAMPLE_OPTS["temperature"],
+                                 SAMPLE_OPTS["top_k"], SAMPLE_OPTS["top_p"])
+        outside += int((~torch.isfinite(
+            lg.gather(1, out[:, s0 + i].long()[:, None]))).sum())
+        support.append(torch.isfinite(lg).sum(-1).float())
+    support = torch.stack(support)
+    if outside:
+        problems.append(f"{outside} drawn tokens lie outside their step's "
+                        "filtered support")
+    emit("generate_sample", batch=GEN_BATCH, prompt=s0, new_tokens=GEN_NEW,
+         options=SAMPLE_OPTS, wall_s=walls,
+         generated_tok_per_s=[GEN_BATCH * GEN_NEW / w for w in walls],
+         support_size={"min": float(support.min()),
+                       "mean": float(support.mean()),
+                       "max": float(support.max())},
+         distinct_tokens=int(out[:, s0:].unique().numel()),
+         launches=launches, problems=problems)
+    if problems:
+        raise RuntimeError("generate_sample phase failed: "
+                           + "; ".join(problems))
+    return launches
+
+
+# The generate_beam gate, derived from bf16 spacing alone: the best
+# beam's kept score is a float32 sum of BEAM_NEW log-probabilities taken
+# from bf16 logits. Each term's logit and its log-sum-exp may each be off
+# by up to one bf16 spacing of the logits' scale (BF16_ULP times the RMS
+# of the oracle's logits at those positions), so the kept score may
+# differ from the float32 oracle's re-score of the same tokens by up to
+# 2 * BF16_ULP * rms per token, summed over the beam's tokens.
+BEAM_SCORE_SPACINGS_PER_TOKEN = 2
+
+
+def generate_beam_run(model, prompts, greedy_ref, greedy_out):
+    """Beam search (BEAM_BATCH prompts, BEAM_WIDTH beams, BEAM_NEW
+    tokens). Gate: each row's best beam's kept score (read from
+    ``generation._best_beam``) against its float32-oracle re-score
+    within the tolerance above. Reports greedy's oracle score of the
+    same prompts beside it (from the generate run)."""
+    import torch
+    from paddle_tpu_torch.models import generate, generation
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    n_layers = model.config.num_hidden_layers
+    p2 = prompts[:BEAM_BATCH]
+    s0 = p2.shape[1]
+    kept = {}
+    best_beam = generation._best_beam
+
+    def recording_best_beam(*args, **kwargs):
+        toks, scores = best_beam(*args, **kwargs)
+        kept["tokens"], kept["scores"] = toks, scores
+        return toks, scores
+
+    generation._best_beam = recording_best_beam
+    try:
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        out = generate(model, p2, max_new_tokens=BEAM_NEW,
+                       num_beams=BEAM_WIDTH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    finally:
+        generation._best_beam = best_beam
+    problems = rms_launch_problems(launches, (2 * n_layers + 1) * BEAM_NEW)
+    if not torch.equal(kept["tokens"], out[:, s0:]):
+        problems.append("the returned beams are not the kept ones")
+    ref = oracle_rows(model, out, range(BEAM_BATCH), s0, BEAM_NEW)
+    oracle = oracle_scores(ref, out[:, s0:])
+    rms = ref.pow(2).mean(dim=(1, 2)).sqrt()
+    tol = BEAM_SCORE_SPACINGS_PER_TOKEN * BF16_ULP * rms * BEAM_NEW
+    err = (kept["scores"].float() - oracle).abs()
+    if not bool((err <= tol).all()):
+        problems.append(f"kept scores {kept['scores'].tolist()} against the "
+                        f"oracle's {oracle.tolist()}: error {err.tolist()} > "
+                        f"{tol.tolist()}")
+    greedy = oracle_scores(greedy_ref[:BEAM_BATCH, :BEAM_NEW],
+                           greedy_out[:BEAM_BATCH, s0:s0 + BEAM_NEW])
+    emit("generate_beam", batch=BEAM_BATCH, beams=BEAM_WIDTH, prompt=s0,
+         new_tokens=BEAM_NEW, wall_s=wall,
+         generated_tok_per_s=BEAM_BATCH * BEAM_NEW / wall,
+         kept_score=kept["scores"].tolist(), oracle_score=oracle.tolist(),
+         score_err=err.tolist(), score_tol=tol.tolist(),
+         oracle_logit_rms=rms.tolist(),
+         greedy_oracle_score=greedy.tolist(),
+         same_as_greedy_share=float((out[:, s0:] == greedy_out[
+             :BEAM_BATCH, s0:s0 + BEAM_NEW]).float().mean()),
+         launches=launches, problems=problems)
+    if problems:
+        raise RuntimeError("generate_beam phase failed: "
+                           + "; ".join(problems))
+    return launches
+
+
+def layer_skip_draft(target, n_layers):
+    """A draft model made of the target's own modules: its embedding, its
+    first ``n_layers`` decoder layers, its final norm and head (no weight
+    is copied). With every layer it is the target itself."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaModel
+
+    cfg = dataclasses.replace(target.config, num_hidden_layers=n_layers)
+    trunk = LlamaModel.__new__(LlamaModel)
+    torch.nn.Module.__init__(trunk)
+    trunk.config = cfg
+    trunk.embed_tokens = target.model.embed_tokens
+    trunk.layers = torch.nn.ModuleList(list(target.model.layers)[:n_layers])
+    trunk.norm = target.model.norm
+    draft = LlamaForCausalLM.__new__(LlamaForCausalLM)
+    torch.nn.Module.__init__(draft)
+    draft.config = cfg
+    draft.model = trunk
+    draft.lm_head = target.lm_head
+    return draft
+
+
+def spoil_proposals(draft, spoiled):
+    """Wraps ``draft.decode_step`` so that its proposal for each position
+    in ``spoiled`` is its second choice: the row that predicts such a
+    position has its own argmax masked to -inf."""
+    step = draft.decode_step
+
+    def spoiling(input_ids, caches, pos):
+        logits, caches = step(input_ids, caches, pos)
+        if int(pos) + input_ids.shape[1] in spoiled:
+            last = logits[:, -1]
+            last.scatter_(1, last.argmax(-1, keepdim=True), float("-inf"))
+        return logits, caches
+
+    draft.decode_step = spoiling
+
+
+def spec_generate_run(model, prompts, greedy_out, seed):
+    """Greedy speculative decoding of prompt 0 (SPEC_NEW tokens, draft_k
+    SPEC_K) with three drafts: a layer-skip draft of SPEC_DRAFT_LAYERS
+    layers, a self-draft, and a spoiled self-draft whose proposals for a
+    seeded SPEC_SPOIL_SHARE of the positions are its second choice, so
+    that windows are rejected in mid-window. Gates: every committed
+    token the argmax of the target logits row that committed it; the
+    self-draft accepting at least SPEC_SELF_ACCEPT_GATE of its
+    proposals; the spoiled self-draft with at least one window of
+    0 < n_acc < draft_k and, in at least SPEC_SELF_ACCEPT_GATE of its
+    windows, n_acc equal to the index of the window's first spoiled
+    position (draft_k where none is); RMSNorm launches 2 L + 1 a target
+    call and 2 L_draft + 1 a draft call. Returns the launches of all
+    runs."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import speculative_generate
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    cfg = model.config
+    p1 = prompts[:1]
+    s0 = p1.shape[1]
+    drafts = {"layer_skip": min(SPEC_DRAFT_LAYERS, cfg.num_hidden_layers),
+              "self": cfg.num_hidden_layers,
+              "self_spoiled": cfg.num_hidden_layers}
+    rng = np.random.RandomState(seed + 11)
+    spoiled = {p for p in range(s0 + 1, s0 + SPEC_NEW + SPEC_K + 1)
+               if rng.rand() < SPEC_SPOIL_SHARE}
+    results, problems, total = {}, [], {}
+    for name, n_draft in drafts.items():
+        draft = layer_skip_draft(model, n_draft)
+        if name == "self_spoiled":
+            spoil_proposals(draft, spoiled)
+        draft_calls = []
+        draft_step = draft.decode_step
+
+        def counting(input_ids, caches, pos, draft_step=draft_step,
+                     draft_calls=draft_calls):
+            draft_calls.append(input_ids.shape[1])
+            return draft_step(input_ids, caches, pos)
+
+        draft.decode_step = counting
+        calls = record_decode_steps(model, window_argmax=True)
+        try:
+            torch.cuda.synchronize()
+            kernel_launch_stats(reset=True)
+            t0 = time.perf_counter()
+            out, stats = speculative_generate(
+                model, draft, p1, max_new_tokens=SPEC_NEW, draft_k=SPEC_K,
+                return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launch_stats(reset=True)
+        finally:
+            del model.decode_step
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        want = (2 * cfg.num_hidden_layers + 1) * len(calls) \
+            + (2 * n_draft + 1) * len(draft_calls)
+        problems += [f"{name}: {p}" for p in rms_launch_problems(launches,
+                                                                 want)]
+        # the target's argmax for each position, from the row that
+        # predicted it (a later window starts at the last committed token)
+        pred = {}
+        accepted = proposed = as_spoiled = 0
+        n_acc_hist = [0] * (SPEC_K + 1)
+        for c in calls:
+            am = c["argmax"][0].tolist()
+            for j, t in enumerate(am):
+                pred[c["pos"] + j + 1] = t
+            if c["pos"] > 0:
+                props = c["ids"][0, 1:].tolist()
+                n_acc = 0
+                while n_acc < len(props) and props[n_acc] == am[n_acc]:
+                    n_acc += 1
+                accepted += n_acc
+                proposed += len(props)
+                n_acc_hist[n_acc] += 1
+                first = next((j for j in range(len(props))
+                              if c["pos"] + 1 + j in spoiled), len(props))
+                as_spoiled += n_acc == first
+        windows = sum(n_acc_hist)
+        toks = out[0, s0:].tolist()
+        wrong = sum(t != pred.get(s0 + i) for i, t in enumerate(toks))
+        if wrong or len(toks) != SPEC_NEW:
+            problems.append(f"{name}: {wrong} of {len(toks)} committed "
+                            "tokens are not the target's argmax")
+        accept = accepted / max(1, proposed)
+        if name == "self" and accept < SPEC_SELF_ACCEPT_GATE:
+            problems.append(f"self-draft accepted {accept:.3f} of its "
+                            f"proposals < {SPEC_SELF_ACCEPT_GATE}")
+        results[name] = {
+            "draft_layers": n_draft, "wall_s": wall,
+            "generated_tok_per_s": len(toks) / wall,
+            "target_calls": stats["target_calls"],
+            "tokens_per_target_call": stats["tokens_per_target_call"],
+            "draft_calls": len(draft_calls), "acceptance": accept,
+            "n_acc_hist": n_acc_hist,
+            "same_as_greedy_share": float((out[0, s0:] == greedy_out[
+                0, s0:s0 + SPEC_NEW]).float().mean()),
+            "launches": launches}
+        if name == "self_spoiled":
+            share = as_spoiled / max(1, windows)
+            results[name].update(spoiled_positions=len(spoiled),
+                                 n_acc_as_spoiled_share=share)
+            if not any(n_acc_hist[1:SPEC_K]):
+                problems.append("self_spoiled: no window was rejected in "
+                                f"mid-window (n_acc histogram {n_acc_hist})")
+            if share < SPEC_SELF_ACCEPT_GATE:
+                problems.append(f"self_spoiled: n_acc met the first spoiled "
+                                f"position in {share:.3f} of the windows < "
+                                f"{SPEC_SELF_ACCEPT_GATE}")
+    emit("spec_generate", prompt=s0, new_tokens=SPEC_NEW, draft_k=SPEC_K,
+         acceptance_gate=SPEC_SELF_ACCEPT_GATE, spoil_share=SPEC_SPOIL_SHARE,
+         drafts=results, problems=problems)
+    if problems:
+        raise RuntimeError("spec_generate phase failed: "
+                           + "; ".join(problems))
+    return total
+
+
+def gen_phase(served, seed, names=None):
+    """hf_load, then the generation runs on the loaded model (and,
+    without ``names``, ``generate_profile`` after ``generate``). Returns
+    ``({run: launches}, failed)``. With ``names`` only those runs go, a
+    failed run is listed in ``failed`` and the others go on
+    (``--gen-runs``; after a failed hf_load they run on the served
+    model, after a failed generate the runs that read its output are
+    skipped); without it the first failure raises."""
+    out, failed = {}, []
+
+    def attempt(run, fn):
+        if names is not None and run not in names:
+            return None
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
+            if names is None:
+                raise
+            failed.append({"run": run, "error": repr(e)[-600:]})
+            return None
+
+    model = attempt("hf_load", lambda: hf_load_phase(served, seed))
+    if model is None:
+        model = served
+    prompts = gen_prompts(seed, model.config.vocab_size, model.device)
+    greedy = attempt("generate", lambda: generate_run(model, prompts))
+    if names is None:
+        generate_profile_phase(model, prompts)
+    out["generate_sample"] = attempt(
+        "generate_sample", lambda: generate_sample_run(model, prompts, seed))
+    if greedy is not None:
+        greedy_out, greedy_ref, out["generate"] = greedy
+        out["generate_beam"] = attempt("generate_beam", lambda:
+                                       generate_beam_run(model, prompts,
+                                                         greedy_ref,
+                                                         greedy_out))
+        out["spec_generate"] = attempt("spec_generate", lambda:
+                                       spec_generate_run(model, prompts,
+                                                         greedy_out, seed))
+    return {k: v for k, v in out.items() if v is not None}, failed
+
+
 # ------------------------------------------------------------------ train
 PEAK_BF16_TFLOPS = PEAK_FLOPS_PER_S["bfloat16"] / 1e12
 
@@ -2915,12 +3574,16 @@ def main(argv=None):
                     "NORM_CASES) against their plain versions")
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
-                    "FLASH_FAULTS, PAGED_FAULTS and NORM_FAULTS, planted "
-                    "in a copy")
+                    "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS "
+                    "and GEN_FAULTS, planted in a copy")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "
                     "unprofiled, each failure listed")
+    ap.add_argument("--gen-runs", default=None, metavar="NAMES",
+                    help="only build the kernels and run these generation "
+                    "runs (comma-separated names of GEN_RUN_NAMES) on the "
+                    "served model, each failure listed")
     ap.add_argument("--serve-ab", default=None, metavar="DIR",
                     help="only serve the `serve` run from the checkout "
                     "DIR and from this one in turns (DIR, this, this, "
@@ -3019,8 +3682,20 @@ def main(argv=None):
         if set(names) - set(SERVE_RUN_NAMES):
             raise ValueError(f"unknown serve runs "
                              f"{set(names) - set(SERVE_RUN_NAMES)}")
-        _, failed = serve_phase(args.seed, args.layers, names)
+        model, prompts, init_s = build_server(args.seed, args.layers)
+        _, failed = serve_phase(model, prompts, init_s, args.seed,
+                                args.layers, names)
         emit("serve_runs", runs=names, failed=[f["run"] for f in failed],
+             errors=failed)
+        return 1 if failed else 0
+    if args.gen_runs:
+        names = args.gen_runs.split(",")
+        if set(names) - set(GEN_RUN_NAMES):
+            raise ValueError(f"unknown generation runs "
+                             f"{set(names) - set(GEN_RUN_NAMES)}")
+        model, _, _ = build_server(args.seed, args.layers)
+        _, failed = gen_phase(model, args.seed, names)
+        emit("gen_runs", runs=names, failed=[f["run"] for f in failed],
              errors=failed)
         return 1 if failed else 0
 
@@ -3028,7 +3703,12 @@ def main(argv=None):
     varlen_launches = varlen_phase(args.seed)
     ln_launches = layer_norm_phase()
     torch.cuda.empty_cache()
-    serve_launches, _ = serve_phase(args.seed, args.layers)
+    model, prompts, init_s = build_server(args.seed, args.layers)
+    serve_launches, _ = serve_phase(model, prompts, init_s, args.seed,
+                                    args.layers)
+    torch.cuda.empty_cache()
+    gen_launches, _ = gen_phase(model, args.seed)
+    del model
     torch.cuda.empty_cache()
 
     model, opt = build_trainer(args.seed)
@@ -3045,7 +3725,8 @@ def main(argv=None):
     def summary(name, main_case, beside=()):
         c = next(x for x in cases[name] if x["case"] == main_case)
         by_path = {path: launches[name] for path, launches in
-                   (*serve_launches.items(), ("train", train_launches),
+                   (*serve_launches.items(), *gen_launches.items(),
+                    ("train", train_launches),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}

@@ -1,4 +1,5 @@
-from .convert import from_reference_state  # noqa: F401
+from .convert import from_hf, from_reference_state, load_hf_llama  # noqa: F401
+from .generation import generate, speculative_generate  # noqa: F401
 from .llama import (  # noqa: F401
     LlamaAttention,
     LlamaConfig,
@@ -7,8 +8,13 @@ from .llama import (  # noqa: F401
     LlamaMLP,
     LlamaModel,
     LlamaPretrainingCriterion,
+    llama2_7b,
+    llama2_13b,
     llama3_8b,
+    llama3_70b,
+    llama_headline,
     llama_tiny,
     mistral_7b,
     qwen2_0_5b,
+    qwen2_7b,
 )

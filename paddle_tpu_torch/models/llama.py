@@ -8,7 +8,10 @@ flash-attention kernels, and with ``labels`` the next-token loss, either
 through the chunked fused CE head (``fused_head_loss``, no logits) or
 through ``LlamaPretrainingCriterion`` over full logits. The paged
 serving adapter (``inference/paged_llama.py``) drives the same modules'
-projections around its own attention kernel.
+projections around its own attention kernel. ``decode_step`` is the
+dense-KV generation path (``models/generation.py``): the new tokens'
+K/V are written in place into preallocated cache slots
+(``init_cache``), and attention over all slots runs in float32.
 
 Module and parameter names mirror the reference, so its state dict maps
 1:1 (:meth:`LlamaForCausalLM.load_reference_state`). Parameters are
@@ -20,6 +23,7 @@ in ``paddle_tpu_torch.testing``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -34,6 +38,7 @@ from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import cross_entropy, flash_attention
 from ..nn.layer.norm import RMSNorm
 from ..ops.kernels.rope import apply_rotary_emb, build_rope_cache
+from .generation import generate as _generate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -81,6 +86,19 @@ class LlamaConfig:
         return per_layer * self.num_hidden_layers + emb + h
 
 
+def llama2_7b(**kw) -> LlamaConfig:
+    """Llama-2-7B: the config's defaults (MHA 32:32, 32k vocab)."""
+    return LlamaConfig(**kw)
+
+
+def llama2_13b(**kw) -> LlamaConfig:
+    """Llama-2-13B: hidden 5120, 40 layers, MHA 40:40."""
+    return LlamaConfig(
+        hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
+        num_attention_heads=40, num_key_value_heads=40, **kw,
+    )
+
+
 def llama3_8b(**kw) -> LlamaConfig:
     """Llama-3-8B (Meta-Llama-3-8B config.json): GQA 32:8, 128k vocab,
     rope theta 500k."""
@@ -92,6 +110,35 @@ def llama3_8b(**kw) -> LlamaConfig:
     kw.setdefault("num_key_value_heads", 8)
     kw.setdefault("max_position_embeddings", 8192)
     kw.setdefault("rope_theta", 500000.0)
+    return LlamaConfig(**kw)
+
+
+def llama3_70b(**kw) -> LlamaConfig:
+    """Llama-3-70B: hidden 8192, 80 layers, GQA 64:8 (a config only: its
+    bf16 weights do not fit one card)."""
+    kw.setdefault("vocab_size", 128256)
+    kw.setdefault("hidden_size", 8192)
+    kw.setdefault("intermediate_size", 28672)
+    kw.setdefault("num_hidden_layers", 80)
+    kw.setdefault("num_attention_heads", 64)
+    kw.setdefault("num_key_value_heads", 8)
+    kw.setdefault("max_position_embeddings", 8192)
+    kw.setdefault("rope_theta", 500000.0)
+    return LlamaConfig(**kw)
+
+
+def qwen2_7b(**kw) -> LlamaConfig:
+    """Qwen2-7B: llama trunk + q/k/v bias, GQA 28:4, 152k vocab."""
+    kw.setdefault("vocab_size", 152064)
+    kw.setdefault("hidden_size", 3584)
+    kw.setdefault("intermediate_size", 18944)
+    kw.setdefault("num_hidden_layers", 28)
+    kw.setdefault("num_attention_heads", 28)
+    kw.setdefault("num_key_value_heads", 4)
+    kw.setdefault("max_position_embeddings", 32768)
+    kw.setdefault("rope_theta", 1000000.0)
+    kw.setdefault("attention_bias", True)
+    kw.setdefault("rms_norm_eps", 1e-6)
     return LlamaConfig(**kw)
 
 
@@ -125,6 +172,22 @@ def mistral_7b(**kw) -> LlamaConfig:
     return LlamaConfig(**kw)
 
 
+def llama_headline(**kw) -> LlamaConfig:
+    """``bench.py``'s single-card headline shape (~470M parameters, tied
+    head, fused CE head): the repository's own shape, not a published
+    model."""
+    kw.setdefault("vocab_size", 32000)
+    kw.setdefault("hidden_size", 1536)
+    kw.setdefault("intermediate_size", 4224)
+    kw.setdefault("num_hidden_layers", 14)
+    kw.setdefault("num_attention_heads", 12)
+    kw.setdefault("num_key_value_heads", 12)
+    kw.setdefault("max_position_embeddings", 2048)
+    kw.setdefault("tie_word_embeddings", True)
+    kw.setdefault("fused_head_loss", True)
+    return LlamaConfig(**kw)
+
+
 def llama_tiny(**kw) -> LlamaConfig:
     """Small config for tests (GQA 4:2 exercised)."""
     kw.setdefault("vocab_size", 512)
@@ -135,6 +198,37 @@ def llama_tiny(**kw) -> LlamaConfig:
     kw.setdefault("num_key_value_heads", 2)
     kw.setdefault("max_position_embeddings", 256)
     return LlamaConfig(**kw)
+
+
+class DecodeStep(NamedTuple):
+    """What every layer of one decode step shares: the new tokens' first
+    slot ``pos``, their RoPE rows ``cos``/``sin`` ([S, D]) and ``keep``
+    ([S, S_max], the slots each new token attends to)."""
+    pos: int
+    cos: torch.Tensor
+    sin: torch.Tensor
+    keep: torch.Tensor
+
+
+def decode_step_inputs(config, pos, s, tables):
+    """The :class:`DecodeStep` of ``s`` new tokens at positions
+    [pos, pos + s) of a cache whose ``tables`` are ``(cos, sin, kpos)``
+    (:meth:`LlamaModel.decode_tables`). ``pos`` is an int or a 0-dim
+    tensor (read once on the host). Raises ``ValueError`` when the
+    tokens do not fit the slots: the reference's ``dynamic_update_slice``
+    and ``jnp.take`` clamp instead."""
+    cos, sin, kpos = tables
+    smax = kpos.shape[0]
+    pos = int(pos)
+    if pos < 0 or pos + s > smax:
+        raise ValueError(f"decode_step: positions [{pos}, {pos + s}) do "
+                         f"not fit the cache's {smax} slots")
+    positions = kpos[pos:pos + s]
+    keep = kpos[None, :] <= positions[:, None]
+    w = int(config.sliding_window or 0)
+    if w:
+        keep = keep & (kpos[None, :] > positions[:, None] - w)
+    return DecodeStep(pos, cos[pos:pos + s], sin[pos:pos + s], keep)
 
 
 class LlamaMLP(nn.Module):
@@ -193,6 +287,34 @@ class LlamaAttention(nn.Module):
                                  window=w if (w and w < s) else 0)
         return self.o_proj(out.reshape(b, s, nh * hd))
 
+    def decode_step(self, x, cache_k, cache_v, step):
+        """KV-cache attention for ``x`` [B, S, H], new tokens at the
+        positions of ``step`` (:func:`decode_step_inputs`): RoPE at those
+        positions, their K/V written in place into ``cache_k``/``cache_v``
+        [B, S_max, KVH, D], then float32 attention over every slot,
+        masked to the slots at or before each token's position (and
+        inside the sliding window). Returns the attention's output."""
+        b, s = x.shape[0], x.shape[1]
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        # step.cos/sin hold the rows of the new positions only
+        q = apply_rotary_emb(self.q_proj(x).reshape(b, s, nh, hd), step.cos,
+                             step.sin)
+        k = apply_rotary_emb(self.k_proj(x).reshape(b, s, nkv, hd),
+                             step.cos, step.sin)
+        v = self.v_proj(x).reshape(b, s, nkv, hd)
+        cache_k[:, step.pos:step.pos + s] = k
+        cache_v[:, step.pos:step.pos + s] = v
+        # q heads grouped over their kv head: the reference's repeated
+        # K/V give the same sums
+        qg = q.float().reshape(b, s, nkv, nh // nkv, hd)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                              cache_k.float()) * (1.0 / hd ** 0.5)
+        scores.masked_fill_(~step.keep, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.float())
+        out = out.to(q.dtype).reshape(b, s, nh * hd)
+        return self.o_proj(out)
+
 
 class LlamaDecoderLayer(nn.Module):
     """Pre-norm block."""
@@ -211,6 +333,11 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+    def decode_step(self, x, cache_k, cache_v, step):
+        h = x + self.self_attn.decode_step(self.input_layernorm(x), cache_k,
+                                           cache_v, step)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -237,6 +364,37 @@ class LlamaModel(nn.Module):
         for layer in self.layers:
             h = layer(h, cos, sin)
         return self.norm(h)
+
+    def decode_step(self, input_ids, caches, pos):
+        """The final norm's output for the new tokens ``input_ids``
+        [B, S] at positions [pos, pos + S), and ``caches`` (one
+        ``(k, v)`` pair a layer, written in place)."""
+        if len(caches) != len(self.layers):
+            raise ValueError(f"decode_step: {len(caches)} cache pairs for "
+                             f"{len(self.layers)} layers")
+        h = self.embed_tokens(input_ids)
+        step = decode_step_inputs(self.config, pos, h.shape[1],
+                                  self.decode_tables(caches[0][0].shape[1],
+                                                     h.device))
+        for layer, (ck, cv) in zip(self.layers, caches):
+            h = layer.decode_step(h, ck, cv, step)
+        return self.norm(h), caches
+
+    def decode_tables(self, smax, device):
+        """``(cos, sin, kpos)`` of a cache of ``smax`` slots: the RoPE
+        tables ([smax, D], float32) and the slot positions ([smax]),
+        built on the first decode step over such a cache and kept for
+        the steps after it."""
+        key = (smax, torch.device(device))
+        kept = getattr(self, "_decode_tables", None)
+        if kept is None or kept[0] != key:
+            cfg = self.config
+            cos, sin = build_rope_cache(smax, cfg.head_dim,
+                                        base=cfg.rope_theta,
+                                        dtype=torch.float32, device=device)
+            kept = (key, (cos, sin, torch.arange(smax, device=device)))
+            self._decode_tables = kept
+        return kept[1]
 
 
 class LlamaForCausalLM(nn.Module):
@@ -301,6 +459,43 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is not None:
             return self.lm_head(h)
         return torch.matmul(h, self.model.embed_tokens.weight.t())
+
+    # -- decode ----------------------------------------------------------
+
+    def init_cache(self, batch_size, max_length, dtype=None):
+        """Zeroed KV cache slots, one ``(k, v)`` pair a layer, each
+        [batch_size, max_length, KVH, D] on the model's device, in the
+        model's dtype unless ``dtype`` is given."""
+        cfg = self.config
+        if dtype is None:
+            dtype = self.dtype
+        elif isinstance(dtype, str):
+            dtype = _DTYPES[dtype]
+        shape = (batch_size, max_length, cfg.num_key_value_heads,
+                 cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dtype, device=self.device),
+                 torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(cfg.num_hidden_layers)]
+
+    @torch.no_grad()
+    def decode_step(self, input_ids, caches, pos):
+        """One incremental step: ``(logits [B, S, V], caches)`` for the
+        new tokens ``input_ids`` [B, S] at positions [pos, pos + S).
+        Their K/V are written into ``caches`` in place, and the same list
+        is returned. ``pos`` is an int (a 0-dim tensor is read once on
+        the host). Runs without autograd."""
+        h, caches = self.model.decode_step(input_ids, caches, pos)
+        return self._head(h), caches
+
+    def generate(self, input_ids, max_new_tokens=32, use_jit=False,
+                 **kwargs):
+        """Decode over the dense KV cache: greedy by default; sampling
+        (``do_sample``, ``temperature``, ``top_k``, ``top_p``,
+        ``repetition_penalty``, ``generator``), ``eos_token_id`` and beam
+        search (``num_beams``) as :func:`models.generation.generate`.
+        Returns [B, S0 + max_new_tokens]."""
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         use_jit=use_jit, **kwargs)
 
     def load_reference_state(self, np_state):
         """Load the reference package's state dict given as numpy arrays

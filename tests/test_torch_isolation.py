@@ -7,6 +7,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -14,7 +15,8 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
 from paddle_tpu_torch.inference import BatchScheduler, PagedLlamaAdapter
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.models import (LlamaForCausalLM, from_hf, generate,
+                                     llama_tiny)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
@@ -23,18 +25,22 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name):
     return (name == "jax" or name.startswith("jax.")
-            or name == "paddle_tpu" or name.startswith("paddle_tpu."))
+            or name == "paddle_tpu" or name.startswith("paddle_tpu.")
+            or name == "transformers" or name.startswith("transformers."))
 
 
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.testing\n"
             "import paddle_tpu_torch.inference, paddle_tpu_torch.models\n"
+            "import paddle_tpu_torch.models.generation\n"
+            "import paddle_tpu_torch.models.convert\n"
             "import paddle_tpu_torch.ops.kernels.flash_varlen\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
-            "m.startswith('paddle_tpu.')]\n"
+            "m.startswith('paddle_tpu.') or m == 'transformers' or "
+            "m.startswith('transformers.')]\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
@@ -187,3 +193,41 @@ def test_unported_request_and_adapter_options_raise():
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
     with pytest.raises(NotImplementedError):
         PagedLlamaAdapter(m, weight_dtype="int8")
+
+
+class _Stub:
+    def __init__(self, **config):
+        self.config = types.SimpleNamespace(**config)
+
+
+def _stub(name, **config):
+    return type(name, (_Stub,), {})(**config)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: generate(m, torch.zeros(1, 2, dtype=torch.long),
+                       use_jit=True),
+    lambda m: from_hf(m, {}, weight_dtype="int8"),
+    lambda m: from_hf(_stub("LlamaForCausalLM", num_local_experts=8), {}),
+    lambda m: from_hf(_stub("BertModel"), {}),
+    lambda m: from_hf(_stub("GPTForCausalLM"), {}),
+    lambda m: from_hf(_stub("VisionTransformer"), {}),
+    lambda m: from_hf(_stub("T5ForConditionalGeneration"), {}),
+], ids=["use_jit", "weight_dtype", "mixtral", "bert", "gpt", "vit", "t5"])
+def test_unported_generation_and_loader_options_raise(call):
+    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
+    with pytest.raises(NotImplementedError):
+        call(m)
+
+
+def test_from_hf_refuses_an_unknown_family():
+    with pytest.raises(TypeError):
+        from_hf(_stub("ResNet50"), {})
+
+
+def test_from_hf_takes_no_group_size():
+    # group_size only shapes quantize-on-load, which is not ported: the
+    # loader does not accept it rather than ignore it
+    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
+    with pytest.raises(TypeError):
+        from_hf(m, {}, group_size=32)
