@@ -54,6 +54,16 @@ It prints one JSON line per phase:
    six priority-0 requests fill a small pool, two priority-1 requests
    preempt them to the host swap tier, the first victim is cancelled,
    and every restored chain is held against its swapped-out bytes;
+   then speculative serving, draft_k 4, with drafts made of the target's
+   own first layers (``SPEC_SERVE_RUNS``): ``serve_spec`` (a
+   self-draft), ``serve_spec_skip2`` (2 layers), ``serve_spec_spoiled``
+   (the self-draft proposing its second choice at a seeded quarter of
+   the positions) under ``FLAGS_spec_decode=ragged``,
+   ``serve_spec_legacy`` under ``legacy``, and ``serve_spec_preempt``
+   (``serve_preempt``'s traffic with the 2-layer draft): every committed
+   token the target's argmax at its position, two requests' verified
+   logits against the oracle, the target pool holding the committed
+   prefix after every step, one target call a round, exact launches;
 7. ``profile``, ``profile_int8``, ``profile_off`` and
    ``profile_off_int8``: the four serving runs served again under
    ``torch.profiler``: device time by kernel class and the device's
@@ -110,6 +120,9 @@ kernels and serves only those runs (names of ``SERVE_RUN_NAMES``),
 unprofiled, at ``--layers`` depth, listing each failed run in a
 ``serve_runs`` line; ``--fault-check`` also plants ``SERVE_FAULTS`` in
 the page pool and runs ``--serve-runs`` on them at two layers.
+``--fault-check`` also plants ``SPEC_FAULTS`` in the scheduler and runs
+``--serve-runs`` on them at four layers, where each must fail its named
+run at its named gate.
 ``--gen-runs NAMES`` builds the kernels and runs only those generation
 runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
 failed run in a ``gen_runs`` line; ``--fault-check`` also plants
@@ -645,6 +658,8 @@ def attn_case(name, seq_lens, q_lens, t, window, flush, num_pages=600,
 # DECODE_LENS is the serving batch's decode rows; the decode kernel's
 # cases call paged_attention under FLAGS_ragged_attention=off.
 DECODE_LENS = [1056, 64, 300, 777, 1000, 129, 512, 16]
+# build_server's prompt lengths (seed 0) + 32 generated tokens
+VERIFY_LENS = [780, 655, 725, 288, 931, 859, 803, 455]
 _RAGGED = "paged_ragged_attention"
 _DECODE = "paged_decode_attention"
 _D1 = dict(q_lens=[1] * 8, t=1, window=0)
@@ -695,6 +710,13 @@ ATTN_CASES = [
     (_RAGGED, "no_key_rows_int8", dict(seq_lens=[5, 40, 12, 1],
                                        q_lens=None, t=16, window=0, seed=6,
                                        kv_dtype="int8")),
+    # the speculative verify rows: serve's 8 requests at their last window
+    # (VERIFY_LENS), draft_k + 1 = 5 query rows each, right-aligned in the
+    # adapter's block of 8
+    (_RAGGED, "verify", dict(seq_lens=VERIFY_LENS, q_lens=[5] * 8, t=8,
+                             window=0, seed=11)),
+    (_RAGGED, "verify_int8", dict(seq_lens=VERIFY_LENS, q_lens=[5] * 8, t=8,
+                                  window=0, seed=11, kv_dtype="int8")),
     # the decode kernel
     (_DECODE, "decode", dict(seq_lens=DECODE_LENS, seed=1, **_D1)),
     (_DECODE, "decode_int8", dict(seq_lens=DECODE_LENS, seed=1,
@@ -1539,6 +1561,40 @@ GEN_FAULTS = [
 ]
 
 
+# faults of speculative serving in the scheduler, each run through the
+# runs of _SPEC_FAULT_RUNS at four layers (``--serve-runs``; at four layers
+# serve_spec_skip2's draft skips half the target's): (name, source, text,
+# replacement, the runs it may fail, the run that must fail and the text of
+# the gate that must fail it there)
+_SERVING_PY = "paddle_tpu_torch/inference/serving.py"
+_SPEC_FAULT_RUNS = ("serve_spec", "serve_spec_skip2", "serve_spec_spoiled")
+SPEC_FAULTS = [
+    # the rollback after a rejection keeps one token too many in both
+    # pools: the stale K/V of the first rejected proposal stays, and every
+    # later token of the row is written (and rotated) one position late
+    # (a fully accepted window has no such token: truncate raises there)
+    ("spec_rollback_one_token_long", _SERVING_PY,
+     "            c.truncate(s, base_t + committed)\n"
+     "        for c in self.draft.caches:\n"
+     "            c.truncate(s, base_d + committed)\n",
+     "            c.truncate(s, base_t + committed + 1)\n"
+     "        for c in self.draft.caches:\n"
+     "            c.truncate(s, base_d + committed + 1)\n",
+     _SPEC_FAULT_RUNS, "serve_spec_skip2", "min cosine"),
+    # acceptance counts every proposal that matches the target's argmax,
+    # not the matching prefix: a rejected proposal commits
+    ("spec_accepts_past_a_mismatch", _SERVING_PY,
+     "        n_acc = 0\n"
+     "        while n_acc < k and props_i[n_acc] == int(preds_i[n_acc]):\n"
+     "            n_acc += 1\n"
+     "            if req.eos_id is not None and props_i[n_acc - 1] == "
+     "req.eos_id:\n"
+     "                break\n",
+     "        n_acc = sum(p == int(t) for p, t in zip(props_i, preds_i))\n",
+     _SPEC_FAULT_RUNS, "serve_spec_spoiled", "not the target's argmax"),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1581,9 +1637,10 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 def fault_check_phase():
     """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
-    SERVE_FAULTS and GEN_FAULTS in a copy of the repository and runs its
-    cases there; fails unless every fault fails a gate, and a paged,
-    norm, serving or generation fault only in the cases it may fail."""
+    SERVE_FAULTS, SPEC_FAULTS and GEN_FAULTS in a copy of the repository
+    and runs its cases there; fails unless every fault fails a gate, a
+    paged, norm, serving or generation fault only in the cases it may
+    fail, and a speculative serving fault in its named run."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1627,6 +1684,17 @@ def fault_check_phase():
         results.append({"fault": name, "may_fail": list(broken),
                         "failed": line["failed"], "errors": line["errors"]})
         if not line["failed"] or set(line["failed"]) - set(broken):
+            missed.append(name)
+    for name, source, old, new, broken, must, gate in SPEC_FAULTS:
+        line = _run_with_fault(name, source, old, new, "--serve-runs",
+                               _SPEC_FAULT_RUNS, "serve_runs",
+                               extra=("--layers", "4"))
+        results.append({"fault": name, "may_fail": list(broken),
+                        "must_fail": must, "gate": gate,
+                        "failed": line["failed"], "errors": line["errors"]})
+        caught = any(e["run"] == must and gate in e["error"]
+                     for e in line["errors"])
+        if not caught or set(line["failed"]) - set(broken):
             missed.append(name)
     for name, source, old, new, broken in GEN_FAULTS:
         line = _run_with_fault(name, source, old, new, "--gen-runs",
@@ -1936,26 +2004,46 @@ def build_server(seed, layers):
     return model, prompts, init_s
 
 
-def record_prefill_chunk(adapter, watch):
+def record_prefill_chunk(adapter, watch, preds=None):
     """Wraps ``adapter.prefill_chunk`` (an instance attribute: ``del
     adapter.prefill_chunk`` restores the method) to keep the served
     logits of the ``watch`` requests by absolute position, and to count
-    the model calls that carry a single-token (decode) row and a
-    multi-token (prefill) row. Returns ``(captured, row_kinds)``."""
+    the model calls that carry a single-token (decode) row, a
+    multi-token (prefill) row and ``logits_rows`` (speculative verify
+    rows, whose logits are kept at every position of the row). A later
+    call's logits at a position replace an earlier one's (a verify window
+    starts at the last committed token). ``preds``: a dict that gets
+    every row's argmax, ``preds[request][position]``. Returns
+    ``(captured, row_kinds)``."""
     captured = {w: {} for w in watch}
-    row_kinds = {"single": 0, "multi": 0}
+    row_kinds = {"calls": 0, "single": 0, "multi": 0, "logits_rows": 0}
     serve_fn = adapter.prefill_chunk
 
     def recording_prefill_chunk(token_ids, seq_ids, start_positions=None,
                                 pad_to=None, logits_rows=None):
         out = serve_fn(token_ids, seq_ids, start_positions,
                        pad_to=pad_to, logits_rows=logits_rows)
+        row_kinds["calls"] += 1
         row_kinds["single"] += any(len(t) == 1 for t in token_ids)
         row_kinds["multi"] += any(len(t) > 1 for t in token_ids)
+        last, full = (out, None) if logits_rows is None else out
+        row_kinds["logits_rows"] += logits_rows is not None
+        # row -> (the position of its first kept logits row, the rows)
+        rows, off = {}, 0
+        for i in logits_rows or ():
+            n = len(token_ids[i])
+            rows[i] = (int(start_positions[i]), full[off:off + n])
+            off += n
         for i, s in enumerate(seq_ids):
+            p0, lg = rows.get(i, (int(start_positions[i])
+                                  + len(token_ids[i]) - 1, last[i:i + 1]))
             if s in captured:
-                p = int(start_positions[i]) + len(token_ids[i]) - 1
-                captured[s][p] = out[i].float()
+                for j in range(lg.shape[0]):
+                    captured[s][p0 + j] = lg[j].float()
+            if preds is not None:
+                got = preds.setdefault(s, {})
+                for j, t in enumerate(lg.float().argmax(-1).tolist()):
+                    got[p0 + j] = t
         return out
 
     adapter.prefill_chunk = recording_prefill_chunk
@@ -2186,15 +2274,26 @@ def serve_pool_bytes(model):
 
 # the prefix and preemption runs: (run, KV pages)
 PREFIX_RUNS = [("serve_prefix", None), ("serve_prefix_int8", "int8")]
+# The speculative serving runs: Llama-3-8B's shape, serve's 8 prompts, 32
+# new tokens each, greedy, draft_k SPEC_K, target and draft pools of
+# SERVE_PAGES pages of 16. Each draft shares the target's tensors
+# (layer_skip_draft). (run, draft layers or None for a self-draft,
+# FLAGS_spec_decode, proposals spoiled)
+SPEC_SERVE_RUNS = [("serve_spec", None, "ragged", False),
+                   ("serve_spec_skip2", 2, "ragged", False),
+                   ("serve_spec_spoiled", None, "ragged", True),
+                   ("serve_spec_legacy", None, "legacy", False)]
+SPEC_SERVE_NEW = 32
 SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
-    r for r, _ in PREFIX_RUNS] + ["serve_preempt"]
+    r for r, _ in PREFIX_RUNS] + ["serve_preempt"] + [
+    r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"]
 
 
 def serve_phase(model, prompts, init_s, seed, layers, names=None):
     """The serving runs on one model (``build_server``'s): the four of
     SERVE_RUNS (each followed by nothing but its release; those of
-    PROFILED_RUNS served again under the profiler), then PREFIX_RUNS and
-    ``serve_preempt``. Returns ``({run: launches}, failed)``. With
+    PROFILED_RUNS served again under the profiler), then PREFIX_RUNS,
+    ``serve_preempt``, SPEC_SERVE_RUNS and ``serve_spec_preempt``. Returns ``({run: launches}, failed)``. With
     ``names`` only those runs go, unprofiled, and a run that fails is
     listed in ``failed`` while the others go on (``--serve-runs``);
     without it the first failure raises."""
@@ -2211,7 +2310,7 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
         except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
             if names is None:
                 raise
-            failed.append({"run": run, "error": repr(e)[-600:]})
+            failed.append({"run": run, "error": repr(e)[-2000:]})
             return None
         torch.cuda.empty_cache()
         return got
@@ -2244,6 +2343,18 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
         model, preempt_traffic(seed, vocab), layers))
     if got is not None:
         out["serve_preempt"] = got
+    for run, n_draft, spec, spoil in SPEC_SERVE_RUNS:
+        got = attempt(run, lambda run=run, n_draft=n_draft, spec=spec,
+                      spoil=spoil: serve_spec_run(
+                          run, model, prompts, layers, n_draft, spec, spoil,
+                          seed, base))
+        if got is not None:
+            out[run] = got
+    got = attempt("serve_spec_preempt", lambda: serve_preempt_run(
+        model, preempt_traffic(seed, vocab), layers, "serve_spec_preempt",
+        SPEC_DRAFT_LAYERS))
+    if got is not None:
+        out["serve_spec_preempt"] = got
     return out, failed
 
 
@@ -2538,7 +2649,8 @@ def preempt_traffic(seed, vocab):
     return low, high
 
 
-def serve_preempt_run(model, traffic, layers):
+def serve_preempt_run(model, traffic, layers, run="serve_preempt",
+                      draft_layers=None):
     """``serve_preempt``: bf16 pages, a pool sized so that the
     priority-0 requests fill it and admitting the first priority-1
     request alone needs two victims, ``swap_bytes=1 << 30``,
@@ -2549,8 +2661,17 @@ def serve_preempt_run(model, traffic, layers):
     cancelled request ``aborted_deadline`` with its swap record gone,
     64 tokens for every other request, one resumed victim's logits
     against the oracle, the swap space empty and every pool drained at
-    the end, exact launch counts. Emits the run's line; returns the
-    launches."""
+    the end, exact launch counts.
+
+    With ``draft_layers`` (``serve_spec_preempt``) the same traffic runs
+    speculative under ragged, draft_k SPEC_K, with the target's first
+    ``draft_layers`` layers as the draft (its pool sized to hold every
+    request at once, so that only the target pool preempts), the
+    target pool sized with the draft's SPEC_K + 1 token slack. Further
+    gates: >= 1 draft discard, refill tokens > 0, every committed token
+    the target's argmax at its position, the target pool holding the
+    committed prefix after every step, the draft pool drained. Emits the
+    run's line; returns the launches."""
     import torch
     from paddle_tpu_torch.inference import (BatchScheduler,
                                             PagedLlamaAdapter, Request,
@@ -2559,12 +2680,24 @@ def serve_preempt_run(model, traffic, layers):
 
     low, high = traffic
     page = 16
-    worst = [-(-(len(p) + PREEMPT_NEW) // page) for p in low + high]
+    slack = 0 if draft_layers is None else SPEC_K + 1
+    worst = [-(-(len(p) + PREEMPT_NEW + slack) // page) for p in low + high]
     # every priority-0 request fits with two pages to spare (per layer)
     num_pages = -(-(sum(worst[:PREEMPT_LOW]) + 2) * 100 // 95)
     adapter = PagedLlamaAdapter(model, num_pages=num_pages, page_size=page)
     lows = [f"lo{i}" for i in range(len(low))]
-    captured, row_kinds = record_prefill_chunk(adapter, set(lows))
+    preds = None if draft_layers is None else {}
+    captured, row_kinds = record_prefill_chunk(adapter, set(lows), preds)
+    spec_kw, dadapter, n_draft = {}, None, 0
+    if draft_layers is not None:
+        n_draft = min(draft_layers, model.config.num_hidden_layers)
+        dadapter = PagedLlamaAdapter(
+            layer_skip_draft(model, n_draft), page_size=page,
+            num_pages=-(-sum(worst) * 100 // 95) + 1)
+        t_calls, d_calls = record_spec_calls(adapter, dadapter, preds,
+                                             captured)
+        spec_kw = dict(draft_model=dadapter, draft_k=SPEC_K)
+    windows = []
     snaps, swaps, restored_equal = {}, [], []
     swap_out, swap_in = adapter.swap_out, adapter.swap_in
 
@@ -2603,10 +2736,12 @@ def serve_preempt_run(model, traffic, layers):
             tok_times.setdefault(req.req_id, []).append(time.perf_counter())
 
     problems, cancelled, preempted, resumed = [], None, 0, 0
-    with ragged_mode("auto"):
+    with ragged_mode("auto"), spec_decode_mode("ragged"):
         sched = BatchScheduler(adapter, max_batch_size=8,
                                prefill_chunk_tokens=248, preempt=True,
-                               swap_bytes=1 << 30)
+                               swap_bytes=1 << 30, **spec_kw)
+        if dadapter is not None:
+            windows = record_windows(sched)
         calls0 = adapter.chunk_stats["calls"]
         torch.cuda.synchronize()
         kernel_launch_stats(reset=True)
@@ -2624,6 +2759,9 @@ def serve_preempt_run(model, traffic, layers):
                                          on_token=on_token))
             ev = sched.step()
             steps += 1
+            bad = dadapter and committed_prefix_problem(sched, adapter)
+            if bad and not any("committed prefix" in p for p in problems):
+                problems.append(f"after step {steps}, {bad}")
             preempted += ev.get("preempted", 0)
             resumed += ev.get("resumed", 0)
             if cancelled is None and sched.num_swapped:
@@ -2635,6 +2773,10 @@ def serve_preempt_run(model, traffic, layers):
         wall = time.perf_counter() - t0
         launches = kernel_launch_stats(reset=True)
     del adapter.prefill_chunk, adapter.swap_out, adapter.swap_in
+    if dadapter is not None:
+        del adapter.decode_window, adapter.decode_token
+        del dadapter.prefill_chunk, dadapter.decode_token
+        del sched._commit_spec_row
     calls = adapter.chunk_stats["calls"] - calls0
     done = {r: sched.result(r) for r in lows + ["hi0", "hi1"]}
     victims = sorted(r for r, d in done.items() if d._preemptions)
@@ -2656,11 +2798,39 @@ def serve_preempt_run(model, traffic, layers):
     resumed_victims = [r for r in victims if r != cancelled]
     oracle = {}
     if resumed_victims:
-        oracle = oracle_check(model, done, captured, resumed_victims[:1],
-                              COSINE_GATE, problems)
+        oracle = oracle_check(model, done,
+                              committed_captures(done, captured),
+                              resumed_victims[:1], COSINE_GATE, problems)
     else:
         problems.append("no victim resumed")
-    lp, kinds = launch_problems(launches, adapter, calls, row_kinds, "auto")
+    spec = None
+    if dadapter is None:
+        lp, kinds = launch_problems(launches, adapter, calls, row_kinds,
+                                    "auto")
+    else:
+        t_calls["prefill_chunk"] = calls
+        lp = spec_launch_problems(launches, row_kinds, t_calls, d_calls,
+                                  model.config.num_hidden_layers, n_draft)
+        kinds = sorted(set().union(*map(
+            set, adapter.attend_kinds_by_bucket.values())))
+        st = dict(sched.spec_stats)
+        spec = {"draft_layers": n_draft, "draft_k": SPEC_K,
+                "draft_num_pages": dadapter.caches[0].num_pages,
+                "spec_stats": st, "target_calls": t_calls,
+                "draft_calls": d_calls,
+                "acceptance": st["accepted_draft_tokens"]
+                / max(1, st["proposed_tokens"]),
+                "windows": spec_window_stats(windows, ())}
+        wrong, _ = argmax_problems(
+            {r: d for r, d in done.items() if d.finished}, preds)
+        problems += wrong
+        if st["draft_discards"] < 1 or st["refill_tokens"] < 1:
+            problems.append(f"draft discards {st['draft_discards']}, "
+                            f"refill tokens {st['refill_tokens']}")
+        if t_calls["decode_token"] or t_calls["decode_window"]:
+            problems.append(f"target calls besides prefill_chunk: {t_calls}")
+        if any(c.num_free_pages != c.num_pages for c in dadapter.caches):
+            problems.append("a draft pool did not drain")
     problems += lp
     if sched.swap_space.used_bytes:
         problems.append(f"swap space holds {sched.swap_space.used_bytes} "
@@ -2674,7 +2844,7 @@ def serve_preempt_run(model, traffic, layers):
     ins = [s for s in swaps if s["op"] == "swap_in"]
     ttft_high = {r: (tok_times[r][0] - t_high) * 1e3 for r in ("hi0", "hi1")
                  if tok_times.get(r)}
-    emit("serve_preempt", model="llama3_8b", layers=cfg.num_hidden_layers,
+    emit(run, model="llama3_8b", layers=cfg.num_hidden_layers,
          depth_cut=None if layers is None else
          f"{layers} of 32 layers (--layers)", ragged_attention="auto",
          kv_cache_dtype="bfloat16", page_size=page, num_pages=num_pages,
@@ -2694,10 +2864,377 @@ def serve_preempt_run(model, traffic, layers):
          ttft_high_ms=ttft_high,
          generated_tokens=sum(len(d.generated_ids) for d in done.values()),
          launches=launches, attention_kinds=kinds, oracle=oracle,
-         cosine_gate=COSINE_GATE, problems=problems)
+         cosine_gate=COSINE_GATE, spec=spec, problems=problems)
     if problems:
-        raise RuntimeError("serve_preempt phase failed: "
-                           + "; ".join(problems))
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------- speculative serving
+
+
+@contextlib.contextmanager
+def spec_decode_mode(mode):
+    """``FLAGS_spec_decode`` set for a block, restored after."""
+    from paddle_tpu_torch.framework.flags import flag, set_flags
+
+    prev = flag("spec_decode")
+    set_flags({"FLAGS_spec_decode": mode})
+    try:
+        yield
+    finally:
+        set_flags({"FLAGS_spec_decode": prev})
+
+
+def record_spec_calls(adapter, draft, preds, captured, spoiled=()):
+    """Counts the target's and the draft's model calls by kind (wrapping
+    the target's ``decode_token`` and ``decode_window`` and the draft's
+    ``prefill_chunk`` and ``decode_token`` as instance attributes; the
+    target's ``prefill_chunk`` is :func:`record_prefill_chunk`'s). The
+    target's ``decode_window`` logits go into ``preds`` (argmax) and
+    ``captured`` (the watched requests) by position, as
+    ``record_prefill_chunk`` keeps them. Where ``(request, position)`` is
+    in ``spoiled``, the draft's logits row that predicts that position
+    has its argmax masked to -inf, so that the draft proposes its second
+    choice there. Returns ``(target_calls, draft_calls)``."""
+    t_calls = {"decode_token": 0, "decode_window": 0}
+    d_calls = {"prefill_chunk": 0, "decode_token": 0}
+    window_fn, token_fn = adapter.decode_window, adapter.decode_token
+    d_chunk, d_token = draft.prefill_chunk, draft.decode_token
+
+    def decode_window(token_windows, seq_ids):
+        base = [adapter.caches[0].seq_len(s) for s in seq_ids]
+        out = window_fn(token_windows, seq_ids)
+        t_calls["decode_window"] += 1
+        am = out.float().argmax(-1).tolist()
+        for i, s in enumerate(seq_ids):
+            got = preds.setdefault(s, {})
+            for j, t in enumerate(am[i]):
+                got[base[i] + j] = t
+                if s in captured:
+                    captured[s][base[i] + j] = out[i, j].float()
+        return out
+
+    def decode_token(token_ids, seq_ids):
+        t_calls["decode_token"] += 1
+        return token_fn(token_ids, seq_ids)
+
+    def spoil(out, seq_ids, predicted):
+        rows = [i for i, (s, p) in enumerate(zip(seq_ids, predicted))
+                if (s, p) in spoiled]
+        if rows:
+            out = out.clone()  # the adapter's is an inference tensor
+            for i in rows:
+                out[i, out[i].argmax()] = float("-inf")
+        return out
+
+    def draft_prefill_chunk(token_ids, seq_ids, start_positions=None,
+                            pad_to=None, logits_rows=None):
+        d_calls["prefill_chunk"] += 1
+        out = d_chunk(token_ids, seq_ids, start_positions, pad_to=pad_to,
+                      logits_rows=logits_rows)
+        return spoil(out, seq_ids, [int(p) + len(t) for p, t in
+                                    zip(start_positions, token_ids)])
+
+    def draft_decode_token(token_ids, seq_ids):
+        d_calls["decode_token"] += 1
+        lens = [draft.caches[0].seq_len(s) for s in seq_ids]
+        return spoil(d_token(token_ids, seq_ids), seq_ids,
+                     [n + 1 for n in lens])
+
+    adapter.decode_window, adapter.decode_token = decode_window, decode_token
+    draft.prefill_chunk, draft.decode_token = (draft_prefill_chunk,
+                                               draft_decode_token)
+    return t_calls, d_calls
+
+
+def record_windows(sched):
+    """Wraps ``sched._commit_spec_row`` (an instance attribute: ``del
+    sched._commit_spec_row`` restores the method) to list every verify
+    window: its request, its first position, the draft's proposals and
+    what the scheduler committed."""
+    windows = []
+    commit = sched._commit_spec_row
+
+    def recording(s, props_i, preds_i, base_t, base_d):
+        committed, retired = commit(s, props_i, preds_i, base_t, base_d)
+        windows.append({"req": s, "base": base_t, "props": list(props_i),
+                        "committed": committed, "retired": retired})
+        return committed, retired
+
+    sched._commit_spec_row = recording
+    return windows
+
+
+def committed_prefix_problem(sched, adapter):
+    """After a step: the target pool holds exactly each decoding
+    request's committed prefix (the prompt and every generated token
+    but the newest, which the next round feeds), and no draft chain is
+    ahead of it. Returns the first request that breaks this, or None."""
+    for r in sched._active.values():
+        if not r.generated_ids:
+            continue
+        n = adapter.caches[0].seq_len(r.req_id)
+        want = len(r.prompt_ids) + len(r.generated_ids) - 1
+        d = sched.draft.caches[0].seq_len(r.req_id)
+        if n != want or d > n:
+            return (f"{r.req_id}: target pool {n} tokens, draft {d}, "
+                    f"committed prefix {want}")
+    return None
+
+
+def spec_launch_problems(launches, t_rows, t_calls, d_calls, n_layers,
+                         n_draft):
+    """Exact launch counts of a speculative run: one RMSNorm per layer
+    norm and the final one per target and draft call, one more per
+    target call with ``logits_rows`` (the verify rows' final norm); one
+    ragged attention launch per layer of each ``prefill_chunk`` and
+    ``decode_token`` call (``decode_window`` is plain torch); no decode
+    kernel launch."""
+    want = {
+        "rms_norm": (2 * n_layers + 1) * (t_calls["prefill_chunk"]
+                                          + t_calls["decode_token"]
+                                          + t_calls["decode_window"])
+        + t_rows["logits_rows"]
+        + (2 * n_draft + 1) * (d_calls["prefill_chunk"]
+                               + d_calls["decode_token"]),
+        "paged_ragged_attention": n_layers * (t_calls["prefill_chunk"]
+                                              + t_calls["decode_token"])
+        + n_draft * (d_calls["prefill_chunk"] + d_calls["decode_token"]),
+        "paged_decode_attention": 0}
+    return [f"{k} launches {launches.get(k, 0)} != {v}"
+            for k, v in want.items() if launches.get(k, 0) != v]
+
+
+def spec_window_stats(windows, spoiled):
+    """Over the windows that did not retire their request (a retire may
+    stop a window short): the n_acc histogram (n_acc = the committed
+    tokens less the target's own), the accepted share, the rollbacks
+    (n_acc < draft_k) and, with ``spoiled``, the share of windows whose
+    n_acc is the index of their first spoiled proposal (draft_k where
+    none is)."""
+    hist = [0] * (SPEC_K + 1)
+    as_spoiled = 0
+    for w in windows:
+        if w["retired"]:
+            continue
+        n_acc = w["committed"] - 1
+        hist[n_acc] += 1
+        first = next((j for j in range(SPEC_K)
+                      if (w["req"], w["base"] + 1 + j) in spoiled), SPEC_K)
+        as_spoiled += n_acc == first
+    n = sum(hist)
+    return {"windows": len(windows), "full_windows": n, "n_acc_hist": hist,
+            "rollbacks": n - hist[SPEC_K],
+            "n_acc_as_spoiled_share": as_spoiled / max(1, n) if spoiled
+            else None}
+
+
+def argmax_problems(done, preds):
+    """Every committed token must be the argmax of the target's own
+    logits at the position before it (the latest logits there: a window
+    that committed tokens is never recomputed below its last one)."""
+    wrong = total = 0
+    for rid, r in done.items():
+        p0 = len(r.prompt_ids)
+        for j, t in enumerate(r.generated_ids):
+            total += 1
+            wrong += preds.get(rid, {}).get(p0 + j - 1) != t
+    return ([f"{wrong} of {total} committed tokens are not the target's "
+             "argmax"] if wrong else []), total
+
+
+def committed_captures(done, captured):
+    """The watched requests' captured logits at the positions that sampled
+    a committed token only (a retiring window leaves logits of positions
+    past the last committed token)."""
+    out = {}
+    for rid, by_pos in captured.items():
+        r = done[rid]
+        end = len(r.prompt_ids) + len(r.generated_ids) - 1
+        out[rid] = {p: v for p, v in by_pos.items() if p < end}
+    return out
+
+
+def serve_spec_run(run, model, prompts, layers, draft_layers, spec, spoil,
+                   seed, base=None):
+    """Serves the 8 prompts (SPEC_SERVE_NEW new tokens each, greedy,
+    ``max_batch_size=8``, ``prefill_chunk_tokens=248``) through
+    ``BatchScheduler(adapter, draft_model=draft_adapter,
+    draft_k=SPEC_K)`` under ``FLAGS_spec_decode=spec`` and
+    ``FLAGS_ragged_attention=auto``, target and draft pools of
+    SERVE_PAGES bf16 pages of 16; the draft is the target's first
+    ``draft_layers`` layers (every layer: a self-draft). With ``spoil``
+    the draft's proposals for a seeded SPEC_SPOIL_SHARE of the positions
+    are its second choice. Gates: every committed token the target's
+    argmax at its position; two requests' logits against the float32
+    oracle; after every step the target pool holds the committed prefix;
+    exact launch counts; ``spec_stats["committed_tokens"]`` plus the
+    first tokens (the prefill's) equal to the generated tokens; ragged:
+    one target ``prefill_chunk`` a round and no other target call;
+    legacy: one ``decode_window`` a round; the self-draft accepting
+    >= SPEC_SELF_ACCEPT_GATE of its proposals; ``serve_spec_skip2`` and
+    the spoiled run rolling back at least once, the spoiled one's n_acc
+    at its first spoiled proposal in >= SPEC_SELF_ACCEPT_GATE of its
+    windows; every pool free at the end. ``base``: the ``serve`` run's
+    result, whose tokens the run's are compared with (a share, not a
+    gate: the T = 1 and T > 1 attention routes round differently, so a
+    near-tie can differ). Emits the run's line; returns the launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    n_draft = n_layers if draft_layers is None else min(draft_layers,
+                                                        n_layers)
+    adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES, page_size=16)
+    dadapter = PagedLlamaAdapter(layer_skip_draft(model, n_draft),
+                                 num_pages=SERVE_PAGES, page_size=16)
+    rids = [f"r{i}" for i in range(len(prompts))]
+    spoiled = set()
+    if spoil:
+        rng = np.random.RandomState(seed + 13)
+        spoiled = {(r, q) for r, p in zip(rids, prompts)
+                   for q in range(len(p) + 1,
+                                  len(p) + SPEC_SERVE_NEW + SPEC_K + 1)
+                   if rng.rand() < SPEC_SPOIL_SHARE}
+    watch = {"r0", "r1"}
+    preds = {}
+    captured, t_rows = record_prefill_chunk(adapter, watch, preds)
+    t_calls, d_calls = record_spec_calls(adapter, dadapter, preds, captured,
+                                         spoiled)
+    tok_times = {}
+
+    def on_token(req, tok, is_prompt):
+        if not is_prompt:
+            tok_times.setdefault(req.req_id, []).append(time.perf_counter())
+
+    problems = []
+    with ragged_mode("auto"), spec_decode_mode(spec):
+        # warm-up: one short request (cuBLAS handles, GEMM heuristics)
+        warm = BatchScheduler(adapter, draft_model=dadapter,
+                              draft_k=SPEC_K, max_batch_size=8,
+                              prefill_chunk_tokens=248)
+        warm.submit(Request("warm", prompts[0][:16], max_new_tokens=6))
+        warm.run_until_complete()
+        sched = BatchScheduler(adapter, draft_model=dadapter,
+                               draft_k=SPEC_K, max_batch_size=8,
+                               prefill_chunk_tokens=248)
+        windows = record_windows(sched)
+        for rid, p in zip(rids, prompts):
+            sched.submit(Request(rid, p, max_new_tokens=SPEC_SERVE_NEW,
+                                 on_token=on_token))
+        for d in (t_rows, t_calls, d_calls):
+            for k in d:
+                d[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step, steps = [], 0
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        while sched.num_active or sched.num_queued:
+            before = (t_rows["calls"] + t_calls["decode_token"]
+                      + t_calls["decode_window"])
+            ev = sched.step()
+            steps += 1
+            after = (t_rows["calls"] + t_calls["decode_token"]
+                     + t_calls["decode_window"])
+            per_step.append((after - before, ev.get("spec_verify_rows", 0)))
+            bad = committed_prefix_problem(sched, adapter)
+            if bad and not any("committed prefix" in p for p in problems):
+                problems.append(f"after step {steps}, {bad}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    # back to the methods: the wrappers close over their objects, and the
+    # reference cycles would keep the pools alive into the next run
+    del adapter.prefill_chunk, adapter.decode_window, adapter.decode_token
+    del dadapter.prefill_chunk, dadapter.decode_token
+    del sched._commit_spec_row
+    t_calls["prefill_chunk"] = t_rows["calls"]
+    done = {r: sched.result(r) for r in rids}
+    gen = sum(len(r.generated_ids) for r in done.values())
+    prompt_lens = [len(p) for p in prompts]
+    st = dict(sched.spec_stats)
+    if any(len(r.generated_ids) != SPEC_SERVE_NEW for r in done.values()):
+        problems.append(f"a request did not generate {SPEC_SERVE_NEW} "
+                        "tokens")
+    wrong, _ = argmax_problems(done, preds)
+    problems += wrong
+    oracle = oracle_check(model, done, committed_captures(done, captured),
+                          watch, COSINE_GATE, problems)
+    problems += spec_launch_problems(launches, t_rows, t_calls, d_calls,
+                                     n_layers, n_draft)
+    if st["committed_tokens"] + len(done) != gen:
+        problems.append(f"spec_stats committed {st['committed_tokens']} + "
+                        f"{len(done)} first tokens != {gen} generated")
+    ws = spec_window_stats(windows, spoiled)
+    accept = st["accepted_draft_tokens"] / max(1, st["proposed_tokens"])
+    if spec == "ragged":
+        if t_calls["decode_token"] or t_calls["decode_window"]:
+            problems.append(f"target calls besides prefill_chunk: {t_calls}")
+        if any(n > 1 or (v and n != 1) for n, v in per_step):
+            problems.append("a step made more than one target call, or a "
+                            "verify round none")
+        if t_rows["logits_rows"] != st["rounds"]:
+            problems.append(f"{t_rows['logits_rows']} verify calls for "
+                            f"{st['rounds']} rounds")
+    elif t_calls["decode_window"] != st["rounds"]:
+        problems.append(f"{t_calls['decode_window']} decode_window calls "
+                        f"for {st['rounds']} rounds")
+    if draft_layers is None and not spoil and accept < SPEC_SELF_ACCEPT_GATE:
+        problems.append(f"self-draft accepted {accept:.3f} of its "
+                        f"proposals < {SPEC_SELF_ACCEPT_GATE}")
+    if (draft_layers is not None or spoil) and not ws["rollbacks"]:
+        problems.append("no window was rolled back")
+    if spoil and ws["n_acc_as_spoiled_share"] < SPEC_SELF_ACCEPT_GATE:
+        problems.append(f"n_acc met the first spoiled position in "
+                        f"{ws['n_acc_as_spoiled_share']:.3f} of the "
+                        f"windows < {SPEC_SELF_ACCEPT_GATE}")
+    for ad in (adapter, dadapter):
+        for c in ad.caches:
+            c.assert_ref_invariants()
+        if any(c.num_free_pages != c.num_pages for c in ad.caches):
+            problems.append("a pool did not drain")
+    streams = {r: d.generated_ids for r, d in done.items()}
+    vs_serve = None
+    if base is not None:
+        same = [a == b for r in streams
+                for a, b in zip(streams[r], base["streams"][r])]
+        vs_serve = {"same_token_share": sum(same) / len(same),
+                    "identical_requests": sum(
+                        streams[r] == base["streams"][r] for r in streams)}
+    ttft = sorted((v[0] - t0) * 1e3 for v in tok_times.values())
+    tpot = sorted((b - a) * 1e3 for v in tok_times.values()
+                  for a, b in zip(v, v[1:]))
+    target_calls = sum(t_calls.values())
+    emit(run, model="llama3_8b", layers=n_layers,
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)", draft_layers=n_draft,
+         spec_decode=spec, draft_k=SPEC_K, spoiled_positions=len(spoiled),
+         ragged_attention="auto", kv_cache_dtype="bfloat16",
+         num_pages=SERVE_PAGES, draft_num_pages=SERVE_PAGES, page_size=16,
+         max_batch_size=8, prefill_chunk_tokens=248,
+         prompt_lens=prompt_lens, new_tokens=SPEC_SERVE_NEW, steps=steps,
+         wall_s=wall, generated_tok_per_s=gen / wall,
+         total_tok_per_s=(gen + sum(prompt_lens)) / wall,
+         generated_tokens=gen, prompt_tokens=sum(prompt_lens),
+         ttft_ms={"median": float(np.median(ttft)), "max": ttft[-1]},
+         tpot_ms={"median": float(np.median(tpot)),
+                  "p90": float(np.percentile(tpot, 90)), "n": len(tpot)},
+         target_calls=t_calls, draft_calls=d_calls,
+         generated_per_target_call=gen / max(1, target_calls),
+         committed_per_round=st["committed_tokens"] / max(1, st["rounds"]),
+         acceptance=accept, spec_stats=st, windows=ws,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, oracle=oracle, cosine_gate=COSINE_GATE,
+         acceptance_gate=SPEC_SELF_ACCEPT_GATE, versus_serve=vs_serve,
+         problems=problems)
+    if problems:
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
     return launches
 
 
@@ -3744,7 +4281,8 @@ def main(argv=None):
     # rms_norm: the serving chunk's case, and the training width's beside
     kernels = [summary("rms_norm", "rows256", beside=("rows16384",)),
                summary("layer_norm_fused", "rows16384_h768"),
-               summary("paged_ragged_attention", "mixed"),
+               summary("paged_ragged_attention", "mixed",
+                       beside=("verify", "verify_int8")),
                summary("paged_decode_attention", "decode")] + [
         summary(name, "train") for name in FLASH] + [
         summary(name, "varlen_train") for name in VARLEN]

@@ -105,3 +105,17 @@ define_flag("serving_preempt", True,
             "progress) are swapped out to the host tier "
             "(FLAGS_serving_swap_bytes) instead of the request being "
             "blocked behind them. Off restores wait-in-queue admission")
+define_flag("spec_decode", "ragged",
+            "speculative-decoding lowering for the paged serving "
+            "scheduler (inference/serving.py, draft_model= set): "
+            "'ragged' (default) packs each spec-active sequence's "
+            "draft-k verify window as ONE right-aligned (k+1)-token row "
+            "of the ordinary prefill_chunk ragged step (per-position "
+            "logits out of the epilogue; the draft proposes through its "
+            "own chunked step); 'legacy' runs k sequential "
+            "draft.decode_token proposals and one dense-gather "
+            "decode_window verify; 'off' ignores the draft model and "
+            "serves plain greedy decode. Ragged mode also composes with "
+            "prefix caching and host-swap preemption (the draft KV is "
+            "discarded at swap-out and refilled from the committed "
+            "prefix after a swap-in or a prefix hit)")

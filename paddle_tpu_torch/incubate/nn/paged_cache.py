@@ -804,6 +804,21 @@ class PagedKVCacheManager:
         return torch.tensor([self._lens[s] for s in seq_ids],
                             dtype=torch.int32, device=self.device)
 
+    def dense_kv(self, seq_ids):
+        """Dense gather of the listed sequences' pages: ``(page_table (B,
+        MP) int32, k (B, MP, P, KVH, D), v (...))``. Float pools return
+        their pages as stored; int8 pages come back dequantized to
+        float32 against their scale rows, so a reader never touches the
+        scales itself (the legacy speculative verify reads the pool this
+        way)."""
+        tbl = self.page_table(seq_ids)
+        idx = tbl.long()
+        kd, vd = self.k_pages[idx], self.v_pages[idx]
+        if self.quantized:
+            kd = kd.float() * self.k_scales[idx][:, :, None, :, None]
+            vd = vd.float() * self.v_scales[idx][:, :, None, :, None]
+        return tbl, kd, vd
+
     @property
     def _scale_args(self):
         """The attention kernels' ``k_scales``/``v_scales`` keywords."""

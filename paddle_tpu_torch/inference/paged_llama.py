@@ -21,10 +21,15 @@ alike; the step's device inputs are built once from the first layer's
 pool, so every pool must hold the same page tables, and each hook checks
 that they do.
 
-Not ported yet: ``decode_window`` (legacy speculative verify),
-weight-only quantized serving.
+``decode_window`` is the legacy speculative verify
+(``FLAGS_spec_decode=legacy``): a w-token window per sequence through
+one dense float32 masked attention over the gathered pages.
+
+Not ported yet: weight-only quantized serving.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -454,6 +459,65 @@ class PagedLlamaAdapter:
             return last
         full = self.model._head(self.model.model.norm(x[vidx]))
         return last, full
+
+    @torch.inference_mode()
+    def decode_window(self, token_windows, seq_ids):
+        """Verify a w-token window per sequence in ONE forward pass (the
+        legacy speculative verify): appends all w tokens of
+        ``token_windows`` (B, w) to the pools (a rejection rolls back with
+        ``cache.truncate``) and returns logits (B, w, vocab), ``[:, j]``
+        conditioned on everything through window token j.
+
+        The w queries attend over each sequence's pages gathered densely
+        (:meth:`PagedKVCacheManager.dense_kv`, int8 pages dequantized)
+        through one float32 masked attention, causal and, with a sliding
+        window, windowed: plain torch, as the reference's is XLA."""
+        cfg = self.cfg
+        toks = np.asarray(token_windows, np.int64)
+        b, w = toks.shape
+        nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        group = nh // nkv
+        lens0 = [self.caches[0].seq_len(s) for s in seq_ids]
+        over = [s for s, n in zip(seq_ids, lens0) if n + w > self.max_length]
+        if over:
+            raise ValueError(
+                f"sequences {over} would exceed max_length="
+                f"{self.max_length} verifying a {w}-token window")
+        ids, pos = copy_to_device(
+            [toks, np.asarray(lens0)[:, None] + np.arange(w)[None, :]],
+            self.device, torch.int64)                      # (B, w) each
+        x = self.model.model.embed_tokens(ids)             # (B, w, E)
+        for li, layer in enumerate(self.model.model.layers):
+            att = layer.self_attn
+            xi = layer.input_layernorm(x)
+            qh = att.q_proj(xi).reshape(b, w, nh, hd)
+            kh = att.k_proj(xi).reshape(b, w, nkv, hd)
+            vh = att.v_proj(xi).reshape(b, w, nkv, hd)
+            qh = apply_rotary_emb(qh, self._cos, self._sin, position_ids=pos)
+            kh = apply_rotary_emb(kh, self._cos, self._sin, position_ids=pos)
+            c = self.caches[li]
+            for j in range(w):
+                c.append_batch(seq_ids, kh[:, j], vh[:, j])
+            tbl, kd, vd = c.dense_kv(seq_ids)      # (B, MP, P, KVH, D)
+            n_keys = tbl.shape[1] * c.page_size
+            kd = kd.reshape(b, n_keys, nkv, hd).float()
+            vd = vd.reshape(b, n_keys, nkv, hd).float()
+            if group > 1:
+                kd = kd.repeat_interleave(group, dim=2)
+                vd = vd.repeat_interleave(group, dim=2)
+            s = torch.einsum("bwhd,bkhd->bhwk", qh.float(), kd) \
+                / math.sqrt(hd)
+            kpos = torch.arange(n_keys, device=self.device)
+            qpos = pos[:, None, :, None]
+            ok = kpos <= qpos                          # causal in the window
+            if self._window:
+                ok = ok & (kpos > qpos - self._window)
+            p = torch.softmax(s.masked_fill(~ok, -1e30), dim=-1)
+            attn = torch.einsum("bhwk,bkhd->bwhd", p, vd)
+            x = x + att.o_proj(attn.to(x.dtype).reshape(b, w, nh * hd))
+            x = x + layer.mlp(layer.post_attention_layernorm(x))
+        return self.model._head(self.model.model.norm(x))   # (B, w, V)
 
     def _attend_rows_two_kernel(self, cache, qh, attn, plans):
         """``FLAGS_ragged_attention=off``: decode rows through the decode

@@ -40,14 +40,31 @@ cancel` does the same for one request on demand. With every priority 0
 no victim qualifies, so the default behaviour is FIFO admission that
 waits for pages.
 
+Speculative decoding (``draft_model=``, greedy only): a draft adapter
+with its own page pools proposes ``draft_k`` tokens a decode row and
+round, the target verifies the window, and the longest proposal prefix
+that matches the target's argmax commits together with the target's
+next token (:meth:`BatchScheduler._commit_spec_row`); ``truncate`` rolls
+both pools back past the first mismatch. Two lowerings
+(``FLAGS_spec_decode`` / ``spec_decode=``): ``ragged`` packs each verify
+window as one right-aligned ``draft_k + 1``-token row of the ordinary
+``prefill_chunk`` step (one target call a round, per-position logits
+through ``logits_rows=``), and composes with the prefix cache and
+preemption: a draft chain behind the target's, after a prefix hit or a
+swap-in, is refilled from the committed tokens under the chunk budget;
+``legacy`` runs ``draft_k + 1`` draft ``decode_token`` calls and one
+target ``decode_window`` a round, and refuses the prefix cache and
+preemption. ``off`` ignores the draft. Either way the output is the
+non-speculative greedy scheduler's, token for token.
+
 The scheduler is host-side bookkeeping only. Not ported yet, and
-refused at construction rather than ignored: speculative decoding
-(``draft_model``, ``spec_decode``), fault injection, SLO accounting and
-the watchdog.
+refused at construction rather than ignored: fault injection, SLO
+accounting and the watchdog.
 """
 from __future__ import annotations
 
 import collections
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
@@ -159,10 +176,28 @@ def _not_ported(what):
         f"BatchScheduler: {what} is not ported to paddle_tpu_torch yet")
 
 
+def _accepts_logits_rows(model) -> bool:
+    """True when ``model.prefill_chunk`` takes the per-position logits
+    epilogue (``logits_rows=``) the ragged speculative step verifies
+    windows through."""
+    fn = getattr(model, "prefill_chunk", None)
+    if fn is None:
+        return False
+    try:
+        return "logits_rows" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def _logits_to_host(logits) -> np.ndarray:
     if isinstance(logits, torch.Tensor):
         return logits.float().cpu().numpy()
     return np.asarray(logits)
+
+
+def _argmax_rows(logits, n) -> list:
+    """The greedy token of each of the first ``n`` logits rows."""
+    return np.argmax(_logits_to_host(logits)[:n], axis=-1).tolist()
 
 
 class BatchScheduler:
@@ -187,10 +222,7 @@ class BatchScheduler:
                  max_queue=None, max_inflight_per_tenant=None,
                  preempt=None, swap_bytes=None, fault_injector=None,
                  spec_decode=None):
-        for what, val in (("speculative decoding (draft_model)",
-                           draft_model),
-                          ("spec_decode", spec_decode),
-                          ("fault injection (fault_injector)",
+        for what, val in (("fault injection (fault_injector)",
                            fault_injector),
                           ("SLO accounting (slo)", slo),
                           ("the watchdog", watchdog)):
@@ -203,6 +235,17 @@ class BatchScheduler:
         self._queue = collections.deque()
         self._active = {}
         self._finished = {}
+        # the speculative lowering: 'ragged' packs verify windows as rows
+        # of the ordinary prefill_chunk step, 'legacy' verifies through
+        # decode_window, 'off' ignores the draft
+        self.spec_mode = str(flag("spec_decode") if spec_decode is None
+                             else spec_decode).lower()
+        if self.spec_mode not in ("off", "legacy", "ragged"):
+            raise ValueError(
+                "spec_decode must be 'off', 'legacy' or 'ragged', "
+                f"got {self.spec_mode!r} (FLAGS_spec_decode)")
+        if self.spec_mode == "off":
+            draft_model = None
         if chunked_prefill is None:
             chunked_prefill = hasattr(model, "prefill_chunk")
         if chunked_prefill and not hasattr(model, "prefill_chunk"):
@@ -217,12 +260,30 @@ class BatchScheduler:
         self.serving_buckets = _parse_buckets(
             serving_buckets if serving_buckets is not None
             else flag("serving_buckets"))
+        # the speculative prompt phase rides chunked prefill only when
+        # the draft adapter can mirror the chunks too
+        self._spec_chunked = self.chunked_prefill and (
+            draft_model is None or hasattr(draft_model, "prefill_chunk"))
+        # ragged spec needs chunked prefill on both adapters and the
+        # target's per-position logits epilogue
+        self._spec_ragged = bool(
+            draft_model is not None and self.spec_mode == "ragged"
+            and self._spec_chunked and _accepts_logits_rows(model))
         self.chunk_stats = {
             "steps": 0, "chunk_calls": 0, "prefill_tokens": 0,
             "decode_tokens": 0, "packed_tokens": 0, "padded_tokens": 0,
         }
         # cross-request prefix KV cache: True builds a RadixPrefixCache
         # over the model's own caches; or pass a built one
+        if prefix_cache and draft_model is not None \
+                and not self._spec_ragged:
+            raise ValueError(
+                "prefix caching is not supported with LEGACY speculative "
+                "decoding: the draft adapter keeps its OWN KV pool, so a "
+                "cached (skipped) target prefill would leave the draft "
+                "cache without the prompt; spec_decode='ragged' lifts "
+                "this (the ragged spec step refills a lagging draft cache "
+                "from the committed prefix)")
         if prefix_cache is True:
             prefix_cache = RadixPrefixCache(list(model.caches))
         self.prefix_cache = prefix_cache or None
@@ -240,6 +301,22 @@ class BatchScheduler:
             "prompt_tokens": 0, "hit_tokens": 0,
             "inserted_tokens": 0,
         }
+        # speculative decoding: the draft proposes draft_k tokens a row
+        # and round; greedy acceptance keeps the output token-identical
+        # to the non-speculative scheduler
+        self.draft = draft_model
+        self.draft_k = int(draft_k)
+        if draft_model is not None and sampler is not None:
+            raise ValueError(
+                "speculative scheduling is greedy-only (a custom sampler "
+                "would break the token-identity guarantee); use "
+                "models.speculative_generate for sampled speculative "
+                "decoding")
+        self.spec_stats = {"rounds": 0, "target_calls": 0,
+                           "draft_calls": 0, "committed_tokens": 0,
+                           "proposed_tokens": 0,
+                           "accepted_draft_tokens": 0,
+                           "refill_tokens": 0, "draft_discards": 0}
         # overload: bounded submit queue, per-tenant in-flight cap,
         # preemption onto the host swap tier, deadline aborts
         self.max_queue = int(flag("serving_max_queue")
@@ -253,23 +330,35 @@ class BatchScheduler:
                        if preempt is None else preempt)
         swap_bytes = int(flag("serving_swap_bytes")
                          if swap_bytes is None else swap_bytes)
+        # legacy spec keeps wait-in-queue admission: swapping the target
+        # out without its draft pool would desynchronize them. Under
+        # ragged spec the draft KV is discarded at swap-out and refilled
+        # after swap-in (the draft pool itself never swaps)
         self.swap_space = (HostKVSwapSpace(swap_bytes)
-                           if preempt and swap_bytes > 0 else None)
+                           if preempt and swap_bytes > 0
+                           and (draft_model is None or self._spec_ragged)
+                           else None)
         # per-step overload annotations (preempted / resumed / aborted)
         self._step_extras = {}
         self._admitted_step = 0
 
     # -- pool accounting ---------------------------------------------------
-    def _pool(self):
-        caches = list(self.model.caches)
+    def _pool(self, model=None):
+        caches = list((model or self.model).caches)
         total = sum(c.num_pages for c in caches)
         free = sum(c.num_free_pages for c in caches)
         return total, free
 
-    def _pages_needed(self, req: Request, hit_tokens=0) -> int:
+    def _spec_slack(self) -> int:
+        """Tokens a verify window appends past the committed prefix
+        before its rollback: ``draft_k + 1`` with a draft, else 0."""
+        return self.draft_k + 1 if self.draft is not None else 0
+
+    def _pages_needed(self, req: Request, model=None, hit_tokens=0) -> int:
         need = 0
-        for c in self.model.caches:
-            n = -(-req.total_tokens() // c.page_size)
+        worst = req.total_tokens() + self._spec_slack()
+        for c in (model or self.model).caches:
+            n = -(-worst // c.page_size)
             # a prefix hit shares its FULL pages; the hit's partial tail
             # page still costs one draw (the COW fork on the first
             # divergent write), so only full pages reduce the worst case
@@ -286,7 +375,8 @@ class BatchScheduler:
         guard."""
         n = c.seq_len(req.req_id)
         have = -(-n // c.page_size) if n else 0
-        rem = -(-req.total_tokens() // c.page_size) - have
+        rem = -(-(req.total_tokens() + self._spec_slack()) // c.page_size) \
+            - have
         if c.pending_cow(req.req_id):
             rem += 1
         return max(rem, 0)
@@ -323,6 +413,21 @@ class BatchScheduler:
         if self.swap_space is not None:
             stats["swap"] = self.swap_space.summary()
             stats["swap"]["swapped_requests"] = len(self._swapped)
+        if self.draft is not None:
+            d_total, d_free = self._pool(self.draft)
+            stats["draft"] = {"total_pages": d_total, "free_pages": d_free}
+            # committed / proposed over the scheduler's lifetime
+            ss = self.spec_stats
+            proposed, rounds = ss["proposed_tokens"], ss["rounds"]
+            stats["spec"] = {
+                "mode": "ragged" if self._spec_ragged else "legacy",
+                "rounds": rounds,
+                "committed_tokens": ss["committed_tokens"],
+                "accept_rate": (round(ss["accepted_draft_tokens"]
+                                      / proposed, 4) if proposed else None),
+                "tokens_per_round": (round(ss["committed_tokens"] / rounds,
+                                           3) if rounds else None),
+            }
         return stats
 
     # -- request lifecycle -------------------------------------------------
@@ -334,6 +439,9 @@ class BatchScheduler:
         # context-length bound: rejecting at submit beats a mid-batch
         # crash for every co-batched request
         limit = getattr(self.model, "max_length", None)
+        if limit is not None:
+            # leave room for a verify window's overshoot
+            limit -= self._spec_slack()
         if limit is not None and req.total_tokens() > limit:
             raise ValueError(
                 f"request {req.req_id!r} needs {req.total_tokens()} "
@@ -478,6 +586,23 @@ class BatchScheduler:
                 if hit_len:
                     self.prefix_cache.unpin(hit.path)
                 return hit_tokens_admitted
+            if self.draft is not None:
+                # the draft pool is budgeted too (it may be sized
+                # differently), conservatively: the full worst-case draft
+                # need of every active request (used pages count toward
+                # it) and this one's must fit under the watermark
+                need_d = self._pages_needed(req, self.draft)
+                total_d, free_d = self._pool(self.draft)
+                out_d = sum(self._pages_needed(r, self.draft)
+                            for r in self._active.values())
+                if max(out_d, total_d - free_d) + need_d > \
+                        self.page_watermark * total_d:
+                    # (the reference returns here with the match still
+                    # pinned; the port releases it as the pool refusal
+                    # above does)
+                    if hit_len:
+                        self.prefix_cache.unpin(hit.path)
+                    return hit_tokens_admitted
             self._pop_queued(req)
             self._match_memo = None
             if hit_len:
@@ -500,6 +625,8 @@ class BatchScheduler:
                 self.prefix_stats["hit_tokens"] += hit_len
                 if hit_len:
                     self.prefix_stats["request_hits"] += 1
+            if self.draft is not None:
+                self.draft.alloc(req.req_id)
             req.state = RequestState.PREFILL
             self._active[req.req_id] = req
             self._admitted_step += 1
@@ -528,8 +655,9 @@ class BatchScheduler:
                 break
             if self._tenant_full(req.tenant):
                 continue
+            worst = req.total_tokens() + self._spec_slack()
             need = sum(c.swap_in_pages_needed(req.req_id, self.swap_space,
-                                              req.total_tokens())
+                                              worst)
                        for c in self.model.caches)
             total, free = self._pool()
             projected = (total - free) + self._reserved_pages_outstanding() \
@@ -554,6 +682,11 @@ class BatchScheduler:
         rid = req.req_id
         self.model.swap_in(rid, self.swap_space)
         del self._swapped[rid]
+        if self.draft is not None:
+            # a fresh (empty) draft chain: the ragged step's refill rows
+            # rebuild it from the committed prefix over the next steps,
+            # and the row verifies again once the draft has caught up
+            self.draft.alloc(rid)
         req.state = (RequestState.DECODE if req.generated_ids
                      else RequestState.PREFILL)
         self._active[rid] = req
@@ -612,6 +745,12 @@ class BatchScheduler:
         if not space.would_fit(est):
             return False
         self.model.swap_out(rid, space)
+        if self.draft is not None:
+            # ragged spec only (legacy builds no swap space with a
+            # draft): the draft KV is disposable, discarded here and
+            # refilled after the swap-in; the draft pool never swaps
+            self.draft.free(rid)
+            self.spec_stats["draft_discards"] += 1
         req.state = RequestState.SWAPPED
         req._preemptions += 1
         self._active.pop(rid)
@@ -647,6 +786,8 @@ class BatchScheduler:
             req._prefix_path = ()
         if where == "active":
             self.model.free(rid)
+            if self.draft is not None:
+                self.draft.free(rid)
             self._active.pop(rid)
         elif where == "swapped":
             for c in self.model.caches:
@@ -706,6 +847,8 @@ class BatchScheduler:
                 self.prefix_cache.unpin(req._prefix_path)
                 req._prefix_path = ()
         self.model.free(rid)
+        if self.draft is not None:
+            self.draft.free(rid)
         req.state = RequestState.FINISHED
         del self._active[rid]
         self._finished[rid] = req
@@ -752,6 +895,10 @@ class BatchScheduler:
             return {"admitted": admitted, "advanced": 0, "finished": 0,
                     "prefix_hit_tokens": hit_tokens,
                     "prefill_tokens": 0, "decode_tokens": 0}
+        if self.draft is not None:
+            if self._spec_ragged:
+                return self._step_spec_ragged(admitted, hit_tokens)
+            return self._step_spec(admitted)
         if self.chunked_prefill:
             return self._step_chunked(admitted, hit_tokens)
 
@@ -874,6 +1021,278 @@ class BatchScheduler:
             "attend_programs": getattr(
                 self.model, "attend_program_count", None),
         }
+
+    # -- speculative decoding ----------------------------------------------
+    def _step_spec(self, admitted) -> dict:
+        """Legacy speculative step: prefill rows advance on BOTH adapters
+        (one ``prefill_chunk`` call each under the shared token budget
+        when both implement it, else one prompt token a step through
+        ``decode_token``); decode rows run one round each: ``draft_k``
+        draft ``decode_token`` proposals, one more feed of the last
+        proposal, and one target ``decode_window`` over the
+        ``draft_k + 1``-token windows."""
+        sids = sorted(self._active)
+        pre = [s for s in sids
+               if self._active[s].state == RequestState.PREFILL]
+        dec = [s for s in sids
+               if self._active[s].state == RequestState.DECODE]
+        finished = advanced = pre_tokens = dec_tokens = 0
+
+        if pre and self._spec_chunked:
+            rows, feeds, starts, n_pre, _ = self._chunk_feeds(pre)
+            packed = sum(len(f) for f in feeds)
+            pad_to = bucket_packed_tokens(packed, self.serving_buckets)
+            logits_np = _logits_to_host(self.model.prefill_chunk(
+                feeds, rows, starts, pad_to=pad_to))
+            # mirror the prompt chunks into the draft's own pool
+            self.draft.prefill_chunk(feeds, rows, starts, pad_to=pad_to)
+            cs = self.chunk_stats
+            cs["steps"] += 1
+            cs["chunk_calls"] += 2
+            cs["prefill_tokens"] += n_pre
+            cs["packed_tokens"] += packed
+            cs["padded_tokens"] += pad_to - packed
+            pre_tokens = n_pre
+            for bi, s in enumerate(rows):
+                finished += self._advance_prefill_row(
+                    self._active[s], feeds[bi], logits_np[bi])
+            advanced += len(rows)
+        elif pre:
+            feed = [self._active[s].prompt_ids[self._active[s]._pos]
+                    for s in pre]
+            logits_np = _logits_to_host(self.model.decode_token(feed, pre))
+            self.draft.decode_token(feed, pre)  # mirror the prompt
+            for bi, s in enumerate(pre):
+                finished += self._advance_prefill_row(
+                    self._active[s], [feed[bi]], logits_np[bi])
+            advanced += len(pre)
+            pre_tokens = len(pre)
+
+        if dec:
+            k = self.draft_k
+            base_t = {s: self.model.caches[0].seq_len(s) for s in dec}
+            base_d = {s: self.draft.caches[0].seq_len(s) for s in dec}
+            cur = [self._active[s].generated_ids[-1] for s in dec]
+            props = []
+            for _ in range(k):
+                cur = _argmax_rows(self.draft.decode_token(cur, dec),
+                                   len(dec))
+                props.append(cur)
+            # feed the k-th proposal too, so that the draft cache never
+            # lags the committed prefix (rejections roll back by truncate)
+            self.draft.decode_token(cur, dec)
+            windows = np.asarray(
+                [[self._active[s].generated_ids[-1]]
+                 + [props[j][i] for j in range(k)]
+                 for i, s in enumerate(dec)], np.int64)
+            preds = np.argmax(_logits_to_host(
+                self.model.decode_window(windows, dec)), axis=-1)
+            self.spec_stats["rounds"] += 1
+            self.spec_stats["target_calls"] += 1
+            self.spec_stats["draft_calls"] += k + 1
+            for i, s in enumerate(dec):
+                committed, retired = self._commit_spec_row(
+                    s, [props[j][i] for j in range(k)], preds[i],
+                    base_t[s], base_d[s])
+                dec_tokens += committed
+                finished += int(retired)
+            advanced += len(dec)
+
+        # the legacy lowering refuses the prefix cache (see __init__)
+        return {"admitted": admitted, "advanced": advanced,
+                "finished": finished, "prefix_hit_tokens": 0,
+                "prefill_tokens": pre_tokens, "decode_tokens": dec_tokens}
+
+    def _commit_spec_row(self, s, props_i, preds_i, base_t, base_d):
+        """Greedy acceptance for ONE decode row, the one rule of both
+        lowerings: commit the longest prefix of the draft's proposals
+        ``props_i`` that matches the target's argmax ``preds_i`` at each
+        of the ``draft_k + 1`` window positions, then the target's token
+        after it, and roll both pools back to the committed prefix
+        (everything but the newest token, which the next round feeds).
+        ``base_t``/``base_d``: the target and draft cache lengths before
+        the round. Returns ``(committed, retired)``."""
+        req = self._active[s]
+        k = len(props_i)
+        n_acc = 0
+        while n_acc < k and props_i[n_acc] == int(preds_i[n_acc]):
+            n_acc += 1
+            if req.eos_id is not None and props_i[n_acc - 1] == req.eos_id:
+                break
+        accepted = list(props_i[:n_acc])
+        if req.eos_id is None or not accepted or accepted[-1] != req.eos_id:
+            accepted.append(int(preds_i[n_acc]))
+        done = False
+        committed = 0
+        for t in accepted:
+            req.generated_ids.append(t)
+            committed += 1
+            self.spec_stats["committed_tokens"] += 1
+            if req.on_token is not None:
+                req.on_token(req, t, False)
+            if self._done(req, t):
+                done = True
+                break
+        self.spec_stats["proposed_tokens"] += k
+        self.spec_stats["accepted_draft_tokens"] += n_acc
+        if done:
+            if self.prefix_cache is not None:
+                # retire inserts the chain into the radix tree keyed by
+                # the COMMITTED tokens: drop the unverified window tail
+                # first, so that cached K/V == committed tokens
+                for c in self.model.caches:
+                    c.truncate(s, base_t + committed)
+            self._retire(req)
+            return committed, True
+        for c in self.model.caches:
+            c.truncate(s, base_t + committed)
+        for c in self.draft.caches:
+            c.truncate(s, base_d + committed)
+        return committed, False
+
+    def _step_spec_ragged(self, admitted, hit_tokens) -> dict:
+        """Ragged speculative step (``FLAGS_spec_decode=ragged``). The
+        draft proposes through its OWN chunked step: call 0 packs every
+        propose row (a decode row's newest token) with the draft-refill
+        rows and the prompt-mirror chunks, calls 1..k feed the successive
+        proposals (the k-th keeps the draft pool at the committed prefix
+        plus the window). Then ONE target ``prefill_chunk`` verifies
+        every window: each decode row is a right-aligned
+        ``draft_k + 1``-token row, listed first, beside the ordinary
+        prefill-chunk rows, and ``logits_rows=`` returns the windows'
+        per-position logits for :meth:`_commit_spec_row`. No other target
+        forward runs.
+
+        Draft-lag rows: after a prefix hit or a swap-in the draft pool is
+        behind the committed prefix. Such a decode row does not verify;
+        its draft chain is refilled from the committed tokens under the
+        chunk budget until it catches up (lag rows first, then prefill
+        rows whose draft chain is behind), and it counts as advanced."""
+        sids = sorted(self._active)
+        t_cache = self.model.caches[0]
+        d_cache = self.draft.caches[0]
+        k = self.draft_k
+        pre, dec, lag = [], [], []
+        for s in sids:
+            req = self._active[s]
+            if req.state == RequestState.PREFILL:
+                pre.append(s)
+            elif d_cache.seq_len(s) == t_cache.seq_len(s):
+                dec.append(s)
+            else:
+                lag.append(s)
+        base_t = {s: t_cache.seq_len(s) for s in dec}
+        base_d = {s: d_cache.seq_len(s) for s in dec}
+        if pre:
+            rows, feeds, starts, n_pre, _ = self._chunk_feeds(pre)
+        else:
+            rows, feeds, starts, n_pre = [], [], [], 0
+
+        # ---- the draft: propose, refill, mirror
+        props = []  # props[j][i]: the (j+1)-th proposal for dec[i]
+        lag_refilled = refill_tokens = 0
+        d_rows = list(dec)
+        d_feeds = [[self._active[s].generated_ids[-1]] for s in dec]
+        d_starts = [base_d[s] for s in dec]
+        d_budget = self.prefill_chunk_tokens
+        for s in lag + [r for r in pre
+                        if d_cache.seq_len(r) < t_cache.seq_len(r)]:
+            if d_budget <= 0:
+                break
+            req = self._active[s]
+            d_len = d_cache.seq_len(s)
+            take = min(t_cache.seq_len(s) - d_len, d_budget)
+            if take <= 0:
+                continue
+            d_budget -= take
+            allt = req.prompt_ids + req.generated_ids
+            d_rows.append(s)
+            d_feeds.append(allt[d_len:d_len + take])
+            d_starts.append(d_len)
+            refill_tokens += take
+            if req.state == RequestState.DECODE:
+                lag_refilled += 1
+        # this step's prompt chunks for draft-synced prefill rows
+        for bi, r in enumerate(rows):
+            if d_cache.seq_len(r) == starts[bi]:
+                d_rows.append(r)
+                d_feeds.append(feeds[bi])
+                d_starts.append(starts[bi])
+        if d_rows:
+            pad0 = bucket_packed_tokens(sum(len(f) for f in d_feeds),
+                                        self.serving_buckets)
+            dl = self.draft.prefill_chunk(d_feeds, d_rows, d_starts,
+                                          pad_to=pad0)
+        if dec:
+            cur = _argmax_rows(dl, len(dec))
+            props.append(cur)
+            pad_j = bucket_packed_tokens(len(dec), self.serving_buckets)
+            for j in range(1, k + 1):
+                dl = self.draft.prefill_chunk(
+                    [[c] for c in cur], dec, [base_d[s] + j for s in dec],
+                    pad_to=pad_j)
+                # the k-th proposal is fed for the pools' symmetry with
+                # the window; its logits are never sampled
+                if j < k:
+                    cur = _argmax_rows(dl, len(dec))
+                    props.append(cur)
+        self.spec_stats["refill_tokens"] += refill_tokens
+
+        # ---- the target: ONE packed ragged step, verify rows first
+        t_rows = list(dec) + rows
+        t_feeds = [[self._active[s].generated_ids[-1]]
+                   + [props[j][i] for j in range(k)]
+                   for i, s in enumerate(dec)] + feeds
+        t_starts = [base_t[s] for s in dec] + starts
+        finished = dec_tokens = 0
+        if t_rows:
+            packed = sum(len(f) for f in t_feeds)
+            pad_to = bucket_packed_tokens(packed, self.serving_buckets)
+            out = self.model.prefill_chunk(
+                t_feeds, t_rows, t_starts, pad_to=pad_to,
+                logits_rows=list(range(len(dec))) if dec else None)
+            if dec:
+                last, full = out
+                preds = np.argmax(_logits_to_host(full).reshape(
+                    len(dec), k + 1, -1), axis=-1)
+            else:
+                last = out
+            last_np = _logits_to_host(last)
+            cs = self.chunk_stats
+            cs["steps"] += 1
+            cs["chunk_calls"] += 1
+            cs["prefill_tokens"] += n_pre
+            cs["packed_tokens"] += packed
+            cs["padded_tokens"] += pad_to - packed
+            if dec:
+                self.spec_stats["rounds"] += 1
+                self.spec_stats["target_calls"] += 1
+                self.spec_stats["draft_calls"] += k + 1
+            for i, s in enumerate(dec):
+                committed, retired = self._commit_spec_row(
+                    s, [props[j][i] for j in range(k)], preds[i],
+                    base_t[s], base_d[s])
+                dec_tokens += committed
+                finished += int(retired)
+            for bi, r in enumerate(rows):
+                finished += self._advance_prefill_row(
+                    self._active[r], feeds[bi], last_np[len(dec) + bi])
+
+        ev = {
+            "admitted": admitted,
+            "advanced": len(t_rows) + lag_refilled,
+            "finished": finished,
+            "prefix_hit_tokens": hit_tokens,
+            "prefill_tokens": n_pre,
+            "decode_tokens": dec_tokens,
+            "spec_verify_rows": len(dec),
+            "compile_count": getattr(self.model, "compile_count", None),
+            "attend_programs": getattr(
+                self.model, "attend_program_count", None),
+        }
+        if t_rows:
+            ev["chunk_utilization"] = round(packed / pad_to, 4)
+        return ev
 
     def _done(self, req: Request, last_tok: int) -> bool:
         if req.eos_id is not None and last_tok == req.eos_id:

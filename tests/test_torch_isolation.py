@@ -178,7 +178,6 @@ def test_unported_training_options_raise(call):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"draft_model": object()}, {"spec_decode": "ragged"},
     {"fault_injector": object()}, {"slo": object()},
     {"watchdog": object()},
 ], ids=lambda kw: next(iter(kw)))
