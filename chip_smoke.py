@@ -64,6 +64,21 @@ It prints one JSON line per phase:
    token the target's argmax at its position, two requests' verified
    logits against the oracle, the target pool holding the committed
    prefix after every step, one target call a round, exact launches;
+   then the host planes (``PLANE_RUNS``): ``serve_observed`` (``serve``
+   with telemetry in trace mode, an SLO, the watchdog, both sanitizers
+   strict, the incident recorder and the Prometheus export on: the same
+   launches and tokens as ``serve``, the serving counters equal to the
+   step events, a complete request trace each, one ``serving.step`` span
+   a step with the model call inside, the exports readable, no sanitizer
+   violation, an incident bundle read back and one a watchdog fire, the
+   ledger's ``prefill_chunk`` and ``decode_token`` rows),
+   ``serve_faults`` (``serve_preempt``'s traffic under
+   ``SERVE_FAULT_PLAN``, every fault kind: the injector's log equal to
+   the plan's, the storm's victims restored bit for bit, every committed
+   token its logits' argmax, a resumed victim against the oracle) and
+   ``sanitizer_fuzz`` (the page sanitizer's pool fuzzer on the card:
+   clean over float32 and int8 pools with and without the prefix cache,
+   each injected bug class caught);
 7. ``profile``, ``profile_int8``, ``profile_off`` and
    ``profile_off_int8``: the four serving runs served again under
    ``torch.profiler``: device time by kernel class and the device's
@@ -121,8 +136,10 @@ unprofiled, at ``--layers`` depth, listing each failed run in a
 ``serve_runs`` line; ``--fault-check`` also plants ``SERVE_FAULTS`` in
 the page pool and runs ``--serve-runs`` on them at two layers.
 ``--fault-check`` also plants ``SPEC_FAULTS`` in the scheduler and runs
-``--serve-runs`` on them at four layers, where each must fail its named
-run at its named gate.
+``--serve-runs`` on them at four layers, and ``PLANE_FAULTS`` (a fork the
+pool does not journal, a dropped counter increment, a lost fault-plan
+entry) on ``_PLANE_FAULT_RUNS`` at two layers, where each must fail its
+named run at its named gate.
 ``--gen-runs NAMES`` builds the kernels and runs only those generation
 runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
 failed run in a ``gen_runs`` line; ``--fault-check`` also plants
@@ -1595,6 +1612,38 @@ SPEC_FAULTS = [
 ]
 
 
+# faults of the host planes, each run through _PLANE_FAULT_RUNS (the plane
+# runs and the two runs they read) at two layers (``--serve-runs``):
+# (name, source, text, replacement, the runs it may fail, the run that
+# must fail and the text of the gate that must fail it there)
+_FAULT_INJECTION_PY = "paddle_tpu_torch/incubate/nn/fault_injection.py"
+_PLANE_FAULT_RUNS = ("serve", "serve_preempt", "serve_observed",
+                     "serve_faults", "sanitizer_fuzz")
+PLANE_FAULTS = [
+    # the pool forks a shared page without journaling the fork: the
+    # sanitizer sees a write land mid-page on a page that is not the
+    # sequence's tail
+    ("pool_fork_unjournaled", _POOL_PY,
+     "                if self._san is not None:\n"
+     "                    self._san.event(\"fork\", seq=s, src=int(src),\n"
+     "                                    dst=int(tbl[-1]), pool=self)\n",
+     "", ("sanitizer_fuzz",), "sanitizer_fuzz",
+     "raised PageSanitizerError"),
+    # the scheduler drops one counter increment: the decode tokens
+    ("scheduler_drops_decode_counter", _SERVING_PY,
+     '            m.inc("serving.decode_tokens", ev.get("decode_tokens", 0))'
+     "\n", "", ("serve_observed",), "serve_observed",
+     "counter serving.decode_tokens"),
+    # the injector loses the last entry of its plan (a fail_step window)
+    ("injector_skips_a_planned_fault", _FAULT_INJECTION_PY,
+     "    plan.sort(key=lambda f: (f[\"start\"], f[\"kind\"]))\n"
+     "    return plan\n",
+     "    plan.sort(key=lambda f: (f[\"start\"], f[\"kind\"]))\n"
+     "    return plan[:-1]\n", ("serve_faults",), "serve_faults",
+     "fault log"),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1637,10 +1686,11 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 def fault_check_phase():
     """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
-    SERVE_FAULTS, SPEC_FAULTS and GEN_FAULTS in a copy of the repository
-    and runs its cases there; fails unless every fault fails a gate, a
-    paged, norm, serving or generation fault only in the cases it may
-    fail, and a speculative serving fault in its named run."""
+    SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS and GEN_FAULTS in a copy of
+    the repository and runs its cases there; fails unless every fault
+    fails a gate, a paged, norm, serving or generation fault only in the
+    cases it may fail, and a speculative serving or host-plane fault in
+    its named run at its named gate."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1685,10 +1735,12 @@ def fault_check_phase():
                         "failed": line["failed"], "errors": line["errors"]})
         if not line["failed"] or set(line["failed"]) - set(broken):
             missed.append(name)
-    for name, source, old, new, broken, must, gate in SPEC_FAULTS:
+    for name, source, old, new, broken, must, gate, runs, depth in (
+            [(*f, _SPEC_FAULT_RUNS, "4") for f in SPEC_FAULTS]
+            + [(*f, _PLANE_FAULT_RUNS, "2") for f in PLANE_FAULTS]):
         line = _run_with_fault(name, source, old, new, "--serve-runs",
-                               _SPEC_FAULT_RUNS, "serve_runs",
-                               extra=("--layers", "4"))
+                               runs, "serve_runs",
+                               extra=("--layers", depth))
         results.append({"fault": name, "may_fail": list(broken),
                         "must_fail": must, "gate": gate,
                         "failed": line["failed"], "errors": line["errors"]})
@@ -2123,7 +2175,7 @@ def oracle_check(model, done, captured, watch, gate, problems):
 
 
 def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
-              pool_bytes=None, base=None):
+              pool_bytes=None, base=None, observe=None):
     """Serves the 8 prompts (32 new tokens each, greedy,
     ``max_batch_size=8``, ``prefill_chunk_tokens=248``) through
     ``BatchScheduler`` -> ``PagedLlamaAdapter`` -> the paged KV pool
@@ -2133,7 +2185,10 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``).
     ``pool_bytes`` sizes the pool by bytes (else 512 pages); ``base``,
     the ``serve`` run's result, is what top-1 agreement and the pool
-    ratio are read against. Emits the run's line; returns
+    ratio are read against. ``observe`` (:class:`ObservedPlanes`) reads
+    the host planes: its ``start(sched)`` runs just before the measured
+    steps, its ``finish(...)`` just after, returning more fields of the
+    run's line and more problems. Emits the run's line; returns
     ``(launches, adapter, result)``."""
     import numpy as np
     import torch
@@ -2181,7 +2236,9 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
             row_kinds[k] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        steps = []
+        steps, events = [], []
+        if observe is not None:
+            observe.start(sched)
         kernel_launch_stats(reset=True)
         t0 = time.perf_counter()
         while sched.num_active or sched.num_queued:
@@ -2190,14 +2247,19 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
             steps.append({"ms": (time.perf_counter() - ts) * 1e3,
                           "prefill": ev["prefill_tokens"],
                           "decode": ev["decode_tokens"]})
+            events.append(ev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernel_launch_stats(reset=True)
+        # the measured run's calls, before an observer serves more
+        calls = adapter.chunk_stats["calls"] - calls0
+        row_kinds = dict(row_kinds)
+        observed, obs_problems = ({}, []) if observe is None else \
+            observe.finish(sched, adapter, events, prompts)
     # back to the class's method: an instance attribute holding the
     # adapter's own bound method is a reference cycle that would keep a
     # finished run's pool alive until the next garbage collection
     del adapter.prefill_chunk
-    calls = adapter.chunk_stats["calls"] - calls0
     done = {r: sched.result(r) for r in (f"r{i}" for i in range(8))}
     ttft = sorted((v[0] - t0) * 1e3 for v in tok_times.values())
     tpot = sorted((b - a) * 1e3 for v in tok_times.values()
@@ -2217,13 +2279,25 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     oracle = oracle_check(model, done, captured, watch, gate, problems)
     streams = {r: d.generated_ids for r, d in done.items()}
     vs_serve = None
+    step_ms_mean = float(np.mean([s["ms"] for s in steps]))
     if base is not None:
         same = [a == b for r in streams
                 for a, b in zip(streams[r], base["streams"][r])]
         vs_serve = {"same_token_share": sum(same) / len(same),
                     "identical_requests": sum(
                         streams[r] == base["streams"][r] for r in streams),
-                    "pool_pages_ratio": pool.num_pages / base["num_pages"]}
+                    "pool_pages_ratio": pool.num_pages / base["num_pages"],
+                    "total_tok_per_s_ratio": (total / wall)
+                    / base["total_tok_per_s"],
+                    "step_ms_mean_added": step_ms_mean
+                    - base["step_ms_mean"]}
+    if observe is not None:
+        problems += obs_problems
+        if launches != base["launches"]:
+            problems.append(f"launches {launches} != serve's "
+                            f"{base['launches']}")
+        if streams != base["streams"]:
+            problems.append("generated tokens differ from serve's")
     emit(run, model="llama3_8b", layers=n_layers,
          depth_cut=None if layers is None else
          f"{layers} of 32 layers (--layers)",
@@ -2251,13 +2325,16 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
          step_ms=[round(s["ms"], 3) for s in steps],
          step_tokens=[[s["prefill"], s["decode"]] for s in steps],
          oracle=oracle, cosine_gate=gate, versus_serve=vs_serve,
-         problems=problems)
+         step_ms_mean=step_ms_mean, **observed, problems=problems)
     if problems:
         raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
     return launches, adapter, {"streams": streams,
                                "num_pages": pool.num_pages,
                                "kv_pool_bytes": sum(
-                                   c.pool_nbytes for c in adapter.caches)}
+                                   c.pool_nbytes for c in adapter.caches),
+                               "launches": launches,
+                               "total_tok_per_s": total / wall,
+                               "step_ms_mean": step_ms_mean}
 
 
 def serve_pool_bytes(model):
@@ -2272,6 +2349,392 @@ def serve_pool_bytes(model):
                     dtype=torch.bfloat16)
 
 
+# ------------------------------------------------------------ host planes
+
+# every host plane on: the flags serve_observed sets (the incident and
+# export paths go into a temporary directory)
+OBSERVED_FLAGS = {
+    "telemetry": "trace",
+    "telemetry_slo": "ttft_p99_s=2,tpot_p99_s=0.2",
+    "telemetry_watchdog": "warn", "telemetry_watchdog_stride": 8,
+    "page_sanitizer": "strict", "concurrency_sanitizer": "strict"}
+# serve_faults: every fault kind over serve_preempt's traffic. The delay
+# window covers the storm's step, so the victims stay out (the storm's
+# own admission pass would restore them at once)
+SERVE_FAULT_PLAN = ("exhaust@4+3,preempt_storm@8:2,delay_swap_in@8+4,"
+                    "fail_step@14+3")
+# what the injector must log over that traffic, in order: (kind, step).
+# exhaust consults admission every step of its window; the storm fires
+# once; delay_swap_in is consulted while victims are swapped out; the
+# third step of the fail window is a back-off step (0, then 1 skipped)
+SERVE_FAULT_LOG = ([("exhaust", s) for s in (4, 5, 6)]
+                   + [("preempt_storm", 8)]
+                   + [("delay_swap_in", s) for s in (8, 9, 10, 11)]
+                   + [("fail_step", s) for s in (14, 15)])
+FAULT_RUN_FLAGS = {"telemetry": "metrics", "telemetry_watchdog": "warn",
+                   "telemetry_watchdog_stride": 8,
+                   "page_sanitizer": "strict",
+                   "serving_faults": SERVE_FAULT_PLAN}
+
+
+@contextlib.contextmanager
+def port_flags(values):
+    """The port's flags set for a block (fresh telemetry registry and
+    concurrency sanitizer on entry and exit), restored after."""
+    from paddle_tpu_torch.framework import concurrency, telemetry
+    from paddle_tpu_torch.framework.flags import flag, set_flags
+
+    old = {k: flag(k) for k in values}
+    set_flags(values)
+    telemetry.reset()
+    concurrency.reset()
+    try:
+        yield
+    finally:
+        set_flags(old)
+        telemetry.reset()
+        concurrency.reset()
+
+
+def _prometheus_problems(path):
+    """The Prometheus text file parses: every line a comment or
+    ``name[{labels}] value`` with a float value, optionally followed by
+    an OpenMetrics exemplar ``# {labels} value``."""
+    import re
+
+    pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)'
+                     r'( # \{[^}]*\} \S+)?$')
+    try:
+        with open(path) as f:
+            lines = [ln for ln in f.read().splitlines() if ln]
+    except OSError as e:
+        return [f"Prometheus export unreadable: {e}"], 0
+    bad = 0
+    for ln in lines:
+        if ln.startswith("#"):
+            continue
+        m = pat.match(ln)
+        try:
+            float(m.group(2)) if m else float("x")
+        except ValueError:
+            bad += 1
+    samples = sum(1 for ln in lines if not ln.startswith("#"))
+    problems = [f"{bad} Prometheus lines do not parse"] if bad else []
+    if not any(ln.startswith("paddle_serving_steps") for ln in lines):
+        problems.append("Prometheus export has no serving_steps series")
+    return problems, samples
+
+
+class PlaneTimer:
+    """Exclusive host seconds spent in each host plane's code during a
+    run: the listed methods are wrapped (``install``) and restored
+    (``remove``); a plane's call inside another's (a registry write
+    journaled by the concurrency sanitizer) counts for the inner one."""
+
+    # (plane, module, class, methods)
+    SITES = (
+        ("page_sanitizer", "paddle_tpu_torch.incubate.nn.page_sanitizer",
+         "PageSanitizer", ("event", "verify_pages")),
+        ("concurrency_sanitizer", "paddle_tpu_torch.framework.concurrency",
+         "ConcurrencySanitizer", ("_event_locked",)),
+        ("concurrency_sanitizer", "paddle_tpu_torch.framework.concurrency",
+         "GuardedLock", ("acquire", "release")),
+        ("concurrency_sanitizer", "paddle_tpu_torch.framework.concurrency",
+         "SharedVar", ("read", "write")),
+        ("telemetry", "paddle_tpu_torch.framework.telemetry",
+         "MetricsRegistry", ("inc", "gauge", "observe", "advance_epoch",
+                             "snapshot", "hist_windowed")),
+        ("telemetry", "paddle_tpu_torch.framework.telemetry", "_SpanCtx",
+         ("__enter__", "__exit__")),
+        ("telemetry", "paddle_tpu_torch.framework.telemetry", "_CtxSpan",
+         ("__enter__", "__exit__")),
+        ("telemetry", "paddle_tpu_torch.framework.telemetry",
+         "RequestTraceBook", ("begin", "event", "complete")),
+        ("telemetry", "paddle_tpu_torch.inference.serving",
+         "BatchScheduler", ("_observability_epoch", "_sanitizer_epoch",
+                            "_note_gen_token", "_tag_pool_trace")),
+    )
+
+    def __init__(self):
+        import collections
+
+        self.seconds = collections.Counter()
+        self._stack = []
+        self._saved = []
+
+    def _wrap(self, plane, fn):
+        timer = self
+
+        def timed(*a, **kw):
+            now = time.perf_counter()
+            if timer._stack:
+                outer = timer._stack[-1]
+                timer.seconds[outer[0]] += now - outer[1]
+            timer._stack.append([plane, now])
+            try:
+                return fn(*a, **kw)
+            finally:
+                end = time.perf_counter()
+                p, t0 = timer._stack.pop()
+                timer.seconds[p] += end - t0
+                if timer._stack:
+                    timer._stack[-1][1] = end
+        return timed
+
+    def install(self):
+        import importlib
+
+        for plane, mod, cls, methods in self.SITES:
+            owner = getattr(importlib.import_module(mod), cls)
+            for m in methods:
+                fn = owner.__dict__[m]
+                self._saved.append((owner, m, fn))
+                setattr(owner, m, self._wrap(plane, fn))
+
+    def remove(self):
+        for owner, m, fn in reversed(self._saved):
+            setattr(owner, m, fn)
+        self._saved = []
+
+
+class ObservedPlanes:
+    """The host planes' reading of one ``serve_run`` (``serve_observed``):
+    every plane on (``OBSERVED_FLAGS``, incident and export paths in
+    ``tmp``). ``start`` takes the registry's counters just before the
+    measured steps; ``finish`` reads the planes just after: the serving
+    counters against the step events (deltas over the measured steps:
+    the warm-up scheduler shares the registry), the request traces, the
+    span ring and its Chrome export, the Prometheus export, both
+    sanitizers, an explicit incident bundle read back, one bundle per
+    watchdog fire, and the performance ledger's rows (after a short
+    token-per-step tail run, which stamps ``decode_token``)."""
+
+    def __init__(self, tmp):
+        self.tmp = tmp
+        self.flags = dict(OBSERVED_FLAGS,
+                          telemetry_incident_dir=os.path.join(tmp, "inc"),
+                          telemetry_export_path=os.path.join(tmp, "m.prom"))
+
+    def start(self, sched):
+        from paddle_tpu_torch.framework import telemetry
+
+        self.c0 = telemetry.registry().snapshot()
+        self.t_run = telemetry.clock()
+
+    def finish(self, sched, adapter, events, prompts):
+        from paddle_tpu_torch.framework import concurrency, telemetry
+        from paddle_tpu_torch.inference import BatchScheduler, Request
+
+        problems = []
+        t_end = telemetry.clock()
+        snap = telemetry.registry().snapshot()
+        srv, srv0 = snap.get("serving", {}), self.c0.get("serving", {})
+
+        def delta(key):
+            return srv.get(key, 0) - srv0.get(key, 0)
+
+        def hist_delta(key):
+            return (srv.get(key, {}) or {}).get("count", 0) - (
+                srv0.get(key, {}) or {}).get("count", 0)
+
+        want = {"steps": len(events),
+                "prefill_tokens": sum(e["prefill_tokens"] for e in events),
+                "decode_tokens": sum(e["decode_tokens"] for e in events),
+                "prefix_hit_tokens": sum(e["prefix_hit_tokens"]
+                                         for e in events),
+                "requests_finished": 8}
+        counters = {k: delta(k) for k in want}
+        for k, v in want.items():
+            if counters[k] != v:
+                problems.append(f"counter serving.{k} rose by "
+                                f"{counters[k]}, the steps say {v}")
+        ttft_n = hist_delta("ttft_s")
+        if ttft_n != 8:
+            problems.append(f"{ttft_n} TTFT samples, not 8")
+        # request traces: submit -> admit -> tokens -> retire
+        book = telemetry.request_traces()
+        traces = {}
+        for i in range(8):
+            t = book.get(f"r{i}")
+            kinds = t.kinds() if t is not None else []
+            traces[f"r{i}"] = {k: kinds.count(k) for k in set(kinds)}
+            ok = (len(kinds) > 3 and kinds[0] == "submit"
+                  and kinds[1] == "admit" and kinds[-1] == "retire"
+                  and kinds.count("token") == 32
+                  and kinds.index("token") > kinds.index("admit"))
+            if not ok:
+                problems.append(f"r{i}: request trace {kinds[:4]}.."
+                                f"{kinds[-2:]} is not submit -> admit -> "
+                                "32 tokens -> retire")
+        # spans: one serving.step a step, the model call nested inside
+        spans = [s for s in telemetry.tracer().spans()
+                 if self.t_run <= s.t0 <= t_end]
+        steps_n = sum(s.name == "serving.step" for s in spans)
+        calls = [s for s in spans if s.name == "serving.prefill_chunk"]
+        if steps_n != len(events):
+            problems.append(f"{steps_n} serving.step spans for "
+                            f"{len(events)} steps")
+        if len(calls) != len(events) or any(
+                s.path != "serving.step/serving.prefill_chunk"
+                for s in calls):
+            problems.append("model-call spans not one a step inside "
+                            "serving.step")
+        chrome = os.path.join(self.tmp, "trace.json")
+        telemetry.export_chrome(chrome)
+        with open(chrome) as f:
+            doc = json.load(f)
+        chrome_steps = sum(e.get("name") == "serving.step"
+                           for e in doc["traceEvents"])
+        if chrome_steps < len(events):
+            problems.append(f"the Chrome trace holds {chrome_steps} "
+                            "serving.step spans")
+        prom_problems, prom_samples = _prometheus_problems(
+            self.flags["telemetry_export_path"])
+        problems += prom_problems
+        san = sched.page_pool_stats().get("sanitizer") or {}
+        if not san.get("events") or san.get("violations"):
+            problems.append(f"page sanitizer {san}")
+        csan = concurrency.sanitizer().stats()
+        if csan["violations"]:
+            problems.append(f"concurrency sanitizer {csan}")
+        # where the added host time goes: the same traffic once more,
+        # with each plane's methods timed (the timers' own cost kept out
+        # of the measured run)
+        import torch
+
+        timer = PlaneTimer()
+        timer.install()
+        try:
+            again = BatchScheduler(adapter, max_batch_size=8,
+                                   prefill_chunk_tokens=248)
+            for i, p in enumerate(prompts):
+                again.submit(Request(f"again{i}", p, max_new_tokens=32))
+            n_again, t_again = 0, time.perf_counter()
+            while again.num_active or again.num_queued:
+                again.step()
+                n_again += 1
+            torch.cuda.synchronize()
+            t_again = time.perf_counter() - t_again
+        finally:
+            timer.remove()
+        # the ledger's decode_token row: a short token-per-step tail
+        tail = BatchScheduler(adapter, max_batch_size=2,
+                              chunked_prefill=False)
+        for i in range(2):
+            tail.submit(Request(f"tail{i}", prompts[i][:8],
+                                max_new_tokens=4))
+        tail.run_until_complete()
+        metrics = sched.metrics()
+        ledger = metrics.get("ledger", {})
+        for prog in ("prefill_chunk", "decode_token"):
+            if not ledger.get(prog, {}).get("count"):
+                problems.append(f"no ledger row for {prog}")
+        wd = sched.watchdog.summary()
+        fired_checks = len({ev["epoch"]
+                            for ev in sched.watchdog.to_records()})
+        bundle = sched.dump_incident("chip_smoke")
+        text = telemetry.summarize_incident(bundle) if bundle else ""
+        if not bundle or "chip_smoke" not in text:
+            problems.append(f"incident bundle {bundle} not read back")
+        bundles = sched._recorder.bundles_written if sched._recorder \
+            else 0
+        if bundles != fired_checks + 1:
+            problems.append(f"{bundles} incident bundles for "
+                            f"{fired_checks} watchdog fires + 1")
+        hist = {k: {f: (srv.get(k) or {}).get(f)
+                    for f in ("count", "p50", "p99")}
+                for k in ("ttft_s", "tpot_s", "queue_wait_s",
+                          "step_wall_s", "retire_s")}
+        return {"telemetry": {
+            "flags": self.flags, "counters_measured": counters,
+            "ttft_samples": ttft_n, "histograms_s": hist,
+            "goodput": srv.get("goodput"),
+            "slo_attain": {k: v for k, v in srv.items()
+                           if k.startswith("slo_attain_")},
+            "request_traces": traces, "spans_in_run": len(spans),
+            "serving_step_spans": steps_n, "chrome_events": len(
+                doc["traceEvents"]), "prometheus_samples": prom_samples,
+            "page_sanitizer": san, "concurrency_sanitizer": csan,
+            "watchdog": wd, "watchdog_events": [
+                {"class": ev["class"], "epoch": ev["epoch"],
+                 "detail": ev.get("detail")}
+                for ev in sched.watchdog.to_records()],
+            "incident_bundles": bundles, "ledger": ledger,
+            "timed_pass": {
+                "steps": n_again, "step_ms_mean": t_again * 1e3 / n_again,
+                "host_ms_per_step_by_plane": {
+                    k: v * 1e3 / n_again
+                    for k, v in sorted(timer.seconds.items())}}}}, problems
+
+
+def serve_observed_run(model, prompts, init_s, layers, base):
+    """``serve_observed``: the ``serve`` run (its 8 prompts, its pool of
+    SERVE_PAGES bf16 pages, ``auto``) with every host plane on
+    (:class:`ObservedPlanes`); its launches and generated tokens must
+    equal ``serve``'s (``base``), the planes change no batch. Returns the
+    launches."""
+    import tempfile
+
+    if base is None:
+        raise RuntimeError("serve_observed needs the serve run beside it")
+    with tempfile.TemporaryDirectory(prefix="serve_observed_") as tmp:
+        obs = ObservedPlanes(tmp)
+        with port_flags(obs.flags):
+            launches, _, _ = serve_run(
+                "serve_observed", model, prompts, init_s, layers, None,
+                "auto", base=base, observe=obs)
+    return launches
+
+
+def sanitizer_fuzz_run(seed):
+    """``sanitizer_fuzz``: the page sanitizer's seeded pool fuzzer on the
+    card, strict: clean over float32 and int8 pools with the prefix
+    cache on and off (copy-on-write forks and int8 scale rows on the
+    device), then each of the six injected bug classes, each of which
+    must be caught with its own rule. Returns no launches (the fuzzer
+    runs no attention kernel)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.page_sanitizer import (
+        INJECTIONS, PageSanitizerError, fuzz_pool)
+
+    problems, clean, caught = [], [], {}
+    t0 = time.perf_counter()
+    for kv in ("float32", "int8"):
+        for prefix in (True, False):
+            try:
+                st = fuzz_pool(seed=seed, steps=300, kv_dtype=kv,
+                               prefix_cache=prefix, device="cuda")
+            except PageSanitizerError as e:
+                problems.append(f"clean fuzz {kv} prefix={prefix} raised "
+                                f"PageSanitizerError [{e.rule}]")
+                continue
+            clean.append({"kv_dtype": kv, "prefix_cache": prefix,
+                          "events": st["events"], "by_op": st["by_op"],
+                          "sequences": st["sequences"]})
+            if st["violations"] or not st["events"]:
+                problems.append(f"clean fuzz {kv} prefix={prefix}: {st}")
+            if prefix and not st["by_op"].get("fork"):
+                problems.append(f"fuzz {kv} with the prefix cache forked "
+                                "no page")
+    for inject in sorted(INJECTIONS):
+        try:
+            fuzz_pool(seed=3, steps=300, inject=inject, device="cuda")
+            caught[inject] = None
+        except PageSanitizerError as e:
+            caught[inject] = e.rule
+        if caught[inject] != inject:
+            problems.append(f"injected {inject}: caught as "
+                            f"{caught[inject]}")
+    torch.cuda.synchronize()
+    emit("sanitizer_fuzz", device=torch.cuda.get_device_name(0),
+         steps=300, seed=seed, clean=clean, injected_caught=caught,
+         wall_s=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise RuntimeError("sanitizer_fuzz phase failed: "
+                           + "; ".join(problems))
+    return {}
+
+
 # the prefix and preemption runs: (run, KV pages)
 PREFIX_RUNS = [("serve_prefix", None), ("serve_prefix_int8", "int8")]
 # The speculative serving runs: Llama-3-8B's shape, serve's 8 prompts, 32
@@ -2284,16 +2747,20 @@ SPEC_SERVE_RUNS = [("serve_spec", None, "ragged", False),
                    ("serve_spec_spoiled", None, "ragged", True),
                    ("serve_spec_legacy", None, "legacy", False)]
 SPEC_SERVE_NEW = 32
+# the host planes' runs, after the others (serve_observed reads serve's
+# result, serve_faults serve_preempt's tokens)
+PLANE_RUNS = ["serve_observed", "serve_faults", "sanitizer_fuzz"]
 SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
     r for r, _ in PREFIX_RUNS] + ["serve_preempt"] + [
-    r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"]
+    r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"] + PLANE_RUNS
 
 
 def serve_phase(model, prompts, init_s, seed, layers, names=None):
     """The serving runs on one model (``build_server``'s): the four of
     SERVE_RUNS (each followed by nothing but its release; those of
     PROFILED_RUNS served again under the profiler), then PREFIX_RUNS,
-    ``serve_preempt``, SPEC_SERVE_RUNS and ``serve_spec_preempt``. Returns ``({run: launches}, failed)``. With
+    ``serve_preempt``, SPEC_SERVE_RUNS, ``serve_spec_preempt`` and
+    PLANE_RUNS. Returns ``({run: launches}, failed)``. With
     ``names`` only those runs go, unprofiled, and a run that fails is
     listed in ``failed`` while the others go on (``--serve-runs``);
     without it the first failure raises."""
@@ -2339,8 +2806,10 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
             None if kv is None else pool_bytes))
         if got is not None:
             out[run] = got
+    pre_streams = {}
     got = attempt("serve_preempt", lambda: serve_preempt_run(
-        model, preempt_traffic(seed, vocab), layers))
+        model, preempt_traffic(seed, vocab), layers,
+        streams=pre_streams))
     if got is not None:
         out["serve_preempt"] = got
     for run, n_draft, spec, spoil in SPEC_SERVE_RUNS:
@@ -2355,6 +2824,20 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
         SPEC_DRAFT_LAYERS))
     if got is not None:
         out["serve_spec_preempt"] = got
+
+    def faults_run():
+        with port_flags(FAULT_RUN_FLAGS):
+            return serve_preempt_run(
+                model, preempt_traffic(seed, vocab), layers, "serve_faults",
+                faults=True, base_streams=pre_streams or None)
+
+    for run, fn in (("serve_observed", lambda: serve_observed_run(
+            model, prompts, init_s, layers, base)),
+                    ("serve_faults", faults_run),
+                    ("sanitizer_fuzz", lambda: sanitizer_fuzz_run(seed))):
+        got = attempt(run, fn)
+        if got is not None:
+            out[run] = got
     return out, failed
 
 
@@ -2650,7 +3133,8 @@ def preempt_traffic(seed, vocab):
 
 
 def serve_preempt_run(model, traffic, layers, run="serve_preempt",
-                      draft_layers=None):
+                      draft_layers=None, faults=False, streams=None,
+                      base_streams=None):
     """``serve_preempt``: bf16 pages, a pool sized so that the
     priority-0 requests fill it and admitting the first priority-1
     request alone needs two victims, ``swap_bytes=1 << 30``,
@@ -2670,7 +3154,18 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
     target pool sized with the draft's SPEC_K + 1 token slack. Further
     gates: >= 1 draft discard, refill tokens > 0, every committed token
     the target's argmax at its position, the target pool holding the
-    committed prefix after every step, the draft pool drained. Emits the
+    committed prefix after every step, the draft pool drained.
+
+    With ``faults`` (``serve_faults``, run under ``FAULT_RUN_FLAGS``:
+    ``SERVE_FAULT_PLAN``, strict page sanitizer, metrics, watchdog
+    ``warn``) nothing is cancelled, and the gates are: the injector's
+    event log equal to ``SERVE_FAULT_LOG``, the storm preempting >= 2
+    victims, every victim restored bit for bit, no sanitizer violation,
+    every committed token the argmax of the logits that produced it,
+    one resumed victim against the oracle, the pools drained and the
+    swap space empty. ``base_streams`` (``serve_preempt``'s tokens) is
+    what the share of equal tokens is read against (reported, not
+    gated). ``streams``: a dict that gets the run's tokens. Emits the
     run's line; returns the launches."""
     import torch
     from paddle_tpu_torch.inference import (BatchScheduler,
@@ -2686,7 +3181,7 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
     num_pages = -(-(sum(worst[:PREEMPT_LOW]) + 2) * 100 // 95)
     adapter = PagedLlamaAdapter(model, num_pages=num_pages, page_size=page)
     lows = [f"lo{i}" for i in range(len(low))]
-    preds = None if draft_layers is None else {}
+    preds = {} if draft_layers is not None or faults else None
     captured, row_kinds = record_prefill_chunk(adapter, set(lows), preds)
     spec_kw, dadapter, n_draft = {}, None, 0
     if draft_layers is not None:
@@ -2735,7 +3230,7 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
         if not is_prompt:
             tok_times.setdefault(req.req_id, []).append(time.perf_counter())
 
-    problems, cancelled, preempted, resumed = [], None, 0, 0
+    problems, cancelled, preempted, resumed, forced = [], None, 0, 0, 0
     with ragged_mode("auto"), spec_decode_mode("ragged"):
         sched = BatchScheduler(adapter, max_batch_size=8,
                                prefill_chunk_tokens=248, preempt=True,
@@ -2764,7 +3259,9 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
                 problems.append(f"after step {steps}, {bad}")
             preempted += ev.get("preempted", 0)
             resumed += ev.get("resumed", 0)
-            if cancelled is None and sched.num_swapped:
+            if "preempt_storm" in ev.get("faulted", ""):
+                forced += ev.get("preempted", 0)
+            if not faults and cancelled is None and sched.num_swapped:
                 cancelled = next(iter(sched._swapped))
                 sched.cancel(cancelled)
                 if sched.swap_space.holds(cancelled):
@@ -2782,15 +3279,16 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
     victims = sorted(r for r, d in done.items() if d._preemptions)
     if preempted < 2:
         problems.append(f"{preempted} preemptions (>= 2 expected)")
-    if cancelled is None or done[cancelled].state != \
-            RequestState.ABORTED_DEADLINE:
+    if not faults and (cancelled is None or done[cancelled].state
+                       != RequestState.ABORTED_DEADLINE):
         problems.append(f"cancelled {cancelled} did not end aborted")
     others = [r for r in done if r != cancelled]
     if any(not done[r].finished or len(done[r].generated_ids)
            != PREEMPT_NEW for r in others):
         problems.append(f"a request other than {cancelled} did not "
                         f"generate {PREEMPT_NEW} tokens")
-    if resumed != len(restored_equal) or resumed < len(victims) - 1:
+    if resumed != len(restored_equal) or resumed < len(victims) - (
+            0 if faults else 1):
         problems.append(f"{resumed} resumes for victims {victims}")
     if not all(restored_equal):
         problems.append(f"restored pages differ from the swapped-out ones: "
@@ -2832,6 +3330,37 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
         if any(c.num_free_pages != c.num_pages for c in dadapter.caches):
             problems.append("a draft pool did not drain")
     problems += lp
+    fault_run = None
+    if faults:
+        log = sched._faults.events()
+        got = [(e["kind"], e["step"]) for e in log]
+        if got != SERVE_FAULT_LOG:
+            problems.append(f"fault log {got} != the plan's "
+                            f"{SERVE_FAULT_LOG}")
+        if forced < 2:
+            problems.append(f"the storm preempted {forced} (>= 2)")
+        san = sched.page_pool_stats().get("sanitizer") or {}
+        if not san.get("events") or san.get("violations"):
+            problems.append(f"page sanitizer {san}")
+        wrong, n_tok = argmax_problems(
+            {r: d for r, d in done.items() if d.finished}, preds)
+        problems += wrong
+        share = None
+        if base_streams:
+            same = [a == b for r, d in done.items() if r in base_streams
+                    for a, b in zip(d.generated_ids, base_streams[r])]
+            share = sum(same) / max(1, len(same))
+        fault_run = {"plan": SERVE_FAULT_PLAN, "log": log,
+                     "forced_preemptions": forced, "page_sanitizer": san,
+                     "argmax_checked_tokens": n_tok,
+                     "same_token_share_vs_serve_preempt": share,
+                     "watchdog": sched.watchdog.summary()
+                     if sched.watchdog else None,
+                     "metrics_serving": {
+                         k: v for k, v in sched.metrics()["serving"]
+                         .items() if not isinstance(v, dict)}}
+    if streams is not None:
+        streams.update({r: d.generated_ids for r, d in done.items()})
     if sched.swap_space.used_bytes:
         problems.append(f"swap space holds {sched.swap_space.used_bytes} "
                         "bytes at the end")
@@ -2864,7 +3393,8 @@ def serve_preempt_run(model, traffic, layers, run="serve_preempt",
          ttft_high_ms=ttft_high,
          generated_tokens=sum(len(d.generated_ids) for d in done.values()),
          launches=launches, attention_kinds=kinds, oracle=oracle,
-         cosine_gate=COSINE_GATE, spec=spec, problems=problems)
+         cosine_gate=COSINE_GATE, spec=spec, faults=fault_run,
+         problems=problems)
     if problems:
         raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
     return launches
@@ -4111,8 +4641,9 @@ def main(argv=None):
                     "NORM_CASES) against their plain versions")
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
-                    "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS "
-                    "and GEN_FAULTS, planted in a copy")
+                    "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS, "
+                    "SPEC_FAULTS, PLANE_FAULTS and GEN_FAULTS, planted in "
+                    "a copy")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "

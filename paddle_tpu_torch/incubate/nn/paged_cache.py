@@ -40,8 +40,25 @@ under an external "swap hold" reference. ``swap_in`` draws fresh pages,
 restores the private bytes and drops the holds, so greedy decode
 resumes where it stopped.
 
+Sanitizer (``FLAGS_page_sanitizer`` or the ``sanitizer=`` argument;
+``incubate/nn/page_sanitizer.py``): in ``warn``/``strict`` mode every
+mutation here (alloc, attach, incref, decref, free, truncate, the
+copy-on-write fork, each append flavour, swap out and in) and every
+page table handed to a kernel is journaled as a typed event and checked
+against a shadow heap with per-page generations. Each call journals the
+events the reference's pool journals for the same call, with the same
+fields, in the same order: :meth:`PagedKVCacheManager.book_ragged`
+emits the forks and the append event, and each attend call checks the
+page table its kernel gets (for a step built once, :class:`
+RaggedStepInputs` carries the host copy of that table). ``off`` (the
+default) builds nothing: each instrumented method pays one ``is None``
+check. Under ``FLAGS_telemetry`` the pool counts page draws, frees,
+forks and swapped pages (``pool.*``), and carries each sequence's
+serialized trace context (``set_trace_context``) through the swap
+records.
+
 Not ported yet: the page-chain wire format (``export_seq`` /
-``import_seq``), ``dense_kv``, the page sanitizer and telemetry.
+``import_seq``) and its ``pool.transfer_*`` counters.
 """
 from __future__ import annotations
 
@@ -53,6 +70,9 @@ import numpy as np
 import torch
 
 from ...device import copy_to_device, resolve_device
+from ...framework import concurrency as _concurrency
+from ...framework import telemetry
+from ...framework.flags import flag
 from ...ops.kernels.paged_attention import (  # noqa: F401 (re-exported)
     paged_attention,
     paged_prefill_attention as _prefill_kernel,
@@ -78,12 +98,15 @@ class RaggedStepInputs(NamedTuple):
     each of the step's n new tokens in packed order; ``page_table``
     (rows, max_pages), ``seq_lens`` and ``q_lens`` (rows,) int32, the
     attention kernel's operands; for an int8 pool, ``passes``, the
-    write's pass plan (:meth:`PagedKVCacheManager._pass_plan`)."""
+    write's pass plan (:meth:`PagedKVCacheManager._pass_plan`);
+    ``host_table``, the host (page table, seq_lens) the device ones
+    were copied from, which a sanitized pool checks at each attend."""
     slots: torch.Tensor
     page_table: torch.Tensor
     seq_lens: torch.Tensor
     q_lens: torch.Tensor
     passes: tuple = None
+    host_table: tuple = None
 
 
 class SwapSpaceFull(RuntimeError):
@@ -94,14 +117,18 @@ class SwapSpaceFull(RuntimeError):
 
 class _SwapRecord:
     """One swapped-out sequence for ONE layer pool: the page chain as it
-    stood (``pages``/``kept``/``length``) and host copies of the private
-    pages' payload (+ int8 scale rows)."""
+    stood (``pages``/``kept``/``length``), host copies of the private
+    pages' payload (+ int8 scale rows), the sanitizer generations of the
+    kept pages at swap-out and the sequence's serialized trace
+    context."""
 
     __slots__ = ("pages", "kept", "length", "k_host", "v_host",
-                 "k_scales_host", "v_scales_host", "nbytes")
+                 "k_scales_host", "v_scales_host", "gens", "nbytes",
+                 "trace_ctx")
 
     def __init__(self, pages, kept, length, k_host, v_host,
-                 k_scales_host, v_scales_host, nbytes):
+                 k_scales_host, v_scales_host, gens, nbytes,
+                 trace_ctx=None):
         self.pages = pages
         self.kept = kept
         self.length = length
@@ -109,7 +136,9 @@ class _SwapRecord:
         self.v_host = v_host
         self.k_scales_host = k_scales_host
         self.v_scales_host = v_scales_host
+        self.gens = gens
         self.nbytes = nbytes
+        self.trace_ctx = trace_ctx
 
 
 class HostKVSwapSpace:
@@ -129,6 +158,11 @@ class HostKVSwapSpace:
         self.swapped_out_records = 0
         self.swapped_in_records = 0
         self.peak_used_bytes = 0
+        # concurrency-sanitizer handle: the store is single-writer by
+        # contract (the thread driving the pools' swap calls)
+        _csan = _concurrency.sanitizer()
+        self._cv = None if _csan is None else _csan.shared(
+            "paged_cache.swap.store", owner=self, single_writer=True)
 
     @property
     def used_bytes(self) -> int:
@@ -149,6 +183,16 @@ class HostKVSwapSpace:
         """True if ANY pool holds a swap record for ``seq_id``."""
         return any(k[1] == seq_id for k in self._swap_store)
 
+    def trace_context(self, seq_id):
+        """The swapped-out sequence's serialized trace context
+        (``telemetry.TraceContext.to_wire()``), read off its swap
+        records; None when it is not swapped here or was never
+        stamped."""
+        for k, rec in self._swap_store.items():
+            if k[1] == seq_id and rec.trace_ctx is not None:
+                return rec.trace_ctx
+        return None
+
     def summary(self) -> dict:
         return {
             "capacity_bytes": self.capacity_bytes,
@@ -168,6 +212,8 @@ class HostKVSwapSpace:
             raise SwapSpaceFull(
                 f"swap space full: record needs {rec.nbytes} bytes, "
                 f"{self.free_bytes} of {self.capacity_bytes} free")
+        if self._cv is not None:
+            self._cv.write()
         self._swap_store[key] = rec
         self._swap_used += rec.nbytes
         self.swapped_out_records += 1
@@ -184,6 +230,8 @@ class HostKVSwapSpace:
         """Remove and return a record (a swap-in restore or an abort's
         discard; the caller counts which)."""
         rec = self._swap_get(key)
+        if self._cv is not None:
+            self._cv.write()
         del self._swap_store[key]
         self._swap_used -= rec.nbytes
         return rec
@@ -207,12 +255,14 @@ class PagedKVCacheManager:
 
     ``kv_dtype="int8"`` (or ``dtype=torch.int8``) makes an int8 pool
     with scale sidecars ``k_scales``/``v_scales`` (``quantized``).
-    ``device`` defaults to the card and raises without CUDA unless
-    ``device="cpu"`` is passed.
+    ``sanitizer`` (``"off"``/``"warn"``/``"strict"``) overrides
+    ``FLAGS_page_sanitizer`` for this pool. ``device`` defaults to the
+    card and raises without CUDA unless ``device="cpu"`` is passed.
     """
 
     def __init__(self, num_pages, page_size, kv_heads, head_dim,
-                 dtype=torch.bfloat16, kv_dtype=None, device=None):
+                 dtype=torch.bfloat16, kv_dtype=None, sanitizer=None,
+                 device=None):
         if kv_dtype is not None:
             if kv_dtype not in _KV_DTYPES:
                 raise ValueError(
@@ -255,19 +305,39 @@ class PagedKVCacheManager:
         self.cow_forks = 0  # lifetime count of copy-on-write forks
         # high watermark: most pages ever simultaneously in use
         self.peak_used_pages = 0
+        # lifecycle sanitizer: 'off' builds nothing, and every
+        # instrumented method below checks `self._san is not None` only
+        mode = sanitizer if sanitizer is not None \
+            else flag("page_sanitizer")
+        if mode and mode != "off":
+            from .page_sanitizer import PageSanitizer
+
+            self._san = PageSanitizer(self.num_pages, self.page_size,
+                                      mode=mode)
+        else:
+            self._san = None
+        # lifetime pool counters under "pool." (None when
+        # FLAGS_telemetry is off: one check per site)
+        self._reg = telemetry.registry()
+        # per-sequence serialized trace contexts (host strings): set by
+        # the scheduler at admission, carried on the swap records
+        self._trace_ctxs = {}
 
     # -- bookkeeping -------------------------------------------------------
     def alloc(self, seq_id):
         if seq_id in self._tables:
             raise ValueError(f"sequence {seq_id!r} already allocated")
+        if self._san is not None:
+            self._san.event("alloc", seq=seq_id)
         self._tables[seq_id] = []
         self._lens[seq_id] = 0
 
-    def attach(self, seq_id, pages, length):
+    def attach(self, seq_id, pages, length, trace_ctx=None):
         """Register ``seq_id`` on an existing page chain covering its
         first ``length`` tokens (a prefix-cache hit). Every chain page
         gains a reference; the content is shared until this sequence
-        writes into the (partial) last page, which forks it."""
+        writes into the (partial) last page, which forks it.
+        ``trace_ctx`` (a serialized trace context) rides along."""
         if seq_id in self._tables:
             raise ValueError(f"sequence {seq_id!r} already allocated")
         need = -(-int(length) // self.page_size) if length else 0
@@ -275,26 +345,73 @@ class PagedKVCacheManager:
             raise ValueError(
                 f"attach({seq_id!r}): {length} tokens span {need} "
                 f"pages, got a chain of {len(pages)}")
+        if self._san is not None:
+            # strict mode raises here, with the journal, on a dangling
+            # chain, before the pool's own ValueError below
+            self._san.event("attach", seq=seq_id,
+                            pages=[int(p) for p in pages],
+                            length=int(length))
         for p in pages:
             if self._refcnt[p] == 0:
                 raise ValueError(
                     f"attach({seq_id!r}): page {p} is on the free "
-                    "list (dangling chain)")
-        for p in pages:
-            self._refcnt[p] += 1
+                    "list (dangling chain)" + self._san_tail())
+        self._ref_pages(pages)
         self._tables[seq_id] = list(pages)
         self._lens[seq_id] = int(length)
+        if trace_ctx is not None:
+            self._trace_ctxs[seq_id] = str(trace_ctx)
+        if self._san is not None:
+            self._san.verify_pages(pages, self)
+
+    def _ref_pages(self, pages):
+        """Take one reference per chain page (attach)."""
+        for p in pages:
+            self._refcnt[p] += 1
+
+    # -- trace-context propagation (framework/telemetry.py) ----------------
+    def set_trace_context(self, seq_id, wire) -> None:
+        """Pin a serialized trace context (``TraceContext.to_wire()``)
+        to a live sequence: it rides the sequence's swap records
+        through the host tier. Host-only metadata."""
+        if seq_id not in self._tables:
+            raise KeyError(
+                f"set_trace_context({seq_id!r}): unknown sequence")
+        self._trace_ctxs[seq_id] = str(wire)
+
+    def seq_trace_context(self, seq_id):
+        """The sequence's serialized trace context (None when never
+        stamped)."""
+        return self._trace_ctxs.get(seq_id)
 
     def free(self, seq_id):
         tbl = self._tables.get(seq_id)
+        if self._san is not None:
+            # emitted BEFORE the lookup raise: a double-free lands in
+            # the journal, strict mode raises with the event tail
+            self._san.event(
+                "free", seq=seq_id,
+                pages=None if tbl is None else [int(p) for p in tbl])
         if tbl is None:
             raise KeyError(
                 f"free({seq_id!r}): unknown or already-freed sequence "
-                "(double-free would corrupt the page free list)")
+                "(double-free would corrupt the page free list)"
+                + self._san_tail())
         del self._tables[seq_id]
-        for p in reversed(tbl):
-            self._release_page(p)
+        self._drop_refs(tbl)
         self._lens.pop(seq_id)
+        self._trace_ctxs.pop(seq_id, None)
+        if self._san is not None:
+            self._san.verify_pages(tbl, self)
+
+    def _drop_refs(self, pages):
+        """Release a retiring sequence's references (free)."""
+        for p in reversed(pages):
+            self._release_page(p)
+
+    def _san_tail(self) -> str:
+        return ("\n" + self._san.format_tail()
+                if self._san is not None else "")
 
     # -- reference counting ------------------------------------------------
     def incref(self, pages):
@@ -302,25 +419,36 @@ class PagedKVCacheManager:
         prefix tree keeps a retired sequence's prefix alive past
         ``free``."""
         pages = list(pages)
+        if self._san is not None:
+            self._san.event("incref", pages=[int(p) for p in pages])
         for p in pages:
             if self._refcnt[p] == 0:
                 raise ValueError(
-                    f"incref: page {p} is free (cannot resurrect)")
+                    f"incref: page {p} is free (cannot resurrect)"
+                    + self._san_tail())
             self._refcnt[p] += 1
             self._ext_refs[p] += 1
+        if self._san is not None:
+            self._san.verify_pages(pages, self)
 
     def decref(self, pages):
         """Drop external references; returns how many pages that
         released back to the pool."""
+        pages = list(pages)
+        if self._san is not None:
+            self._san.event("decref", pages=[int(p) for p in pages])
         freed = 0
         for p in pages:
             if self._ext_refs[p] <= 0:
                 raise ValueError(
-                    f"decref: page {p} holds no external reference")
+                    f"decref: page {p} holds no external reference"
+                    + self._san_tail())
             self._ext_refs[p] -= 1
             if self._ext_refs[p] == 0:
                 del self._ext_refs[p]
             freed += self._release_page(p)
+        if self._san is not None:
+            self._san.verify_pages(pages, self)
         return freed
 
     def _release_page(self, p):
@@ -330,6 +458,8 @@ class PagedKVCacheManager:
         self._refcnt[p] = c
         if c == 0:
             self._free.append(p)
+            if self._reg is not None:
+                self._reg.inc("pool.page_frees")
             return 1
         return 0
 
@@ -341,6 +471,8 @@ class PagedKVCacheManager:
         used = self.num_pages - len(self._free)
         if used > self.peak_used_pages:
             self.peak_used_pages = used
+        if self._reg is not None:
+            self._reg.inc("pool.page_allocs")
         if self.quantized:
             # a drawn page restarts its calibration: the first write
             # must not inherit a dead page's scales
@@ -354,6 +486,8 @@ class PagedKVCacheManager:
         self._copy_page(dst, src)
         self._refcnt[src] -= 1  # src was shared: cannot hit zero here
         self.cow_forks += 1
+        if self._reg is not None:
+            self._reg.inc("pool.cow_forks")
         return dst
 
     def _copy_page(self, dst, src):
@@ -402,9 +536,15 @@ class PagedKVCacheManager:
                 f"truncate({seq_id!r}, {n}): sequence has only {cur}")
         keep = -(-n // self.page_size) if n else 0
         tbl = self._tables[seq_id]
+        dropped = tbl[keep:]
+        if self._san is not None:
+            self._san.event("truncate", seq=seq_id, n=int(n),
+                            dropped=[int(p) for p in dropped])
         while len(tbl) > keep:
             self._release_page(tbl.pop())
         self._lens[seq_id] = n
+        if self._san is not None and dropped:
+            self._san.verify_pages(dropped, self)
 
     @property
     def num_free_pages(self) -> int:
@@ -438,6 +578,57 @@ class PagedKVCacheManager:
                 f"free list {sorted(free_set)} != refcount-zero set "
                 f"{sorted(zero)}")
         return True
+
+    # -- lifecycle sanitizer surface (page_sanitizer.py) -------------------
+    @property
+    def sanitizer(self):
+        """The pool's PageSanitizer, or None when off."""
+        return self._san
+
+    @property
+    def sanitizer_stats(self):
+        """Event/violation counters, or None when off."""
+        return None if self._san is None else self._san.stats()
+
+    def sanitizer_page_gens(self, pages):
+        """Current shadow generation of each listed page (None when the
+        sanitizer is off): captured next to a held chain, a later
+        :meth:`sanitizer_check_chain` proves no page was recycled under
+        the holder."""
+        return (None if self._san is None
+                else self._san.page_gens(pages))
+
+    def sanitizer_check_chain(self, pages, gens, what="chain"):
+        """Validate a generation-tagged chain captured earlier (the
+        radix prefix tree checks its node chains on every match)."""
+        if self._san is not None and gens is not None:
+            self._san.check_chain(pages, gens, what=what)
+
+    def sanitizer_note(self, op, **fields):
+        """Journal a context-only event (prefix-cache pin / unpin /
+        evict / insert): breadcrumbs, no shadow semantics."""
+        if self._san is not None:
+            self._san.note(op, **fields)
+
+    def sanitizer_crosscheck(self):
+        """Epoch cross-check: the shadow heap against the real pool
+        (refcounts, free list, lengths, ``num_free_pages``) and, in
+        strict mode, :meth:`assert_ref_invariants` too; the scheduler
+        calls it every ``FLAGS_page_sanitizer_stride`` steps. Returns
+        the sanitizer stats, or None when off."""
+        if self._san is None:
+            return None
+        self._san.crosscheck(self)
+        if self._san.mode == "strict":
+            try:
+                self.assert_ref_invariants()
+            except AssertionError as e:
+                raise AssertionError(
+                    str(e) + "\n" + self._san.format_tail()) from None
+        return self._san.stats()
+
+    def _san_check_table(self, seq_ids, tbl, lens):
+        self._san.check_table(seq_ids, np.asarray(tbl), np.asarray(lens))
 
     # -- host swap (preemption; HostKVSwapSpace) -----------------------------
     def swap_out_pages(self, seq_id) -> int:
@@ -481,13 +672,23 @@ class PagedKVCacheManager:
         tbl = self._tables.get(seq_id)
         if tbl is None:
             raise KeyError(f"swap_out({seq_id!r}): unknown sequence")
+        length = self._lens[seq_id]
         kept = [self._refcnt[p] > 1 for p in tbl]
         priv = [p for p, k in zip(tbl, kept) if not k]
         shared = [p for p, k in zip(tbl, kept) if k]
         host = self._gather_host(priv) if priv else (None,) * 4
-        rec = _SwapRecord(list(tbl), kept, self._lens[seq_id], *host,
-                          nbytes=len(priv) * self.page_nbytes)
+        gens = (self._san.page_gens(shared)
+                if self._san is not None else None)
+        rec = _SwapRecord(list(tbl), kept, length, *host, gens=gens,
+                          nbytes=len(priv) * self.page_nbytes,
+                          trace_ctx=self._trace_ctxs.get(seq_id))
         space._swap_put((self._uid, seq_id), rec)
+        self._trace_ctxs.pop(seq_id, None)
+        if self._san is not None:
+            self._san.event("swap_out", seq=seq_id,
+                            pages=[int(p) for p in tbl],
+                            kept=[bool(k) for k in kept],
+                            length=int(length))
         # the swap hold: each shared page gains an external reference
         # BEFORE the sequence's own references drop, so its refcount
         # never transits zero
@@ -499,6 +700,10 @@ class PagedKVCacheManager:
         freed = 0
         for p in reversed(tbl):
             freed += self._release_page(p)
+        if self._san is not None and tbl:
+            self._san.verify_pages(tbl, self)
+        if self._reg is not None:
+            self._reg.inc("pool.swap_out_pages", freed)
         return freed, rec.nbytes
 
     def swap_in_pages_needed(self, seq_id, space,
@@ -563,8 +768,22 @@ class PagedKVCacheManager:
                     del self._ext_refs[p]
         self._tables[seq_id] = chain
         self._lens[seq_id] = rec.length
+        if self._san is not None:
+            self._san.event(
+                "swap_in", seq=seq_id,
+                pages=[int(p) for p in chain],
+                kept=[bool(k) for k in rec.kept],
+                length=int(rec.length),
+                gens=None if rec.gens is None
+                else [int(g) for g in rec.gens],
+                pool=self)
         space._swap_pop(key)
         space.swapped_in_records += 1
+        if rec.trace_ctx is not None:
+            # the restored sequence resumes its own trace
+            self._trace_ctxs[seq_id] = rec.trace_ctx
+        if self._reg is not None:
+            self._reg.inc("pool.swap_in_pages", len(new_priv))
         return len(new_priv)
 
     def swap_discard(self, seq_id, space):
@@ -593,7 +812,7 @@ class PagedKVCacheManager:
                 need += 1
         return need
 
-    def book_ragged(self, seq_ids, counts):
+    def book_ragged(self, seq_ids, counts, op="append_ragged"):
         """Bookkeeping half of a ragged append of ``counts[i]`` tokens to
         sequence ``seq_ids[i]``: an atomic capacity precheck (a short
         pool changes nothing), then the page draws, in the order the
@@ -602,7 +821,12 @@ class PagedKVCacheManager:
         shared tail page forks it first (:meth:`_fork_page`: the device
         copy is issued here, before any layer writes). The device write
         belongs to the caller. Returns the page ids drawn, fork
-        destinations included, in order."""
+        destinations included, in order.
+
+        ``op``: the sanitizer event of the call, as the reference's pool
+        names it: ``"append_ragged"`` (journaled when the call books a
+        token), ``"append_batch"`` (one token a sequence, always
+        journaled) or ``"append"`` (one token of one sequence)."""
         counts = [int(c) for c in counts]
         need = self.ragged_pages_needed(seq_ids, counts)
         if need > len(self._free):
@@ -613,13 +837,23 @@ class PagedKVCacheManager:
         for s, c in zip(seq_ids, counts):
             tbl = self._tables[s]
             if c and self.pending_cow(s):
-                tbl[-1] = self._fork_page(tbl[-1])
+                src = tbl[-1]
+                tbl[-1] = self._fork_page(src)
                 drawn.append(tbl[-1])
+                if self._san is not None:
+                    self._san.event("fork", seq=s, src=int(src),
+                                    dst=int(tbl[-1]), pool=self)
             n = self._lens[s] + c
             while len(tbl) * self.page_size < n:
                 tbl.append(self._alloc_page())
                 drawn.append(tbl[-1])
             self._lens[s] = n
+        if self._san is not None and (sum(counts)
+                                      or op == "append_batch"):
+            plan = self._slot_plan(seq_ids, counts)
+            self._san.event(op, seq_ids=list(seq_ids), counts=counts,
+                            pages=plan[0].tolist(), offs=plan[1].tolist(),
+                            pool=self)
         return drawn
 
     def _slot_plan(self, seq_ids, counts):
@@ -708,26 +942,38 @@ class PagedKVCacheManager:
             self._kv[:, pg] = body
             self._scales[:, pg] = new
 
+    def append(self, seq_id, k_tok, v_tok):
+        """Write one token's K/V ((KVH, D) tensors or arrays) into the
+        sequence's next slot; returns its (page, offset)."""
+        k_tok, v_tok = (torch.as_tensor(t, device=self.device)
+                        for t in (k_tok, v_tok))
+        self.append_ragged([seq_id], [1], k_tok[None], v_tok[None],
+                           op="append")
+        n = self._lens[seq_id] - 1
+        return self._tables[seq_id][n // self.page_size], n % self.page_size
+
     def append_batch(self, seq_ids, k_toks, v_toks):
         """Write one token's K/V for EVERY listed sequence in one scatter
         per pages tensor. k_toks/v_toks: (B, KVH, D)."""
-        self.append_ragged(seq_ids, [1] * len(seq_ids), k_toks, v_toks)
+        self.append_ragged(seq_ids, [1] * len(seq_ids), k_toks, v_toks,
+                           op="append_batch")
 
-    def append_ragged(self, seq_ids, counts, k_toks, v_toks, step=None):
+    def append_ragged(self, seq_ids, counts, k_toks, v_toks, step=None,
+                      op="append_ragged"):
         """Write ``counts[i]`` consecutive tokens' K/V for every listed
         sequence in one scatter per pages tensor. k_toks/v_toks:
         (sum(counts), KVH, D), rows ordered sequence-major.
 
         ``step``: the :class:`RaggedStepInputs` of a caller that booked
         the slots itself (:meth:`book_ragged`); without it the pool books
-        them and plans the write here."""
+        them (journaled as ``op``) and plans the write here."""
         counts = [int(c) for c in counts]
         if sum(counts) != k_toks.shape[0]:
             raise ValueError(
                 f"append_ragged: counts sum to {sum(counts)} but "
                 f"{k_toks.shape[0]} token rows were passed")
         if step is None:
-            self.book_ragged(seq_ids, counts)
+            self.book_ragged(seq_ids, counts, op=op)
             slots, passes = self._write_inputs(seq_ids, counts)
         else:
             slots, passes = step.slots, step.passes
@@ -761,11 +1007,27 @@ class PagedKVCacheManager:
 
     def _attend_inputs(self, seq_ids, q_lens, rows_pad, max_pages):
         """Page table, seq_lens and q_lens of the ragged kernel, int32 on
-        the pool's device, in one copy."""
+        the pool's device, in one copy, and the host (page table,
+        seq_lens)."""
         tbl, lens = self._padded_kernel_inputs(seq_ids, rows_pad, max_pages)
         ql = np.zeros(lens.shape, np.int32)
         ql[:len(q_lens)] = [int(c) for c in q_lens]
-        return copy_to_device([tbl, lens, ql], self.device, torch.int32)
+        return (*copy_to_device([tbl, lens, ql], self.device, torch.int32),
+                (tbl, lens))
+
+    def _attend_step(self, seq_ids, q_lens, rows_pad, max_pages):
+        """The kernel inputs of an attend call without a booked step
+        (no write plan)."""
+        tbl, lens, ql, host = self._attend_inputs(seq_ids, q_lens,
+                                                  rows_pad, max_pages)
+        return RaggedStepInputs(None, tbl, lens, ql, None, host)
+
+    def _check_step_table(self, seq_ids, step):
+        """Sanitizer check of the page table a kernel gets from
+        ``step`` (one pool built it for every layer: each pool checks it
+        against its own shadow chains)."""
+        if self._san is not None:
+            self._san_check_table(seq_ids, *step.host_table)
 
     def ragged_step_inputs(self, seq_ids, counts, rows_pad=None,
                            max_pages=None, groups=None):
@@ -783,8 +1045,10 @@ class PagedKVCacheManager:
         every row and built in the same two copies."""
         slots, passes = self._write_inputs(seq_ids, counts)
         if groups is None:
-            return RaggedStepInputs(slots, *self._attend_inputs(
-                seq_ids, counts, rows_pad, max_pages), passes)
+            tbl, lens, ql, host_table = self._attend_inputs(
+                seq_ids, counts, rows_pad, max_pages)
+            return RaggedStepInputs(slots, tbl, lens, ql, passes,
+                                    host_table)
         host = []
         for rows, pad in groups:
             tbl, lens = self._padded_kernel_inputs(
@@ -793,11 +1057,15 @@ class PagedKVCacheManager:
             ql[:len(rows)] = [int(counts[i]) for i in rows]
             host += [tbl, lens, ql]
         dev = copy_to_device(host, self.device, torch.int32)
-        return [RaggedStepInputs(slots, *dev[3 * g:3 * g + 3], passes)
+        return [RaggedStepInputs(slots, *dev[3 * g:3 * g + 3], passes,
+                                 (host[3 * g], host[3 * g + 1]))
                 for g in range(len(groups))]
 
     def page_table(self, seq_ids, max_pages=None):
-        tbl, _ = self._padded_kernel_inputs(seq_ids, len(seq_ids), max_pages)
+        tbl, lens = self._padded_kernel_inputs(seq_ids, len(seq_ids),
+                                               max_pages)
+        if self._san is not None:
+            self._san_check_table(seq_ids, tbl, lens)
         return torch.from_numpy(tbl).to(self.device)
 
     def seq_lens(self, seq_ids):
@@ -845,10 +1113,12 @@ class PagedKVCacheManager:
         seq_lens when the caller built them (:meth:`ragged_step_inputs`).
         """
         if step is None:
-            tbl, lens = copy_to_device(
-                self._padded_kernel_inputs(seq_ids, rows_pad, max_pages),
-                self.device, torch.int32)
+            host = self._padded_kernel_inputs(seq_ids, rows_pad, max_pages)
+            if self._san is not None:
+                self._san_check_table(seq_ids, *host)
+            tbl, lens = copy_to_device(host, self.device, torch.int32)
         else:
+            self._check_step_table(seq_ids, step)
             tbl, lens = step.page_table, step.seq_lens
         return paged_attention(q, self.k_pages, self.v_pages, tbl, lens,
                                sm_scale=sm_scale, window=window,
@@ -862,10 +1132,9 @@ class PagedKVCacheManager:
         and batch-padding rows return exact zeros. The ragged kernel,
         as the reference's alias of :meth:`attend_ragged`."""
         if step is None:
-            tbl, lens, ql = self._attend_inputs(seq_ids, q_lens, rows_pad,
-                                                max_pages)
-        else:
-            tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
+            step = self._attend_step(seq_ids, q_lens, rows_pad, max_pages)
+        self._check_step_table(seq_ids, step)
+        tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
         return _prefill_kernel(q, self.k_pages, self.v_pages, tbl, lens,
                                sm_scale=sm_scale, window=window, q_lens=ql,
                                **self._scale_args)
@@ -879,10 +1148,9 @@ class PagedKVCacheManager:
         ``step`` carries the kernel's inputs when the caller built them
         (:meth:`ragged_step_inputs`)."""
         if step is None:
-            tbl, lens, ql = self._attend_inputs(seq_ids, q_lens, rows_pad,
-                                                max_pages)
-        else:
-            tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
+            step = self._attend_step(seq_ids, q_lens, rows_pad, max_pages)
+        self._check_step_table(seq_ids, step)
+        tbl, lens, ql = step.page_table, step.seq_lens, step.q_lens
         return _ragged_kernel_fn(q, self.k_pages, self.v_pages, tbl, lens,
                                  q_lens=ql, sm_scale=sm_scale, window=window,
                                  **self._scale_args)
@@ -936,6 +1204,7 @@ class PagedKVCacheManager:
             raise ValueError(
                 f"fused_ragged_step: the step books {step.slots.shape[1]} "
                 f"slots for {n_real} packed tokens")
+        self._check_step_table(seq_ids, step)
         wq, wk, wv, wo, biases = weights
         cos, sin = rope
         y, _, _ = _fused_step_fn(

@@ -21,6 +21,11 @@ alike; the step's device inputs are built once from the first layer's
 pool, so every pool must hold the same page tables, and each hook checks
 that they do.
 
+``sanitizer`` (``"off"``/``"warn"``/``"strict"``) overrides
+``FLAGS_page_sanitizer`` for every layer's pool: each journals its
+mutations and the page tables its kernel gets into a shadow heap
+(``incubate/nn/page_sanitizer.py``).
+
 ``decode_window`` is the legacy speculative verify
 (``FLAGS_spec_decode=legacy``): a w-token window per sequence through
 one dense float32 masked attention over the gathered pages.
@@ -80,9 +85,6 @@ class PagedLlamaAdapter:
         if weight_dtype is not None:
             raise NotImplementedError(
                 "weight-only quantized serving is not ported yet")
-        if sanitizer not in (None, "off"):
-            raise NotImplementedError(
-                "the page sanitizer is not ported yet")
         self.model = model
         cfg = model.config
         self.cfg = cfg
@@ -107,7 +109,7 @@ class PagedLlamaAdapter:
             PagedKVCacheManager(
                 num_pages, page_size, cfg.num_key_value_heads,
                 cfg.head_dim, dtype=dtype, kv_dtype=kv_cache_dtype,
-                device=self.device)
+                sanitizer=sanitizer, device=self.device)
             for _ in range(cfg.num_hidden_layers)
         ]
         self._cos, self._sin = build_rope_cache(
@@ -234,17 +236,17 @@ class PagedLlamaAdapter:
                 "rotary-encoded")
 
     def _book_step(self, seq_ids, counts, rows_pad=None, max_pages=None,
-                   groups=None):
+                   groups=None, op="append_ragged"):
         """Book one step's new tokens in every layer's pool, then build
         the step's device inputs ONCE for all layers (per row group with
         ``groups``, :meth:`PagedKVCacheManager.ragged_step_inputs`).
         Every pool goes through the same alloc/attach/append/free and
         swap calls, so their page tables agree; the pages each draws
         (copy-on-write fork destinations included) are checked to be the
-        same."""
-        drawn = self.caches[0].book_ragged(seq_ids, counts)
+        same. ``op`` names the bookings in a sanitized pool's journal."""
+        drawn = self.caches[0].book_ragged(seq_ids, counts, op=op)
         for c in self.caches[1:]:
-            if c.book_ragged(seq_ids, counts) != drawn:
+            if c.book_ragged(seq_ids, counts, op=op) != drawn:
                 raise AssertionError("the layers' KV page pools diverged")
         return self.caches[0].ragged_step_inputs(
             seq_ids, counts, rows_pad=rows_pad, max_pages=max_pages,
@@ -263,7 +265,7 @@ class PagedLlamaAdapter:
         ids, pos = copy_to_device(
             [token_ids, np.asarray(lens)[:, None]], self.device,
             torch.int64)
-        step = self._book_step(seq_ids, [1] * b)
+        step = self._book_step(seq_ids, [1] * b, op="append_batch")
         x = self.model.model.embed_tokens(ids)              # (B, E)
         for li, layer in enumerate(self.model.model.layers):
             att = layer.self_attn

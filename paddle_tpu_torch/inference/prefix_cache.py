@@ -25,14 +25,20 @@ The design follows RadixAttention (SGLang) on a page-granular pool:
   attach, and admission holds it while a request is active.
 
 Everything here is host-side bookkeeping; the device sees only which
-page ids end up in the kernels' page tables. The reference's telemetry
-counters are not ported, and the page sanitizer's per-node generations
-(``gens``) stay None: the port has no sanitizer.
+page ids end up in the kernels' page tables. Under ``FLAGS_telemetry``
+the tree counts lookups, hits, inserts and evictions (``prefix.*``).
+Under the page sanitizer each node keeps the generations of its pages
+(``gens``, captured once its references are taken) and every match
+checks them against the pools' shadow heaps, so a skipped reference
+shows up as a use-after-free at the next match; pins, unpins, inserts
+and evictions leave breadcrumbs in the pools' journals.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..framework import telemetry
 
 __all__ = ["RadixPrefixCache", "PrefixMatch"]
 
@@ -45,18 +51,21 @@ class _Node:
     """One radix-tree edge+node: ``key`` is the token span entering this
     node, ``start`` its absolute token offset from the root, and
     ``pages[l]`` the physical pages of layer ``l`` overlapping [start,
-    start + len(key))."""
+    start + len(key)). ``gens`` (page-sanitizer runs only) holds the
+    per-layer page generations captured when the node took its
+    references: a later match proves the pages were never recycled
+    under the tree."""
 
     __slots__ = ("key", "start", "children", "parent", "pages",
                  "gens", "last_use", "pin")
 
-    def __init__(self, key, start, pages, parent):
+    def __init__(self, key, start, pages, parent, gens=None):
         self.key: List[int] = key
         self.start: int = start
         self.children: Dict[int, "_Node"] = {}
         self.parent: Optional["_Node"] = parent
         self.pages: List[List[int]] = pages  # per layer
-        self.gens = None  # page generations: sanitizer runs only
+        self.gens = gens  # per layer, or None (sanitizer off)
         self.last_use: int = 0
         self.pin: int = 0
 
@@ -109,8 +118,41 @@ class RadixPrefixCache:
             "inserted_tokens": 0, "inserted_nodes": 0,
             "evicted_nodes": 0, "evicted_pages": 0,
         }
+        # the same counters in the process registry under "prefix."
+        # (None when FLAGS_telemetry is off: one check per site)
+        self._reg = telemetry.registry()
 
     # -- helpers -----------------------------------------------------------
+    def _note(self, op, **fields):
+        """Breadcrumb into each pool's sanitizer journal (no-op when the
+        sanitizer is off)."""
+        for c in self.caches:
+            fn = getattr(c, "sanitizer_note", None)
+            if fn is not None:
+                fn(op, **fields)
+
+    def _capture_gens(self, pages):
+        """Per-layer page generations of a freshly referenced chain
+        (None when the sanitizer is off)."""
+        gens = []
+        any_on = False
+        for cache, chain in zip(self.caches, pages):
+            fn = getattr(cache, "sanitizer_page_gens", None)
+            g = fn(chain) if fn is not None else None
+            any_on = any_on or g is not None
+            gens.append(g)
+        return gens if any_on else None
+
+    def _check_node(self, node):
+        """Check a walked node's generation-tagged chains against each
+        pool's shadow heap (the match-time use-after-free check)."""
+        if node.gens is None:
+            return
+        for cache, chain, g in zip(self.caches, node.pages, node.gens):
+            fn = getattr(cache, "sanitizer_check_chain", None)
+            if fn is not None and g is not None:
+                fn(chain, g, what="prefix-match")
+
     def _tick(self) -> int:
         self._clock += 1
         return self._clock
@@ -172,6 +214,7 @@ class RadixPrefixCache:
             j = self._common_len(child.key, tokens[matched:n])
             if j == 0:
                 break
+            self._check_node(child)
             self._overlay(chains, child, child.start + j)
             child.last_use = stamp
             path.append(child)
@@ -192,6 +235,18 @@ class RadixPrefixCache:
             self.stats["hit_tokens"] += matched
         else:
             self.stats["misses"] += 1
+        if self._reg is not None:
+            self._reg.inc("prefix.lookup_tokens", len(tokens))
+            if matched:
+                self._reg.inc("prefix.hits")
+                self._reg.inc("prefix.hit_tokens", matched)
+            else:
+                self._reg.inc("prefix.misses")
+            # the per-lookup hit fraction, stamped by epoch: the series
+            # the prefix-collapse watchdog compares with its baseline
+            if tokens:
+                self._reg.observe("prefix.hit_frac",
+                                  matched / len(tokens))
         return PrefixMatch(length=matched, chains=chains,
                            path=tuple(path))
 
@@ -201,12 +256,16 @@ class RadixPrefixCache:
         the lifetime of the request that attached the chains)."""
         for node in path:
             node.pin += 1
+        if path:
+            self._note("pin", nodes=len(path))
 
     def unpin(self, path):
         for node in path:
             if node.pin <= 0:
                 raise AssertionError("unpin of an unpinned node")
             node.pin -= 1
+        if path:
+            self._note("unpin", nodes=len(path))
 
     # -- insert ------------------------------------------------------------
     def insert(self, tokens: Sequence[int],
@@ -257,13 +316,21 @@ class RadixPrefixCache:
         pages = [list(chain[lo:hi]) for chain in chains]
         for cache, chain in zip(self.caches, pages):
             cache.incref(chain)
+        # generations captured AFTER the incref: from here the pages
+        # cannot be recycled while this node exists, so a generation
+        # change seen by a later match proves a reference was lost
         leaf = _Node(key=tokens[pos:n], start=pos, pages=pages,
-                     parent=parent)
+                     parent=parent, gens=self._capture_gens(pages))
         leaf.last_use = stamp
         parent.children[tokens[pos]] = leaf
         self.mutations += 1
         self.stats["inserted_tokens"] += n - pos
         self.stats["inserted_nodes"] += 1
+        if self._reg is not None:
+            self._reg.inc("prefix.inserted_tokens", n - pos)
+            self._reg.inc("prefix.inserted_nodes")
+        self._note("prefix-insert", tokens=n - pos,
+                   pages=sum(len(p) for p in pages))
 
     def _split(self, node, j):
         """Split ``node`` after j key tokens; returns the new upper node.
@@ -279,8 +346,17 @@ class RadixPrefixCache:
         if up_hi > low_lo:  # mid-page split: boundary page shared
             for cache, p in zip(self.caches, node.pages):
                 cache.incref([p[low_lo - lo]])
+        # generation tags split with the pages (the shared boundary page
+        # keeps its generation in both halves)
+        upper_gens = lower_gens = None
+        if node.gens is not None:
+            upper_gens = [None if g is None else g[up_lo - lo:up_hi - lo]
+                          for g in node.gens]
+            lower_gens = [None if g is None else g[low_lo - lo:low_hi - lo]
+                          for g in node.gens]
         upper = _Node(key=node.key[:j], start=node.start,
-                      pages=upper_pages, parent=node.parent)
+                      pages=upper_pages, parent=node.parent,
+                      gens=upper_gens)
         upper.last_use = node.last_use
         # pins stay on the LOWER half (the object match paths hold):
         # eviction is leaf-only, so the pinned child protects the new
@@ -289,6 +365,7 @@ class RadixPrefixCache:
         node.key = node.key[j:]
         node.start = cut
         node.pages = lower_pages
+        node.gens = lower_gens
         node.parent = upper
         upper.children[node.key[0]] = node
         return upper
@@ -337,6 +414,10 @@ class RadixPrefixCache:
         self.mutations += 1
         self.stats["evicted_nodes"] += 1
         self.stats["evicted_pages"] += freed
+        if self._reg is not None:
+            self._reg.inc("prefix.evicted_nodes")
+            self._reg.inc("prefix.evicted_pages", freed)
+        self._note("evict", tokens=len(leaf.key), pages_freed=freed)
         return freed
 
     def clear(self) -> int:

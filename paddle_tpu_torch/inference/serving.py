@@ -57,31 +57,62 @@ target ``decode_window`` a round, and refuses the prefix cache and
 preemption. ``off`` ignores the draft. Either way the output is the
 non-speculative greedy scheduler's, token for token.
 
-The scheduler is host-side bookkeeping only. Not ported yet, and
-refused at construction rather than ignored: fault injection, SLO
-accounting and the watchdog.
+The host planes, all off by default (one ``is None`` check a site):
+
+* fault injection (``fault_injector=`` or ``FLAGS_serving_faults``,
+  ``incubate/nn/fault_injection.py``) perturbs the scheduler at step
+  boundaries only: forced pool exhaustion, preemption storms, delayed
+  swap-in, and step failures retried with exponential back-off;
+* the page sanitizer (``FLAGS_page_sanitizer``, or the adapter's
+  ``sanitizer=``) journals every pool mutation, and the scheduler
+  cross-checks every pool's shadow heap (draft pools included) every
+  ``FLAGS_page_sanitizer_stride`` steps;
+* telemetry (``FLAGS_telemetry=metrics|trace``, ``framework/
+  telemetry.py``): per-request TTFT / TPOT / queue-wait / retire
+  histograms and token and request counters under ``serving.*``,
+  surfaced by :meth:`BatchScheduler.metrics` with the pool, prefix and
+  sanitizer counters; in trace mode nested spans (``serving.step`` >
+  ``serving.admit`` / ``serving.draft_propose`` /
+  ``serving.prefill_chunk`` / ``serving.decode`` > ``serving.retire``)
+  and per-request traces (submit -> admit -> token ... -> retire), each
+  request carrying a :class:`telemetry.TraceContext` through its swap
+  records; SLO accounting (``slo=`` or ``FLAGS_telemetry_slo``) with
+  goodput over a window of step epochs; the watchdog (``watchdog=`` or
+  ``FLAGS_telemetry_watchdog``) every ``FLAGS_telemetry_watchdog_stride``
+  steps; the performance ledger (``exec.wall_s.<program>`` stamps of
+  each model call, closed once its logits reached the host); and the
+  flight recorder (``FLAGS_telemetry_incident_dir``), which writes an
+  incident bundle at each watchdog fire and on :meth:`BatchScheduler.
+  dump_incident`;
+* the concurrency sanitizer (``FLAGS_concurrency_sanitizer``) holds the
+  queue and the request maps to one writer thread.
+
+Every time the scheduler reads comes from ``telemetry.clock()``.
 """
 from __future__ import annotations
 
 import collections
 import inspect
-import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from ..framework import concurrency as _concurrency
+from ..framework import telemetry
 from ..framework.flags import flag
+from ..framework.telemetry import NULL_SPAN as _NULL
 from ..incubate.nn.paged_cache import HostKVSwapSpace
 from .prefix_cache import RadixPrefixCache
 
 __all__ = ["Request", "BatchScheduler", "RequestState",
            "bucket_packed_tokens", "QueueFullError"]
 
-# the deadline clock (seconds); a module attribute so that tests can
-# patch it, as the reference's tests patch its telemetry clock
-clock = time.monotonic
+# scheduler uid sequence: the per-scheduler serving.compile_count.<uid>
+# and serving.attend_programs.<uid> gauges
+_SCHED_SEQ = [0]  # concurrency: single-writer
 
 
 class QueueFullError(RuntimeError):
@@ -147,6 +178,9 @@ class Request:
     priority: int = 0
     tenant: str = "default"
     deadline_s: Optional[float] = None
+    # trace identity (telemetry.TraceContext, or its to_wire() string):
+    # None under FLAGS_telemetry=off, else made at submit (or adopted)
+    trace_ctx: Optional[object] = None
     state: str = RequestState.QUEUED
     generated_ids: List[int] = field(default_factory=list)
     _pos: int = 0  # prompt tokens consumed so far
@@ -155,6 +189,14 @@ class Request:
     _order: int = 0  # submit sequence number (FIFO within priority)
     _t_deadline: float = 0.0  # absolute clock() deadline (0 = none)
     _preemptions: int = 0  # times this request was swapped out
+    # telemetry stamps (telemetry.clock(); written under live metrics
+    # only) and the request's SLO inputs: TTFT, queue wait and every
+    # inter-token gap
+    _t_submit: float = 0.0
+    _t_last_tok: float = 0.0
+    _ttft: Optional[float] = None
+    _qwait: Optional[float] = None
+    _gaps: Optional[List[float]] = None
 
     @property
     def finished(self) -> bool:
@@ -169,11 +211,6 @@ class Request:
 
     def total_tokens(self) -> int:
         return len(self.prompt_ids) + self.max_new_tokens
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"BatchScheduler: {what} is not ported to paddle_tpu_torch yet")
 
 
 def _accepts_logits_rows(model) -> bool:
@@ -222,12 +259,6 @@ class BatchScheduler:
                  max_queue=None, max_inflight_per_tenant=None,
                  preempt=None, swap_bytes=None, fault_injector=None,
                  spec_decode=None):
-        for what, val in (("fault injection (fault_injector)",
-                           fault_injector),
-                          ("SLO accounting (slo)", slo),
-                          ("the watchdog", watchdog)):
-            if val:
-                _not_ported(what)
         self.model = model
         self.max_batch_size = int(max_batch_size)
         self.page_watermark = float(page_watermark)
@@ -338,9 +369,105 @@ class BatchScheduler:
                            if preempt and swap_bytes > 0
                            and (draft_model is None or self._spec_ragged)
                            else None)
-        # per-step overload annotations (preempted / resumed / aborted)
+        # deterministic fault injection: None (the default, empty
+        # FLAGS_serving_faults) costs one is-None check a step
+        if fault_injector is None:
+            spec = str(flag("serving_faults"))
+            if spec.strip():
+                from ..incubate.nn.fault_injection import FaultInjector
+
+                fault_injector = FaultInjector(spec)
+        self._faults = fault_injector
+        self._fault_step = 0
+        self._consec_fails = 0
+        self._resume_at = 0
+        # per-step overload annotations (preempted / resumed / aborted /
+        # faulted)
         self._step_extras = {}
         self._admitted_step = 0
+        # the page sanitizer's epoch cross-check: every stride steps,
+        # shadow against real on every cache (draft pools included)
+        self._san_stride = max(1, int(flag("page_sanitizer_stride")))
+        self._san_steps = 0
+        # telemetry handles, read HERE: off holds None and every site
+        # below pays one `is None` check
+        self._metrics = telemetry.registry()
+        self._tracer = telemetry.tracer()
+        self._traces = telemetry.request_traces()
+        # the step epoch mirrors the registry's shared monotonic epoch;
+        # _steps counts THIS scheduler's iterations (stride accounting)
+        self._step_epoch = 0
+        self._steps = 0
+        self._slo = None
+        self._slo_window = None
+        self._watchdog = None
+        self._export_path = None
+        self._t_start = 0.0
+        self._ledger = None
+        self._recorder = None
+        _SCHED_SEQ[0] += 1
+        self._sched_uid = "s%d" % _SCHED_SEQ[0]
+        # the concurrency sanitizer: the queue and the request maps are
+        # single-writer by contract (the thread that steps also submits)
+        self._csan = _concurrency.sanitizer()
+        if self._csan is None:
+            self._cv_queue = None
+            self._cv_state = None
+        else:
+            self._cv_queue = self._csan.shared(
+                "serving.%s.queue" % self._sched_uid, owner=self,
+                single_writer=True)
+            self._cv_state = self._csan.shared(
+                "serving.%s.state" % self._sched_uid, owner=self,
+                single_writer=True)
+        if self._metrics is None:
+            if slo is not None or watchdog is not None:
+                warnings.warn(
+                    "BatchScheduler got an explicit "
+                    + " and ".join(
+                        n for n, v in (("slo=", slo),
+                                       ("watchdog=", watchdog))
+                        if v is not None)
+                    + " but FLAGS_telemetry is off: no SLO accounting "
+                    "or watchdog checks will run (set "
+                    "FLAGS_telemetry=metrics|trace)",
+                    RuntimeWarning, stacklevel=2)
+        else:
+            self._t_start = telemetry.clock()
+            # join the shared epoch where it stands
+            self._step_epoch = self._metrics.epoch
+            self._win = max(1, int(flag("telemetry_window")))
+            cfg = slo if slo is not None \
+                else telemetry.SLOConfig.from_flag()
+            self._slo = cfg if cfg.enabled() else None
+            # (epoch, met_all, {slo: met}) per retired request, pruned
+            # to the trailing window at publish time, with running
+            # met-counts kept on append and prune
+            self._slo_window = collections.deque()
+            self._slo_met_all = 0
+            self._slo_met = collections.Counter()
+            wd_mode = str(flag("telemetry_watchdog")).lower()
+            if watchdog is not None:
+                self._watchdog = watchdog
+            elif wd_mode in ("warn", "strict"):
+                from ..framework.watchdog import Watchdog
+
+                self._watchdog = Watchdog(self._metrics, mode=wd_mode,
+                                          window=self._win)
+            self._wd_stride = max(
+                1, int(flag("telemetry_watchdog_stride")))
+            self._export_path = \
+                str(flag("telemetry_export_path")) or None
+            # the performance ledger joins registered plans with the
+            # exec.wall_s.<program> stamps of the model calls
+            from ..framework import perf_ledger as _perf_ledger
+
+            self._ledger = _perf_ledger.ledger()
+            if str(flag("telemetry_incident_dir")):
+                self._recorder = telemetry.FlightRecorder(
+                    registry=self._metrics, tracer=self._tracer,
+                    traces=self._traces, watchdog=self._watchdog,
+                    ledger=self._ledger)
 
     # -- pool accounting ---------------------------------------------------
     def _pool(self, model=None):
@@ -394,8 +521,9 @@ class BatchScheduler:
             "free_pages": free,
             "reserved_pages": self._reserved_pages_outstanding(),
             "utilization": 1.0 - free / max(total, 1),
-            "shared_pages": sum(c.num_shared_pages for c in caches),
-            "cow_forks": sum(c.cow_forks for c in caches),
+            "shared_pages": sum(getattr(c, "num_shared_pages", 0)
+                                for c in caches),
+            "cow_forks": sum(getattr(c, "cow_forks", 0) for c in caches),
             "peak_used_pages": sum(getattr(c, "peak_used_pages", 0)
                                    for c in caches),
             "kv_dtype": sorted({getattr(c, "kv_dtype", "unknown")
@@ -413,6 +541,18 @@ class BatchScheduler:
         if self.swap_space is not None:
             stats["swap"] = self.swap_space.summary()
             stats["swap"]["swapped_requests"] = len(self._swapped)
+        all_caches = caches + (list(self.draft.caches)
+                               if self.draft is not None else [])
+        san = [s for s in (getattr(c, "sanitizer_stats", None)
+                           for c in all_caches) if s]
+        if san:
+            stats["sanitizer"] = {
+                "mode": san[0]["mode"],
+                "events": sum(s["events"] for s in san),
+                "violations": sum(s["violations"] for s in san),
+                "crosschecks": sum(
+                    s["by_op"].get("crosscheck", 0) for s in san),
+            }
         if self.draft is not None:
             d_total, d_free = self._pool(self.draft)
             stats["draft"] = {"total_pages": d_total, "free_pages": d_free}
@@ -429,6 +569,123 @@ class BatchScheduler:
                                            3) if rounds else None),
             }
         return stats
+
+    def metrics(self) -> dict:
+        """ONE namespaced telemetry snapshot of the serving stack:
+
+        * ``serving``: TTFT / TPOT / queue-wait / retire / step-wall
+          histograms (exact p50/p90/p99, each latency with a ``window``
+          view over the last ``FLAGS_telemetry_window`` step epochs),
+          token and request counters, and self-describing gauges
+          (uptime, steps/s, active/queued/retired/swapped requests,
+          goodput and per-SLO attainment under an SLO);
+        * ``pool``: occupancy gauges (refreshed here) and lifetime
+          draw/free/fork/swap counters;
+        * ``prefix``: hit, insert and evict counters and tree gauges;
+        * ``sanitizer``: event and violation counts of live sanitizers;
+        * ``exec`` and ``ledger``: the model calls' wall stamps and the
+          performance ledger's per-program rows;
+        * ``slo``, ``watchdog``, ``request_traces``: when live.
+
+        Returns ``{"telemetry": "off"}`` when FLAGS_telemetry was off at
+        construction (nothing was recorded)."""
+        if self._metrics is None:
+            return {"telemetry": "off"}
+        m = self._metrics
+        stats = self._publish_gauges()
+        snap = m.snapshot()
+        snap["telemetry"] = ("trace" if self._tracer is not None
+                             else "metrics")
+        if "sanitizer" in stats:
+            snap["sanitizer"] = stats["sanitizer"]
+        lo = self._step_epoch - self._win
+        for name in ("ttft_s", "tpot_s", "queue_wait_s", "step_wall_s"):
+            w = m.hist_windowed("serving." + name, lo)
+            if w is not None and name in snap.get("serving", {}):
+                snap["serving"][name]["window"] = w
+        if self._slo is not None:
+            snap["slo"] = self._slo.to_dict()
+        if self._watchdog is not None:
+            snap["watchdog"] = self._watchdog.summary()
+        if self._traces is not None:
+            snap["request_traces"] = self._traces.summary()
+        if self._ledger is not None:
+            snap["ledger"] = self._ledger.report()
+        return snap
+
+    def _statusz_info(self) -> dict:
+        """This scheduler's status section (a plain dict: population
+        counts, speculative acceptance, SLO window and watchdog
+        state)."""
+        info = {
+            "steps": self._steps,
+            "active": len(self._active),
+            "queued": len(self._queue),
+            "swapped": len(self._swapped),
+            "retired": len(self._finished),
+            "chunked_prefill": self.chunked_prefill,
+        }
+        if self.draft is not None:
+            info["spec"] = self.page_pool_stats()["spec"]
+        if self._slo is not None:
+            info["slo"] = self._slo.to_dict()
+            m = self._metrics
+            info["slo_window"] = {
+                "goodput": m.gauge_value("serving.goodput"),
+                "requests": m.gauge_value("serving.slo_window_requests"),
+            }
+        if self._watchdog is not None:
+            info["watchdog"] = self._watchdog.summary()
+        return info
+
+    def _publish_gauges(self) -> dict:
+        """Publish every derived gauge into the registry and return the
+        ``page_pool_stats()`` dict they were computed from (one source
+        for both shapes)."""
+        m = self._metrics
+        stats = self.page_pool_stats()
+        for key in ("total_pages", "free_pages", "utilization",
+                    "shared_pages", "used_bytes"):
+            m.gauge("pool." + key, stats[key])
+        m.gauge("pool.peak_utilization",
+                stats["peak_used_pages"] / max(stats["total_pages"], 1))
+        tree = stats.get("prefix_cache", {}).get("tree")
+        if tree is not None:
+            m.gauge("prefix.cached_tokens", tree["cached_tokens"])
+            m.gauge("prefix.cached_pages", tree["cached_pages"])
+            m.gauge("prefix.nodes", tree["nodes"])
+        san = stats.get("sanitizer")
+        if san is not None:
+            m.gauge("sanitizer.events", san["events"])
+            m.gauge("sanitizer.violations", san["violations"])
+        uptime = telemetry.clock() - self._t_start
+        m.gauge("serving.uptime_s", uptime)
+        m.gauge("serving.steps_per_s",
+                self._steps / uptime if uptime > 0 else 0.0)
+        m.gauge("serving.step_epoch", self._step_epoch)
+        m.gauge("serving.active_requests", len(self._active))
+        m.gauge("serving.queued_requests", len(self._queue))
+        m.gauge("serving.retired_requests", len(self._finished))
+        m.gauge("serving.swapped_requests", len(self._swapped))
+        if self.swap_space is not None:
+            m.gauge("serving.swap_used_bytes", self.swap_space.used_bytes)
+        self._publish_slo_gauges()
+        return stats
+
+    def _sanitizer_epoch(self):
+        """Every ``FLAGS_page_sanitizer_stride`` steps: cross-check each
+        cache's shadow heap against the real pool (and, on strict pools,
+        run ``assert_ref_invariants``). A counter bump when off."""
+        self._san_steps += 1
+        if self._san_steps % self._san_stride:
+            return
+        models = [self.model] + (
+            [self.draft] if self.draft is not None else [])
+        for m in models:
+            for c in m.caches:
+                chk = getattr(c, "sanitizer_crosscheck", None)
+                if chk is not None:
+                    chk()
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> str:
@@ -458,6 +715,8 @@ class BatchScheduler:
         # bounded-queue backpressure: shedding load at submit beats an
         # unbounded backlog
         if self.max_queue and len(self._queue) >= self.max_queue:
+            if self._metrics is not None:
+                self._metrics.inc("serving.admit_reject_queue_full")
             raise QueueFullError(
                 f"request {req.req_id!r} rejected: submit queue at "
                 f"capacity ({self.max_queue}); shed load or retry "
@@ -467,9 +726,32 @@ class BatchScheduler:
                 raise ValueError(
                     f"request {req.req_id!r}: deadline_s must be "
                     f"positive, got {req.deadline_s}")
-            req._t_deadline = clock() + float(req.deadline_s)
+            req._t_deadline = telemetry.clock() + float(req.deadline_s)
         self._submit_seq += 1
         req._order = self._submit_seq
+        if self._metrics is not None:
+            req._t_submit = telemetry.clock()
+        if self._metrics is not None or self._traces is not None \
+                or self._tracer is not None:
+            # trace identity: adopt an injected context (object or wire
+            # string), else start a fresh trace. Never under off: the
+            # off path allocates nothing
+            ctx = req.trace_ctx
+            if isinstance(ctx, str):
+                ctx = telemetry.TraceContext.from_wire(ctx)
+            if ctx is None:
+                ctx = telemetry.TraceContext(
+                    tenant=req.tenant, deadline_s=req.deadline_s)
+            req.trace_ctx = ctx
+        if self._traces is not None:
+            payload = {"prompt_tokens": len(req.prompt_ids),
+                       "max_new_tokens": req.max_new_tokens}
+            if req.trace_ctx is not None:
+                payload["trace_id"] = req.trace_ctx.trace_id
+            self._traces.begin(req.req_id, telemetry.clock(),
+                               self._step_epoch, **payload)
+        if self._cv_queue is not None:
+            self._cv_queue.write()
         self._queue.append(req)
         return req.req_id
 
@@ -500,6 +782,8 @@ class BatchScheduler:
     def _pop_queued(self, req):
         """Remove an admitted candidate from the queue (O(1) for the
         head)."""
+        if self._cv_queue is not None:
+            self._cv_queue.write()
         if self._queue and self._queue[0] is req:
             self._queue.popleft()
         else:
@@ -510,6 +794,12 @@ class BatchScheduler:
         first, by :meth:`_admit_swapped`); returns the prompt tokens the
         admitted requests take from the prefix cache."""
         hit_tokens_admitted = 0
+        if self._faults is not None \
+                and self._faults.pool_exhausted(self._fault_step):
+            # injected pool exhaustion: admission (and swap-in) sees a
+            # full pool; active decode continues untouched
+            self._note_fault("exhaust")
+            return 0
         head = self._pick_queued()
         self._admit_swapped(None if head is None else head.priority)
         while self._queue and len(self._active) < self.max_batch_size:
@@ -551,6 +841,7 @@ class BatchScheduler:
             # free, so active reservations count only their growth)
             projected = (total - free) + self._reserved_pages_outstanding() \
                 + need
+            evicted = False
             if (projected > self.page_watermark * total
                     and self.prefix_cache is not None):
                 # cached pages count as used: reclaim unpinned cached
@@ -558,10 +849,12 @@ class BatchScheduler:
                 deficit = int(np.ceil(
                     projected - self.page_watermark * total))
                 if self.prefix_cache.evict(deficit):
+                    evicted = True
                     total, free = self._pool()
                     projected = ((total - free)
                                  + self._reserved_pages_outstanding()
                                  + need)
+            preempted = False
             if (projected > self.page_watermark * total
                     and self.swap_space is not None):
                 # preempt instead of refusing: swap strictly-lower-
@@ -571,20 +864,29 @@ class BatchScheduler:
                 # still does not fit would be swapped in by the next
                 # step's idle capacity and out again, a host-copy
                 # ping-pong until the blocking peer retires
-                relief = self._releasable_pages(req.priority)
+                relief, space_blocked = self._releasable_pages(
+                    req.priority)
                 if relief >= projected - self.page_watermark * total:
                     while projected > self.page_watermark * total:
                         victim = self._pick_victim(
                             max_priority=req.priority)
-                        if victim is None or not self._preempt(victim):
+                        if victim is None or not self._preempt(
+                                victim, reason="admit"):
                             break
+                        preempted = True
                         total, free = self._pool()
                         projected = ((total - free)
                                      + self._reserved_pages_outstanding()
                                      + need)
+                elif space_blocked and self._metrics is not None:
+                    # declined because the HOST TIER cannot hold the
+                    # victims, not because the pool math falls short
+                    self._metrics.inc("serving.preempt_swap_full")
             if projected > self.page_watermark * total:
                 if hit_len:
                     self.prefix_cache.unpin(hit.path)
+                if self._metrics is not None:
+                    self._metrics.inc("serving.admit_reject_pool")
                 return hit_tokens_admitted
             if self.draft is not None:
                 # the draft pool is budgeted too (it may be sized
@@ -602,6 +904,9 @@ class BatchScheduler:
                     # above does)
                     if hit_len:
                         self.prefix_cache.unpin(hit.path)
+                    if self._metrics is not None:
+                        self._metrics.inc(
+                            "serving.admit_reject_draft_pool")
                     return hit_tokens_admitted
             self._pop_queued(req)
             self._match_memo = None
@@ -627,9 +932,27 @@ class BatchScheduler:
                     self.prefix_stats["request_hits"] += 1
             if self.draft is not None:
                 self.draft.alloc(req.req_id)
+            # the admitted chains carry the request's trace context from
+            # here on (swap records inherit it)
+            self._tag_pool_trace(req)
             req.state = RequestState.PREFILL
+            if self._cv_state is not None:
+                self._cv_state.write()
             self._active[req.req_id] = req
             self._admitted_step += 1
+            if self._metrics is not None:
+                req._qwait = telemetry.clock() - req._t_submit
+                self._metrics.observe("serving.queue_wait_s", req._qwait)
+                self._metrics.inc("serving.requests_admitted")
+                if evicted:
+                    self._metrics.inc("serving.admit_evict_then_admit")
+                if preempted:
+                    self._metrics.inc("serving.admit_preempt_then_admit")
+            if self._traces is not None:
+                self._traces.event(
+                    req.req_id, "admit", telemetry.clock(),
+                    self._step_epoch, prefix_hit_tokens=hit_len,
+                    evicted_for_room=evicted)
         return hit_tokens_admitted
 
     # -- preemption and the host swap tier ---------------------------------
@@ -644,6 +967,10 @@ class BatchScheduler:
         after); equal priority resumes first (it was admitted once and
         its submit order is older)."""
         if not self._swapped:
+            return
+        if self._faults is not None \
+                and self._faults.swap_in_delayed(self._fault_step):
+            self._note_fault("delay_swap_in")
             return
         order = sorted(self._swapped.values(),
                        key=lambda r: (-r.priority, r._order))
@@ -680,7 +1007,12 @@ class BatchScheduler:
         swap tier and put it back in the active set: resuming is one more
         packed prompt or decode row next step."""
         rid = req.req_id
-        self.model.swap_in(rid, self.swap_space)
+        with self._req_span("serving.swap_in", req, req=rid):
+            restored = self.model.swap_in(rid, self.swap_space)
+        # the restored chains re-carry the context
+        self._tag_pool_trace(req)
+        if self._cv_state is not None:
+            self._cv_state.write()
         del self._swapped[rid]
         if self.draft is not None:
             # a fresh (empty) draft chain: the ragged step's refill rows
@@ -693,6 +1025,13 @@ class BatchScheduler:
         self._admitted_step += 1
         self._step_extras["resumed"] = \
             self._step_extras.get("resumed", 0) + 1
+        if self._metrics is not None:
+            self._metrics.inc("serving.swap_in_requests")
+            self._metrics.inc("serving.swap_in_pages", restored)
+        if self._traces is not None:
+            self._traces.event(
+                req.req_id, "admit", telemetry.clock(),
+                self._step_epoch, swapped_in=True, pages=restored)
 
     def _victim_key(self, r):
         """Victim order: lowest priority first, then most pages held
@@ -710,14 +1049,15 @@ class BatchScheduler:
                  if max_priority is None or r.priority < max_priority]
         return min(cands, key=self._victim_key) if cands else None
 
-    def _releasable_pages(self, max_priority) -> int:
-        """The relief, in pages, that preempting the strictly-lower-
-        priority active victims would buy. Each victim frees its private
-        pages (shared pages stay under swap holds) and its remaining
-        worst-case reservation leaves the projection with it. Victims
-        are walked in the preempt loop's order and stop counting at the
-        first whose host copy no longer fits the swap space: the loop
-        would stop there too."""
+    def _releasable_pages(self, max_priority):
+        """``(pages, space_blocked)``: the relief, in pages, that
+        preempting the strictly-lower-priority active victims would buy.
+        Each victim frees its private pages (shared pages stay under swap
+        holds) and its remaining worst-case reservation leaves the
+        projection with it. Victims are walked in the preempt loop's
+        order and stop counting at the first whose host copy no longer
+        fits the swap space: the loop would stop there too, and
+        ``space_blocked`` reports that cut."""
         space = self.swap_space
         victims = sorted((r for r in self._active.values()
                           if r.priority < max_priority),
@@ -728,47 +1068,67 @@ class BatchScheduler:
             nbytes = sum(c.swap_out_nbytes(r.req_id)
                          for c in self.model.caches)
             if nbytes > budget:
-                break
+                return pages, True
             budget -= nbytes
             for c in self.model.caches:
                 pages += (c.swap_out_pages(r.req_id)
                           + self._growth_pages(r, c))
-        return pages
+        return pages, False
 
-    def _preempt(self, req: Request) -> bool:
-        """Swap one active request out to the host tier. Returns False
-        (and changes nothing) when the swap space cannot hold the
-        victim's private pages."""
+    def _preempt(self, req: Request, reason: str) -> bool:
+        """Swap one active request out to the host tier (``reason``:
+        ``"admit"`` or ``"fault"``, for the trace). Returns False (and
+        changes nothing) when the swap space cannot hold the victim's
+        private pages."""
         rid = req.req_id
         space = self.swap_space
+        if space is None:
+            return False
         est = sum(c.swap_out_nbytes(rid) for c in self.model.caches)
         if not space.would_fit(est):
+            if self._metrics is not None:
+                self._metrics.inc("serving.preempt_swap_full")
             return False
-        self.model.swap_out(rid, space)
-        if self.draft is not None:
-            # ragged spec only (legacy builds no swap space with a
-            # draft): the draft KV is disposable, discarded here and
-            # refilled after the swap-in; the draft pool never swaps
-            self.draft.free(rid)
-            self.spec_stats["draft_discards"] += 1
+        with self._req_span("serving.preempt", req, req=rid,
+                            reason=reason):
+            freed, nbytes = self.model.swap_out(rid, space)
+            if self.draft is not None:
+                # ragged spec only (legacy builds no swap space with a
+                # draft): the draft KV is disposable, discarded here and
+                # refilled after the swap-in; the draft pool never swaps
+                self.draft.free(rid)
+                self.spec_stats["draft_discards"] += 1
         req.state = RequestState.SWAPPED
         req._preemptions += 1
+        if self._cv_state is not None:
+            self._cv_state.write()
         self._active.pop(rid)
         self._swapped[rid] = req
         self._step_extras["preempted"] = \
             self._step_extras.get("preempted", 0) + 1
+        if self._metrics is not None:
+            self._metrics.inc("serving.preempt_victims")
+            self._metrics.inc("serving.preempt_pages", freed)
+            self._metrics.inc("serving.swap_out_bytes", nbytes)
+        if self._traces is not None:
+            # non-terminal: the request resumes
+            self._traces.event(
+                rid, "evict", telemetry.clock(), self._step_epoch,
+                reason=reason, pages=freed, bytes=nbytes)
         return True
 
     # -- deadlines and cancel ----------------------------------------------
     def _expire_deadlines(self):
         """Abort every request whose deadline passed, queued, active or
         swapped out alike, at the step boundary (never mid-model-call)."""
-        now = clock()
+        now = telemetry.clock()
 
         def gone(req):
             return req._t_deadline and now >= req._t_deadline
 
         for req in [r for r in self._queue if gone(r)]:
+            if self._cv_queue is not None:
+                self._cv_queue.write()
             self._queue.remove(req)
             self._abort_deadline(req, "queued")
         for req in [r for r in self._active.values() if gone(r)]:
@@ -776,14 +1136,18 @@ class BatchScheduler:
         for req in [r for r in self._swapped.values() if gone(r)]:
             self._abort_deadline(req, "swapped")
 
-    def _abort_deadline(self, req: Request, where: str):
+    def _abort_deadline(self, req: Request, where: str,
+                        reason: str = "deadline"):
         """Terminal abort: release EVERY reservation the request holds
-        (pins, pages, swap records). Lands in ``result()`` with state
-        ``aborted_deadline``."""
+        (pins, pages, swap records), count it and close its trace. Lands
+        in ``result()`` with state ``aborted_deadline``. ``reason`` only
+        labels the trace event (a cancel is an abort)."""
         rid = req.req_id
         if self.prefix_cache is not None and req._prefix_path:
             self.prefix_cache.unpin(req._prefix_path)
             req._prefix_path = ()
+        if self._cv_state is not None:
+            self._cv_state.write()
         if where == "active":
             self.model.free(rid)
             if self.draft is not None:
@@ -797,6 +1161,14 @@ class BatchScheduler:
         self._finished[rid] = req
         self._step_extras["aborted"] = \
             self._step_extras.get("aborted", 0) + 1
+        if self._metrics is not None:
+            self._metrics.inc("serving.aborted_deadline")
+            self._slo_note_abort(req)
+        if self._traces is not None:
+            self._traces.complete(
+                rid, "abort", telemetry.clock(), self._step_epoch,
+                reason=reason, where=where,
+                generated_tokens=len(req.generated_ids))
 
     def expire_queued_deadlines(self) -> int:
         """Abort *queued* requests whose deadline already passed without
@@ -804,34 +1176,182 @@ class BatchScheduler:
         aborted."""
         if not self._queue:
             return 0
-        now = clock()
+        now = telemetry.clock()
         expired = [r for r in self._queue
                    if r._t_deadline and now >= r._t_deadline]
         for req in expired:
+            if self._cv_queue is not None:
+                self._cv_queue.write()
             self._queue.remove(req)
             self._abort_deadline(req, "queued")
         return len(expired)
 
-    def cancel(self, req_id: str) -> bool:
+    def cancel(self, req_id: str, reason: str = "cancelled") -> bool:
         """Abort one request by id wherever it lives (queued, active or
         swapped out), releasing every reservation it holds, exactly like
-        a deadline abort (the same terminal ``aborted_deadline``
-        state). Returns False when the id is unknown or already
-        terminal."""
+        a deadline abort (the same counter, SLO miss and terminal
+        ``aborted_deadline`` state; the trace event carries ``reason``).
+        Returns False when the id is unknown or already terminal."""
         for req in self._queue:
             if req.req_id == req_id:
+                if self._cv_queue is not None:
+                    self._cv_queue.write()
                 self._queue.remove(req)
-                self._abort_deadline(req, "queued")
+                self._abort_deadline(req, "queued", reason=reason)
                 return True
         if req_id in self._active:
-            self._abort_deadline(self._active[req_id], "active")
+            self._abort_deadline(self._active[req_id], "active",
+                                 reason=reason)
             return True
         if req_id in self._swapped:
-            self._abort_deadline(self._swapped[req_id], "swapped")
+            self._abort_deadline(self._swapped[req_id], "swapped",
+                                 reason=reason)
             return True
         return False
 
+    def _slo_note_abort(self, req: Request):
+        """A deadline abort is an SLO MISS: it enters the goodput window
+        with every configured SLO unmet, so attainment stays truthful
+        under overload."""
+        if self._slo is None:
+            return
+        met = {key: False
+               for key in self._slo.request_meets(None, None, None)}
+        self._slo_window.append((self._step_epoch, False, met))
+        self._publish_slo_gauges()
+
+    # -- telemetry helpers ---------------------------------------------------
+    def _span(self, name, **attrs):
+        """Span context of a step phase; NULL_SPAN when no tracer is
+        live."""
+        tr = self._tracer
+        return tr.span(name, **attrs) if tr is not None else _NULL
+
+    def _req_span(self, name, request, **attrs):
+        """Request-scoped span, recorded under the request's
+        :class:`telemetry.TraceContext`, so one request's spans stitch
+        across steps and preemption round trips. NULL_SPAN when no
+        tracer is live."""
+        tr = self._tracer
+        if tr is None:
+            return _NULL
+        ctx = request.trace_ctx
+        if not isinstance(ctx, telemetry.TraceContext):
+            return tr.span(name, **attrs)
+        return telemetry.span_in(tr, ctx, name, **attrs)
+
+    def _tag_pool_trace(self, req):
+        """Stamp the request's serialized TraceContext onto its page
+        chains (the pools' ``set_trace_context``): the swap records then
+        carry the trace across preemption."""
+        ctx = req.trace_ctx
+        if ctx is None:
+            return
+        # an ingress-provided context under FLAGS_telemetry=off stays
+        # the raw wire string: propagate it as is
+        wire = ctx if isinstance(ctx, str) else ctx.to_wire()
+        for c in self.model.caches:
+            fn = getattr(c, "set_trace_context", None)
+            if fn is not None:
+                fn(req.req_id, wire)
+
+    def _note_gen_token(self, req: Request):
+        """TTFT/TPOT accounting, right after a GENERATED token was
+        appended (prompt tokens never count): the first token closes the
+        submit-to-first-token span (TTFT), later tokens record the
+        inter-token gap (TPOT). A speculative round commits a burst, so
+        its intra-round gaps are near zero: that is what the client
+        sees."""
+        if self._traces is not None:
+            self._traces.event(
+                req.req_id, "token", telemetry.clock(), self._step_epoch,
+                token=req.generated_ids[-1], n=len(req.generated_ids))
+        if self._metrics is None:
+            return
+        self._metrics.inc("serving.generated_tokens")
+        now = telemetry.clock()
+        # the OpenMetrics exemplar: the trace id behind the bucket
+        ex = req.trace_ctx.trace_id if req.trace_ctx is not None else None
+        if len(req.generated_ids) == 1:
+            req._ttft = now - req._t_submit
+            self._metrics.observe("serving.ttft_s", req._ttft,
+                                  exemplar=ex)
+        else:
+            gap = now - req._t_last_tok
+            self._metrics.observe("serving.tpot_s", gap, exemplar=ex)
+            if req._gaps is None:
+                req._gaps = []
+            req._gaps.append(gap)
+        req._t_last_tok = now
+
+    def _slo_note_retire(self, req: Request):
+        """Per-request SLO verdicts at retire: record the request in the
+        goodput window (keyed by epoch) and republish the attainment
+        gauges. Returns the per-SLO verdicts (None without an SLO)."""
+        if self._slo is None:
+            return None
+        met = self._slo.request_meets(
+            req._ttft, telemetry.SLOConfig.p99(req._gaps or []),
+            req._qwait)
+        ok = all(met.values())
+        self._slo_window.append((self._step_epoch, ok, met))
+        self._slo_met_all += ok
+        for key, v in met.items():
+            self._slo_met[key] += v
+        self._publish_slo_gauges()
+        return met
+
+    def _publish_slo_gauges(self):
+        """Prune the goodput window to the trailing step epochs and
+        publish serving.goodput and the per-SLO attainment. An EMPTY
+        window republishes goodput 1.0 with slo_window_requests 0, so a
+        stale miss never outlives its window."""
+        if self._slo is None:
+            return
+        lo = self._step_epoch - self._win
+        win = self._slo_window
+        while win and win[0][0] < lo:
+            _, ok, met = win.popleft()
+            self._slo_met_all -= ok
+            for key, v in met.items():
+                self._slo_met[key] -= v
+        m = self._metrics
+        n = len(win)
+        m.gauge("serving.slo_window_requests", n)
+        if not win:
+            if m.gauge_value("serving.goodput") is not None:
+                m.gauge("serving.goodput", 1.0)
+                for key in self._slo.request_meets(None, None, None):
+                    m.gauge("serving.slo_attain_" + key, 1.0)
+            return
+        m.gauge("serving.goodput", self._slo_met_all / n)
+        for key in win[0][2]:
+            m.gauge("serving.slo_attain_" + key, self._slo_met[key] / n)
+
     def _retire(self, req: Request):
+        # span and histogram gate independently: an armed tracer with
+        # metrics off still gets its retire spans
+        t0 = telemetry.clock() if self._metrics is not None else 0.0
+        with self._req_span("serving.retire", req, req=req.req_id):
+            self._retire_impl(req)
+        met = None
+        if self._metrics is not None:
+            self._metrics.observe("serving.retire_s",
+                                  telemetry.clock() - t0)
+            self._metrics.inc("serving.requests_finished")
+            met = self._slo_note_retire(req)
+        if self._traces is not None:
+            self._traces.complete(
+                req.req_id, "retire", telemetry.clock(), self._step_epoch,
+                generated_tokens=len(req.generated_ids),
+                prefix_hit_tokens=req._prefix_hit, slo_met=met)
+        req.state = RequestState.FINISHED
+        if self._cv_state is not None:
+            self._cv_state.write()
+        del self._active[req.req_id]
+        self._finished[req.req_id] = req
+
+    def _retire_impl(self, req: Request):
         rid = req.req_id
         if self.prefix_cache is not None:
             # keep the sequence's prefix: insert the cached tokens
@@ -849,13 +1369,11 @@ class BatchScheduler:
         self.model.free(rid)
         if self.draft is not None:
             self.draft.free(rid)
-        req.state = RequestState.FINISHED
-        del self._active[rid]
-        self._finished[rid] = req
 
     def _commit_token(self, req: Request, tok: int) -> int:
         """Append a generated token; returns 1 if the request retired."""
         req.generated_ids.append(tok)
+        self._note_gen_token(req)
         if req.on_token is not None:
             req.on_token(req, tok, False)
         if self._done(req, tok):
@@ -871,23 +1389,206 @@ class BatchScheduler:
         tokens taken from the prefix cache, the prefill/decode token
         split and, under chunked prefill, chunk_utilization and the
         adapter's packed-shape count) plus, on steps that had them, the
-        ``preempted``/``resumed``/``aborted`` counts."""
-        ev = self._step_impl()
+        ``preempted``/``resumed``/``aborted`` counts and the ``faulted``
+        kinds.
+
+        Under telemetry the iteration is a ``serving.step`` span and its
+        counters land in the ``serving.*`` registry namespace
+        (:meth:`metrics`); every ``FLAGS_telemetry_watchdog_stride``
+        steps the gauges refresh, the watchdog runs and the Prometheus
+        export (``FLAGS_telemetry_export_path``) is rewritten."""
+        t0 = 0.0
+        if self._metrics is not None:
+            # advance the epoch FIRST: every observation of this step is
+            # stamped with it (the deterministic window key)
+            self._step_epoch = self._metrics.advance_epoch()
+            self._steps += 1
+            t0 = telemetry.clock()
+        elif self._traces is not None:
+            # an armed tracing window with metrics off still collects
+            # request traces: the epoch must advance for them
+            self._step_epoch += 1
+        with self._span("serving.step"):
+            ev = self._step_impl()
         if self._step_extras:
             ev.update(self._step_extras)
+        if self._metrics is not None:
+            m = self._metrics
+            m.inc("serving.steps")
+            m.inc("serving.prefill_tokens", ev.get("prefill_tokens", 0))
+            m.inc("serving.decode_tokens", ev.get("decode_tokens", 0))
+            m.inc("serving.prefix_hit_tokens",
+                  ev.get("prefix_hit_tokens", 0))
+            m.observe("serving.step_wall_s", telemetry.clock() - t0)
+            cc = getattr(self.model, "compile_count", None)
+            if cc is not None:
+                # the shared gauge is last-writer-wins across
+                # schedulers; the per-scheduler one is the truthful one
+                m.gauge("serving.compile_count", cc)
+                m.gauge("serving.compile_count." + self._sched_uid, cc)
+            apc = getattr(self.model, "attend_program_count", None)
+            if apc is not None:
+                m.gauge("serving.attend_programs", apc)
+                m.gauge("serving.attend_programs." + self._sched_uid, apc)
+            # stride on THIS scheduler's step count (the shared epoch
+            # advances once per step of every scheduler)
+            if self._steps % self._wd_stride == 0:
+                self._observability_epoch()
         return ev
+
+    def _observability_epoch(self):
+        """The watchdog-stride pass: refresh the gauges, republish the
+        ledger, run the watchdog (read-only; evidence such as the
+        sanitizer journal tail is gathered here and handed in) and
+        rewrite the Prometheus export. Any fire, warn or strict, writes
+        an incident bundle before a strict error propagates."""
+        self._publish_gauges()
+        if self._ledger is not None:
+            self._ledger.publish()
+        context = None
+        if self._watchdog is not None:
+            context = {}
+            cc = getattr(self.model, "compile_count", None)
+            if cc is not None:
+                context["compile_count"] = cc
+            # the journal tail of the pool with the most violations,
+            # draft pools included
+            caches = list(self.model.caches) + (
+                list(self.draft.caches) if self.draft is not None else [])
+            worst, worst_n = None, 0
+            for c in caches:
+                san = getattr(c, "sanitizer", None)
+                if san is None:
+                    continue
+                n = san.stats().get("violations", 0)
+                if n > worst_n:
+                    worst, worst_n = san, n
+            if worst is not None:
+                context["sanitizer_journal_tail"] = worst.tail(16)
+            if self._csan is not None and self._csan.has_events():
+                context["concurrency_journal_tail"] = self._csan.tail(16)
+            try:
+                fired = self._watchdog.check(self._step_epoch,
+                                             context=context or None)
+            except Exception as e:
+                # strict mode raises at the detecting step: write the
+                # bundle first, then let the error propagate
+                evs = getattr(e, "events", None)
+                if evs is not None:
+                    self._record_incident(evs, context)
+                raise
+            if fired:
+                self._record_incident(fired, context)
+        if self._export_path is not None:
+            # a scrape-file failure must never take serving down: warn
+            # once and stop trying
+            try:
+                telemetry.write_prometheus(self._export_path,
+                                           registry=self._metrics)
+            except OSError as e:
+                warnings.warn(
+                    "FLAGS_telemetry_export_path "
+                    f"({self._export_path!r}) is unwritable: {e}; "
+                    "disabling the periodic Prometheus export",
+                    RuntimeWarning)
+                self._export_path = None
+
+    def _record_incident(self, events, context):
+        """Write one incident bundle for a watchdog trip (no-op without
+        a recorder); a write failure warns once and stops recording."""
+        if self._recorder is None:
+            return
+        try:
+            self._recorder.record(events, context=context)
+        except OSError as e:
+            warnings.warn(
+                "FLAGS_telemetry_incident_dir is unwritable "
+                f"({e}); disabling the incident flight recorder",
+                RuntimeWarning)
+            self._recorder = None
+
+    def dump_incident(self, reason: str = "manual"):
+        """Write an incident bundle NOW (gauges and ledger republished
+        first) under ``FLAGS_telemetry_incident_dir``. Returns the bundle
+        path, or None when no recorder is configured."""
+        if self._recorder is None:
+            return None
+        self._publish_gauges()
+        if self._ledger is not None:
+            self._ledger.publish()
+        return self._recorder.dump_incident(reason=reason)
+
+    def _noop_event(self) -> dict:
+        return {"admitted": 0, "advanced": 0, "finished": 0,
+                "prefix_hit_tokens": 0, "prefill_tokens": 0,
+                "decode_tokens": 0}
+
+    def _note_fault(self, kind: str):
+        """Annotate the step event with an active fault kind; two kinds
+        on one step are joined with "+"."""
+        cur = self._step_extras.get("faulted")
+        if cur is None:
+            self._step_extras["faulted"] = kind
+        elif kind not in cur.split("+"):
+            self._step_extras["faulted"] = cur + "+" + kind
+
+    def _fault_gate(self):
+        """Simulated step failure with retry and back-off: a
+        ``fail_step`` fault abandons the attempt BEFORE the model call
+        (nothing was mutated, so the retry is safe); consecutive failures
+        back off exponentially (0, 1, 3, 7, at most 8 skipped steps).
+        Returns a no-op event while failing or backing off, None to run
+        the step."""
+        if self._faults is None:
+            return None
+        step = self._fault_step
+        if step < self._resume_at:
+            self._note_fault("backoff")
+            if self._metrics is not None:
+                self._metrics.inc("serving.step_backoff_steps")
+            return self._noop_event()
+        if self._faults.fail_step(step):
+            self._consec_fails += 1
+            skip = min(2 ** (self._consec_fails - 1) - 1, 8)
+            self._resume_at = step + 1 + skip
+            self._note_fault("fail_step")
+            if self._metrics is not None:
+                self._metrics.inc("serving.step_retries")
+            return self._noop_event()
+        self._consec_fails = 0
+        return None
 
     def _step_impl(self) -> dict:
         self._step_extras = {}
+        self._fault_step += 1
+        noop = self._fault_gate()
+        if noop is not None:
+            return noop
         self._expire_deadlines()
+        if self._faults is not None:
+            # forced preemption storm: swap out N victims regardless of
+            # pool pressure (they must restore bit for bit later)
+            n = self._faults.forced_preemptions(self._fault_step)
+            if n:
+                self._note_fault("preempt_storm")
+                for _ in range(n):
+                    victim = self._pick_victim()
+                    if victim is None or not self._preempt(
+                            victim, reason="fault"):
+                        break
+        self._sanitizer_epoch()
         self._admitted_step = 0
-        hit_tokens = self._try_admit()
-        if (self._swapped and self._admitted_step == 0
-                and len(self._active) < self.max_batch_size):
-            # the queue's best candidate (which swapped requests of lower
-            # priority yielded to) turned out to be blocked this step:
-            # hand the idle capacity to the swapped set after all
-            self._admit_swapped(None)
+        with self._span("serving.admit"):
+            hit_tokens = self._try_admit()
+            if (self._swapped and self._admitted_step == 0
+                    and len(self._active) < self.max_batch_size
+                    and not self._step_extras.get("faulted")):
+                # the queue's best candidate (which swapped requests of
+                # lower priority yielded to) turned out to be blocked
+                # this step: hand the idle capacity to the swapped set
+                # after all. Not on faulted steps: an exhaust or delay
+                # window keeps swap-in blocked
+                self._admit_swapped(None)
         # admissions and swap-in resumes, not the active-set delta (a
         # preempt-then-reject step would report a negative count)
         admitted = self._admitted_step
@@ -912,28 +1613,45 @@ class BatchScheduler:
                 n_pre += 1
             else:
                 feed.append(req.generated_ids[-1])
-        logits_np = _logits_to_host(self.model.decode_token(feed, sids))
-        finished = 0
-        for bi, s in enumerate(sids):
-            req = self._active[s]
-            if req.state == RequestState.PREFILL:
-                tok = req.prompt_ids[req._pos]
-                req._pos += 1
-                if req.on_token is not None:
-                    req.on_token(req, tok, True)
-                if req._pos == len(req.prompt_ids):
-                    if req.max_new_tokens == 0:
-                        # prefill-only (scoring): no sampling
-                        self._retire(req)
-                        finished += 1
-                        continue
-                    req.state = RequestState.DECODE
-                    # the last prompt position's logits sample the first
-                    # generated token
-                    finished += self._commit_token(
-                        req, self.sampler(logits_np[bi]))
-                continue
-            finished += self._commit_token(req, self.sampler(logits_np[bi]))
+        # one serving.decode span covers the model call AND the commit
+        # loop, as on the chunked path (retire spans nest inside)
+        with self._span("serving.decode", rows=len(sids), prefill=n_pre):
+            # the ledger's stamp: the model call and its device-to-host
+            # copy (which waits for the device) are the program's wall
+            t_exec = telemetry.clock() if self._metrics is not None \
+                else 0.0
+            logits_np = _logits_to_host(self.model.decode_token(feed, sids))
+            if self._metrics is not None:
+                self._metrics.observe("exec.wall_s.decode_token",
+                                      telemetry.clock() - t_exec)
+                self._metrics.inc("exec.count.decode_token")
+            finished = 0
+            for bi, s in enumerate(sids):
+                req = self._active[s]
+                if req.state == RequestState.PREFILL:
+                    tok = req.prompt_ids[req._pos]
+                    req._pos += 1
+                    if self._traces is not None:
+                        # token-per-step prefill is a 1-token chunk
+                        self._traces.event(
+                            req.req_id, "prefill_chunk", telemetry.clock(),
+                            self._step_epoch, tokens=1, pos=req._pos)
+                    if req.on_token is not None:
+                        req.on_token(req, tok, True)
+                    if req._pos == len(req.prompt_ids):
+                        if req.max_new_tokens == 0:
+                            # prefill-only (scoring): no sampling
+                            self._retire(req)
+                            finished += 1
+                            continue
+                        req.state = RequestState.DECODE
+                        # the last prompt position's logits sample the
+                        # first generated token
+                        finished += self._commit_token(
+                            req, self.sampler(logits_np[bi]))
+                    continue
+                finished += self._commit_token(
+                    req, self.sampler(logits_np[bi]))
         return {
             "admitted": admitted,
             "advanced": len(sids),
@@ -972,6 +1690,10 @@ class BatchScheduler:
         chunk finishes the prompt, retire (prefill-only) or sample the
         first generated token. Returns 1 if the request retired."""
         req._pos += len(toks)
+        if self._traces is not None:
+            self._traces.event(
+                req.req_id, "prefill_chunk", telemetry.clock(),
+                self._step_epoch, tokens=len(toks), pos=req._pos)
         if req.on_token is not None:
             for t in toks:
                 req.on_token(req, t, True)
@@ -991,16 +1713,28 @@ class BatchScheduler:
         rows, feeds, starts, n_pre, n_dec = self._chunk_feeds(sids)
         packed = sum(len(f) for f in feeds)
         pad_to = bucket_packed_tokens(packed, self.serving_buckets)
-        logits_np = _logits_to_host(self.model.prefill_chunk(
-            feeds, rows, starts, pad_to=pad_to))
+        t_exec = telemetry.clock() if self._metrics is not None else 0.0
+        with self._span("serving.prefill_chunk", rows=len(rows),
+                        packed=packed, pad_to=pad_to, prefill=n_pre,
+                        decode=n_dec):
+            logits_np = _logits_to_host(self.model.prefill_chunk(
+                feeds, rows, starts, pad_to=pad_to))
+        if self._metrics is not None:
+            # the ledger's stamp closes after the logits reached the
+            # host: the wall of the device work, not of the launches
+            self._metrics.observe("exec.wall_s.prefill_chunk",
+                                  telemetry.clock() - t_exec)
+            self._metrics.inc("exec.count.prefill_chunk")
         finished = 0
-        for bi, s in enumerate(rows):
-            req = self._active[s]
-            if req.state == RequestState.PREFILL:
-                finished += self._advance_prefill_row(
-                    req, feeds[bi], logits_np[bi])
-                continue
-            finished += self._commit_token(req, self.sampler(logits_np[bi]))
+        with self._span("serving.decode", rows=len(rows)):
+            for bi, s in enumerate(rows):
+                req = self._active[s]
+                if req.state == RequestState.PREFILL:
+                    finished += self._advance_prefill_row(
+                        req, feeds[bi], logits_np[bi])
+                    continue
+                finished += self._commit_token(
+                    req, self.sampler(logits_np[bi]))
 
         cs = self.chunk_stats
         cs["steps"] += 1
@@ -1042,10 +1776,16 @@ class BatchScheduler:
             rows, feeds, starts, n_pre, _ = self._chunk_feeds(pre)
             packed = sum(len(f) for f in feeds)
             pad_to = bucket_packed_tokens(packed, self.serving_buckets)
-            logits_np = _logits_to_host(self.model.prefill_chunk(
-                feeds, rows, starts, pad_to=pad_to))
-            # mirror the prompt chunks into the draft's own pool
-            self.draft.prefill_chunk(feeds, rows, starts, pad_to=pad_to)
+            with self._span("serving.prefill_chunk", rows=len(rows),
+                            packed=packed, pad_to=pad_to, prefill=n_pre,
+                            decode=0):
+                logits = self.model.prefill_chunk(
+                    feeds, rows, starts, pad_to=pad_to)
+                # mirror the prompt chunks into the draft's own pool
+                self.draft.prefill_chunk(feeds, rows, starts,
+                                         pad_to=pad_to)
+                # the device-to-host copy belongs to the calls' span
+                logits_np = _logits_to_host(logits)
             cs = self.chunk_stats
             cs["steps"] += 1
             cs["chunk_calls"] += 2
@@ -1073,29 +1813,35 @@ class BatchScheduler:
             base_t = {s: self.model.caches[0].seq_len(s) for s in dec}
             base_d = {s: self.draft.caches[0].seq_len(s) for s in dec}
             cur = [self._active[s].generated_ids[-1] for s in dec]
-            props = []
-            for _ in range(k):
-                cur = _argmax_rows(self.draft.decode_token(cur, dec),
-                                   len(dec))
-                props.append(cur)
-            # feed the k-th proposal too, so that the draft cache never
-            # lags the committed prefix (rejections roll back by truncate)
-            self.draft.decode_token(cur, dec)
-            windows = np.asarray(
-                [[self._active[s].generated_ids[-1]]
-                 + [props[j][i] for j in range(k)]
-                 for i, s in enumerate(dec)], np.int64)
-            preds = np.argmax(_logits_to_host(
-                self.model.decode_window(windows, dec)), axis=-1)
-            self.spec_stats["rounds"] += 1
-            self.spec_stats["target_calls"] += 1
-            self.spec_stats["draft_calls"] += k + 1
-            for i, s in enumerate(dec):
-                committed, retired = self._commit_spec_row(
-                    s, [props[j][i] for j in range(k)], preds[i],
-                    base_t[s], base_d[s])
-                dec_tokens += committed
-                finished += int(retired)
+            with self._span("serving.decode", rows=len(dec), draft_k=k):
+                props = []
+                for _ in range(k):
+                    cur = _argmax_rows(self.draft.decode_token(cur, dec),
+                                       len(dec))
+                    props.append(cur)
+                # feed the k-th proposal too, so that the draft cache
+                # never lags the committed prefix (rejections roll back
+                # by truncate)
+                self.draft.decode_token(cur, dec)
+                windows = np.asarray(
+                    [[self._active[s].generated_ids[-1]]
+                     + [props[j][i] for j in range(k)]
+                     for i, s in enumerate(dec)], np.int64)
+                preds = np.argmax(_logits_to_host(
+                    self.model.decode_window(windows, dec)), axis=-1)
+                self.spec_stats["rounds"] += 1
+                self.spec_stats["target_calls"] += 1
+                self.spec_stats["draft_calls"] += k + 1
+                if self._metrics is not None:
+                    self._metrics.inc("serving.spec_rounds")
+                # accept, commit, retire and roll back inside the decode
+                # span, as on every other path
+                for i, s in enumerate(dec):
+                    committed, retired = self._commit_spec_row(
+                        s, [props[j][i] for j in range(k)], preds[i],
+                        base_t[s], base_d[s])
+                    dec_tokens += committed
+                    finished += int(retired)
             advanced += len(dec)
 
         # the legacy lowering refuses the prefix cache (see __init__)
@@ -1126,6 +1872,7 @@ class BatchScheduler:
         committed = 0
         for t in accepted:
             req.generated_ids.append(t)
+            self._note_gen_token(req)
             committed += 1
             self.spec_stats["committed_tokens"] += 1
             if req.on_token is not None:
@@ -1135,6 +1882,10 @@ class BatchScheduler:
                 break
         self.spec_stats["proposed_tokens"] += k
         self.spec_stats["accepted_draft_tokens"] += n_acc
+        if self._metrics is not None:
+            self._metrics.observe("serving.spec_accept_rate",
+                                  (n_acc / k) if k else 0.0)
+            self._metrics.inc("serving.spec_committed_tokens", committed)
         if done:
             if self.prefix_cache is not None:
                 # retire inserts the chain into the radix tree keyed by
@@ -1144,6 +1895,9 @@ class BatchScheduler:
                     c.truncate(s, base_t + committed)
             self._retire(req)
             return committed, True
+        if self._metrics is not None:
+            self._metrics.inc("serving.spec_rollback_tokens",
+                              (k + 1) - committed)
         for c in self.model.caches:
             c.truncate(s, base_t + committed)
         for c in self.draft.caches:
@@ -1191,51 +1945,60 @@ class BatchScheduler:
         # ---- the draft: propose, refill, mirror
         props = []  # props[j][i]: the (j+1)-th proposal for dec[i]
         lag_refilled = refill_tokens = 0
-        d_rows = list(dec)
-        d_feeds = [[self._active[s].generated_ids[-1]] for s in dec]
-        d_starts = [base_d[s] for s in dec]
-        d_budget = self.prefill_chunk_tokens
-        for s in lag + [r for r in pre
-                        if d_cache.seq_len(r) < t_cache.seq_len(r)]:
-            if d_budget <= 0:
-                break
-            req = self._active[s]
-            d_len = d_cache.seq_len(s)
-            take = min(t_cache.seq_len(s) - d_len, d_budget)
-            if take <= 0:
-                continue
-            d_budget -= take
-            allt = req.prompt_ids + req.generated_ids
-            d_rows.append(s)
-            d_feeds.append(allt[d_len:d_len + take])
-            d_starts.append(d_len)
-            refill_tokens += take
-            if req.state == RequestState.DECODE:
-                lag_refilled += 1
-        # this step's prompt chunks for draft-synced prefill rows
-        for bi, r in enumerate(rows):
-            if d_cache.seq_len(r) == starts[bi]:
-                d_rows.append(r)
-                d_feeds.append(feeds[bi])
-                d_starts.append(starts[bi])
-        if d_rows:
-            pad0 = bucket_packed_tokens(sum(len(f) for f in d_feeds),
-                                        self.serving_buckets)
-            dl = self.draft.prefill_chunk(d_feeds, d_rows, d_starts,
-                                          pad_to=pad0)
-        if dec:
-            cur = _argmax_rows(dl, len(dec))
-            props.append(cur)
-            pad_j = bucket_packed_tokens(len(dec), self.serving_buckets)
-            for j in range(1, k + 1):
-                dl = self.draft.prefill_chunk(
-                    [[c] for c in cur], dec, [base_d[s] + j for s in dec],
-                    pad_to=pad_j)
-                # the k-th proposal is fed for the pools' symmetry with
-                # the window; its logits are never sampled
-                if j < k:
-                    cur = _argmax_rows(dl, len(dec))
-                    props.append(cur)
+        t_draft = telemetry.clock() if self._metrics is not None else 0.0
+        with self._span("serving.draft_propose", rows=len(dec),
+                        refill=len(lag), draft_k=k):
+            d_rows = list(dec)
+            d_feeds = [[self._active[s].generated_ids[-1]] for s in dec]
+            d_starts = [base_d[s] for s in dec]
+            d_budget = self.prefill_chunk_tokens
+            for s in lag + [r for r in pre
+                            if d_cache.seq_len(r) < t_cache.seq_len(r)]:
+                if d_budget <= 0:
+                    break
+                req = self._active[s]
+                d_len = d_cache.seq_len(s)
+                take = min(t_cache.seq_len(s) - d_len, d_budget)
+                if take <= 0:
+                    continue
+                d_budget -= take
+                allt = req.prompt_ids + req.generated_ids
+                d_rows.append(s)
+                d_feeds.append(allt[d_len:d_len + take])
+                d_starts.append(d_len)
+                refill_tokens += take
+                if req.state == RequestState.DECODE:
+                    lag_refilled += 1
+            # this step's prompt chunks for draft-synced prefill rows
+            for bi, r in enumerate(rows):
+                if d_cache.seq_len(r) == starts[bi]:
+                    d_rows.append(r)
+                    d_feeds.append(feeds[bi])
+                    d_starts.append(starts[bi])
+            if d_rows:
+                pad0 = bucket_packed_tokens(sum(len(f) for f in d_feeds),
+                                            self.serving_buckets)
+                dl = self.draft.prefill_chunk(d_feeds, d_rows, d_starts,
+                                              pad_to=pad0)
+            if dec:
+                cur = _argmax_rows(dl, len(dec))
+                props.append(cur)
+                pad_j = bucket_packed_tokens(len(dec), self.serving_buckets)
+                for j in range(1, k + 1):
+                    dl = self.draft.prefill_chunk(
+                        [[c] for c in cur], dec,
+                        [base_d[s] + j for s in dec], pad_to=pad_j)
+                    # the k-th proposal is fed for the pools' symmetry
+                    # with the window; its logits are never sampled
+                    if j < k:
+                        cur = _argmax_rows(dl, len(dec))
+                        props.append(cur)
+        if self._metrics is not None:
+            # the ledger's stamp of the DRAFT program: its share of the
+            # step wall is the overhead the acceptance rate pays for
+            self._metrics.observe("exec.wall_s.draft_propose",
+                                  telemetry.clock() - t_draft)
+            self._metrics.inc("exec.count.draft_propose")
         self.spec_stats["refill_tokens"] += refill_tokens
 
         # ---- the target: ONE packed ragged step, verify rows first
@@ -1248,16 +2011,25 @@ class BatchScheduler:
         if t_rows:
             packed = sum(len(f) for f in t_feeds)
             pad_to = bucket_packed_tokens(packed, self.serving_buckets)
-            out = self.model.prefill_chunk(
-                t_feeds, t_rows, t_starts, pad_to=pad_to,
-                logits_rows=list(range(len(dec))) if dec else None)
-            if dec:
-                last, full = out
-                preds = np.argmax(_logits_to_host(full).reshape(
-                    len(dec), k + 1, -1), axis=-1)
-            else:
-                last = out
-            last_np = _logits_to_host(last)
+            t_exec = telemetry.clock() if self._metrics is not None \
+                else 0.0
+            with self._span("serving.prefill_chunk", rows=len(t_rows),
+                            packed=packed, pad_to=pad_to, prefill=n_pre,
+                            decode=0, verify=len(dec)):
+                out = self.model.prefill_chunk(
+                    t_feeds, t_rows, t_starts, pad_to=pad_to,
+                    logits_rows=list(range(len(dec))) if dec else None)
+                if dec:
+                    last, full = out
+                    preds = np.argmax(_logits_to_host(full).reshape(
+                        len(dec), k + 1, -1), axis=-1)
+                else:
+                    last = out
+                last_np = _logits_to_host(last)
+            if self._metrics is not None:
+                self._metrics.observe("exec.wall_s.prefill_chunk",
+                                      telemetry.clock() - t_exec)
+                self._metrics.inc("exec.count.prefill_chunk")
             cs = self.chunk_stats
             cs["steps"] += 1
             cs["chunk_calls"] += 1
@@ -1268,15 +2040,19 @@ class BatchScheduler:
                 self.spec_stats["rounds"] += 1
                 self.spec_stats["target_calls"] += 1
                 self.spec_stats["draft_calls"] += k + 1
-            for i, s in enumerate(dec):
-                committed, retired = self._commit_spec_row(
-                    s, [props[j][i] for j in range(k)], preds[i],
-                    base_t[s], base_d[s])
-                dec_tokens += committed
-                finished += int(retired)
-            for bi, r in enumerate(rows):
-                finished += self._advance_prefill_row(
-                    self._active[r], feeds[bi], last_np[len(dec) + bi])
+                if self._metrics is not None:
+                    self._metrics.inc("serving.spec_rounds")
+            with self._span("serving.decode", rows=len(t_rows), draft_k=k):
+                for i, s in enumerate(dec):
+                    committed, retired = self._commit_spec_row(
+                        s, [props[j][i] for j in range(k)], preds[i],
+                        base_t[s], base_d[s])
+                    dec_tokens += committed
+                    finished += int(retired)
+                for bi, r in enumerate(rows):
+                    finished += self._advance_prefill_row(
+                        self._active[r], feeds[bi],
+                        last_np[len(dec) + bi])
 
         ev = {
             "admitted": admitted,
@@ -1309,6 +2085,7 @@ class BatchScheduler:
             ev = self.step()
             if (ev["advanced"] == 0 and ev["admitted"] == 0
                     and (self._queue or self._swapped)
+                    and not ev.get("faulted")
                     and not ev.get("aborted")
                     and not ev.get("preempted")):
                 # submit() rejects never-admissible requests and active
@@ -1333,6 +2110,12 @@ class BatchScheduler:
     @property
     def num_swapped(self):
         return len(self._swapped)
+
+    @property
+    def watchdog(self):
+        """The scheduler's Watchdog, or None when telemetry or the
+        watchdog is off (read-only)."""
+        return self._watchdog
 
     def result(self, req_id: str) -> Request:
         return self._finished[req_id]

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
-the JAX package, its entry points run on the card unless the caller asks
-for the CPU, and features it has not ported yet raise instead of being
-ignored."""
+the JAX package (the host planes included), its entry points run on the
+card unless the caller asks for the CPU, and features it has not ported
+yet raise instead of being ignored."""
 import ast
 import os
 import pathlib
@@ -14,7 +14,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
-from paddle_tpu_torch.inference import BatchScheduler, PagedLlamaAdapter
+from paddle_tpu_torch.inference import PagedLlamaAdapter
 from paddle_tpu_torch.models import (LlamaForCausalLM, from_hf, generate,
                                      llama_tiny)
 
@@ -160,6 +160,61 @@ def test_scan_covers_the_varlen_and_layer_norm_slice():
                     f"{src.name}: {line}"
 
 
+HOST_PLANES = ("framework/concurrency.py", "framework/telemetry.py",
+               "framework/perf_ledger.py", "framework/flight_recorder.py",
+               "framework/watchdog.py", "incubate/nn/page_sanitizer.py",
+               "incubate/nn/fault_injection.py")
+
+
+def test_scan_covers_the_host_planes():
+    """The host planes (telemetry, SLO accounting, watchdog, ledger,
+    flight recorder, sanitizers, fault injection) are among the files
+    the AST scan checks; importing them, and driving a scheduler with
+    every plane on, loads no JAX and nothing of the JAX package; and
+    chip_smoke.py imports nothing of the JAX package."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in HOST_PLANES:
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    mods = [f"paddle_tpu_torch.{rel[:-3].replace('/', '.')}"
+            for rel in HOST_PLANES]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "from paddle_tpu_torch.framework import flags\n"
+            "flags.set_flags({'FLAGS_telemetry': 'trace', "
+            "'FLAGS_page_sanitizer': 'strict', "
+            "'FLAGS_concurrency_sanitizer': 'strict', "
+            "'FLAGS_telemetry_watchdog': 'warn', "
+            "'FLAGS_serving_faults': 'exhaust@2+1'})\n"
+            "from paddle_tpu_torch.models import LlamaForCausalLM, "
+            "llama_tiny\n"
+            "from paddle_tpu_torch.inference import BatchScheduler, "
+            "PagedLlamaAdapter, Request\n"
+            "m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), "
+            "device='cpu')\n"
+            "s = BatchScheduler(PagedLlamaAdapter(m, num_pages=8, "
+            "page_size=4))\n"
+            "s.submit(Request('a', [1, 2, 3], max_new_tokens=2))\n"
+            "s.run_until_complete()\n"
+            "assert s.metrics()['serving']['steps'] >= 2\n"
+            "print([m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n == "paddle_tpu" or n.startswith("paddle_tpu.")
+                       for n in names), f"chip_smoke.py:{node.lineno}"
+
+
 @pytest.mark.parametrize("call", [
     lambda: pt.nn.functional.cross_entropy(
         torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True),
@@ -175,17 +230,6 @@ def test_scan_covers_the_varlen_and_layer_norm_slice():
 def test_unported_training_options_raise(call):
     with pytest.raises(NotImplementedError):
         call()
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"fault_injector": object()}, {"slo": object()},
-    {"watchdog": object()},
-], ids=lambda kw: next(iter(kw)))
-def test_unported_scheduler_features_raise(kwargs):
-    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-    a = PagedLlamaAdapter(m, num_pages=8, page_size=4)
-    with pytest.raises(NotImplementedError):
-        BatchScheduler(a, **kwargs)
 
 
 def test_unported_request_and_adapter_options_raise():

@@ -42,7 +42,7 @@ from paddle_tpu_torch.incubate.nn.paged_cache import (HostKVSwapSpace,
 from paddle_tpu_torch.inference import (BatchScheduler, PagedLlamaAdapter,
                                         QueueFullError, Request,
                                         RequestState)
-from paddle_tpu_torch.inference import serving
+from paddle_tpu_torch.framework import telemetry as port_telemetry
 
 from test_torch_llama_serving import _pair, ragged_mode
 
@@ -275,14 +275,18 @@ def _record(adapter, out):
 
 
 def _lockstep(plan, monkeypatch, mode="auto", kv=None, num_pages=24,
-              **sched_kw):
+              check=None, own_kw=((), ()), **sched_kw):
     """Steps a JAX and a port scheduler over one plan: ``{step: [action,
     ...]}``, actions ``("submit", (rid, prompt, max_new[, request
     kwargs]))``, ``("cancel", rid)``, ``("time", seconds)``; returns
-    (port scheduler, JAX scheduler, port adapter, events)."""
+    (port scheduler, JAX scheduler, port adapter, events).
+    ``check(step, js, ts, (ja, ta), now)``, when given, runs after every
+    step's own checks (``now``: the fake clock's one-element list).
+    ``own_kw``: (JAX-only, port-only) scheduler keyword pairs, for
+    arguments that are objects of each package's own classes."""
     now = [100.0]
     monkeypatch.setattr(telemetry, "_clock", lambda: now[0])
-    monkeypatch.setattr(serving, "clock", lambda: now[0])
+    monkeypatch.setattr(port_telemetry, "_clock", lambda: now[0])
     jm, tm = _pair("base")
     kw = dict(num_pages=num_pages, page_size=PAGE, max_length=128,
               kv_cache_dtype=kv)
@@ -294,7 +298,8 @@ def _lockstep(plan, monkeypatch, mode="auto", kv=None, num_pages=24,
     # one bucket keeps the JAX side's compiled program count low
     sched_kw.setdefault("serving_buckets", "16")
     sched_kw.setdefault("swap_bytes", SWAP)
-    js, ts = JaxScheduler(ja, **sched_kw), BatchScheduler(ta, **sched_kw)
+    js = JaxScheduler(ja, **sched_kw, **dict(own_kw[0]))
+    ts = BatchScheduler(ta, **sched_kw, **dict(own_kw[1]))
     events = []
     step = 0
     with ragged_mode(mode):
@@ -328,6 +333,8 @@ def _lockstep(plan, monkeypatch, mode="auto", kv=None, num_pages=24,
                 tc.assert_ref_invariants()
             assert (ts.num_active, ts.num_queued, ts.num_swapped) == (
                 js.num_active, js.num_queued, js.num_swapped)
+            if check is not None:
+                check(step, js, ts, [(ja, ta)], now)
             events.append(tev)
             step += 1
             assert step < 400
@@ -509,9 +516,9 @@ def test_deadlines_and_cancel(monkeypatch, mode, kv):
     where = {}
     abort = BatchScheduler._abort_deadline
 
-    def spy(self, req, at):
+    def spy(self, req, at, **kw):
         where[req.req_id] = at
-        abort(self, req, at)
+        abort(self, req, at, **kw)
 
     monkeypatch.setattr(BatchScheduler, "_abort_deadline", spy)
     ts, js, ta, ev = _lockstep(plan, monkeypatch, mode, kv, num_pages=16,
@@ -544,7 +551,7 @@ def test_deadline_validation():
 
 def test_expire_queued_deadlines_between_steps(monkeypatch):
     now = [100.0]
-    monkeypatch.setattr(serving, "clock", lambda: now[0])
+    monkeypatch.setattr(port_telemetry, "_clock", lambda: now[0])
     _, tm = _pair("base")
     s = BatchScheduler(PagedLlamaAdapter(tm, num_pages=8, page_size=PAGE))
     s.submit(Request("late", [1, 2], max_new_tokens=1, deadline_s=5.0))

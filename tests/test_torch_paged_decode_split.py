@@ -146,13 +146,16 @@ CHIP_SMOKE = _chip_smoke()
 @pytest.mark.parametrize(
     "fault", CHIP_SMOKE.FLASH_FAULTS + CHIP_SMOKE.PAGED_FAULTS
     + CHIP_SMOKE.NORM_FAULTS + CHIP_SMOKE.SERVE_FAULTS
-    + CHIP_SMOKE.SPEC_FAULTS + CHIP_SMOKE.GEN_FAULTS,
+    + CHIP_SMOKE.SPEC_FAULTS + CHIP_SMOKE.GEN_FAULTS
+    + CHIP_SMOKE.PLANE_FAULTS,
     ids=lambda f: f[0])
 def test_every_planted_fault_names_live_kernel_text(fault):
     """--fault-check replaces each fault's text in its source (CUDA; the
     page pool's Python for the serving faults; the scheduler for the
     speculative serving faults; the model, generation and
-    loader modules for the generation faults) and refuses a text that
+    loader modules for the generation faults; the pool, the scheduler
+    and the fault injector for the host planes' faults) and refuses a
+    text that
     does not occur exactly once; an edit that orphans a fault fails
     here, on the CPU."""
     name, source, old, new = fault[:4]

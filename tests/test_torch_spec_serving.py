@@ -143,13 +143,14 @@ def _plain_streams(plan, kv=None, num_pages=64, mode="auto", **sched_kw):
 
 def _lockstep(plan, spec="ragged", mode="auto", kv=None, num_pages=64,
               draft_pages=64, same_weights=False, check_plain=True,
-              **sched_kw):
+              check=None, **sched_kw):
     """Steps a JAX and a port speculative scheduler over ``plan``
     (``{step: [("submit", (rid, prompt, max_new[, request kwargs])),
     ...]}``), checking events, spec_stats, both pools' books and every
     call's logits after each step. Returns (port scheduler, JAX
     scheduler, port target adapter, port draft adapter, events, port
-    target calls)."""
+    target calls). ``check(step, js, ts, [(ja, ta), (jda, tda)])``, when
+    given, runs after every step's own checks."""
     jm, tm = _pair("base")
     jd, td = (jm, tm) if same_weights else _draft_pair()
     kw = dict(page_size=PAGE, max_length=128)
@@ -194,6 +195,8 @@ def _lockstep(plan, spec="ragged", mode="auto", kv=None, num_pages=64,
                     tc.assert_ref_invariants()
             assert (ts.num_active, ts.num_queued, ts.num_swapped) == (
                 js.num_active, js.num_queued, js.num_swapped)
+            if check is not None:
+                check(step, js, ts, [(ja, ta), (jda, tda)])
             events.append(tev)
             step += 1
             assert step < 300
