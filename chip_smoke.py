@@ -78,7 +78,21 @@ It prints one JSON line per phase:
    token its logits' argmax, a resumed victim against the oracle) and
    ``sanitizer_fuzz`` (the page sanitizer's pool fuzzer on the card:
    clean over float32 and int8 pools with and without the prefix cache,
-   each injected bug class caught);
+   each injected bug class caught); then the serving fronts
+   (``FRONT_RUNS``): ``serve_engine`` (serve's prompts through
+   ``ServingEngine`` from asyncio tasks, the ops server armed: each
+   stream the scheduler's committed tokens, the 8th cancelled after 4
+   tokens, ``/metrics``, ``/statusz``, ``/enginez`` read while it runs,
+   ``/metrics`` at quiescence byte for byte ``prometheus_text()``, a
+   POST refused with 405), ``serve_disagg`` and ``serve_disagg_int8``
+   (a ``SessionRouter`` over 2 prefill/decode replicas, chains handed
+   over the page-chain wire format in 2 KV-head shards: each restored
+   chain against its prefill side's record bit for bit, transfer bytes
+   out = in = the payloads, sessions 4 and 4) and ``serve_tuned`` (an
+   ``Autotuner`` over 3 chunk budgets, 2 windows each, driving a live
+   engine: every capacity apply between steps on the pump thread, the
+   artifact re-applied verbatim); each with every committed token its
+   step's argmax, two requests against the oracle and exact launches;
 7. ``profile``, ``profile_int8``, ``profile_off`` and
    ``profile_off_int8``: the four serving runs served again under
    ``torch.profiler``: device time by kernel class and the device's
@@ -136,10 +150,13 @@ unprofiled, at ``--layers`` depth, listing each failed run in a
 ``serve_runs`` line; ``--fault-check`` also plants ``SERVE_FAULTS`` in
 the page pool and runs ``--serve-runs`` on them at two layers.
 ``--fault-check`` also plants ``SPEC_FAULTS`` in the scheduler and runs
-``--serve-runs`` on them at four layers, and ``PLANE_FAULTS`` (a fork the
+``--serve-runs`` on them at four layers, ``PLANE_FAULTS`` (a fork the
 pool does not journal, a dropped counter increment, a lost fault-plan
-entry) on ``_PLANE_FAULT_RUNS`` at two layers, where each must fail its
-named run at its named gate.
+entry) on ``_PLANE_FAULT_RUNS`` and ``FRONT_FAULTS`` (every wire shard
+carrying rank 0's heads, the engine's flush dropping a step's last
+token, adoption zeroing a layer's int8 scale rows) on ``FRONT_RUNS``,
+both at two layers, where each must fail its named run at its named
+gate.
 ``--gen-runs NAMES`` builds the kernels and runs only those generation
 runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
 failed run in a ``gen_runs`` line; ``--fault-check`` also plants
@@ -1644,6 +1661,40 @@ PLANE_FAULTS = [
 ]
 
 
+# faults of the serving fronts, each run through FRONT_RUNS at two layers
+# (``--serve-runs``), fields as PLANE_FAULTS'
+_ENGINE_PY = "paddle_tpu_torch/inference/engine.py"
+_FRONT_FAULT_RUNS = ("serve_engine", "serve_disagg",
+                     "serve_disagg_int8", "serve_tuned")
+FRONT_FAULTS = [
+    # every shard of a handoff carries rank 0's KV heads: the decode
+    # side restores heads 0-3 in place of 4-7
+    ("export_ships_rank0_heads_in_every_shard", _POOL_PY,
+     "                    bufs.append(_wire_bytes(rec.k_host[:, :, h0:h1, :]))\n"
+     "                    bufs.append(_wire_bytes(rec.v_host[:, :, h0:h1, :]))\n",
+     "                    bufs.append(_wire_bytes(rec.k_host[:, :, 0:per, :]))\n"
+     "                    bufs.append(_wire_bytes(rec.v_host[:, :, 0:per, :]))\n",
+     ("serve_disagg", "serve_disagg_int8"), "serve_disagg", "bit for bit"),
+    # the pump's per-step token flush drops each stream's last token of
+    # the step (every token, where a step commits one a stream)
+    ("flush_drops_the_last_token", _ENGINE_PY,
+     "            self._call_loop(stream._deliver_many, toks)\n",
+     "            self._call_loop(stream._deliver_many, toks[:-1])\n",
+     ("serve_engine", "serve_disagg", "serve_disagg_int8", "serve_tuned"),
+     "serve_engine", "stream yielded"),
+    # adoption zeroes the int8 scale rows of the last layer's imported
+    # records: the restored codes decode against no scale
+    ("adopt_drops_int8_scale_rows", _SERVING_PY,
+     "        space.import_seq(rid, payloads, list(self.model.caches))\n",
+     "        space.import_seq(rid, payloads, list(self.model.caches))\n"
+     "        rec = space._swap_get((self.model.caches[-1]._uid, rid))\n"
+     "        if rec.k_scales_host is not None:\n"
+     "            rec.k_scales_host.zero_()\n"
+     "            rec.v_scales_host.zero_()\n",
+     ("serve_disagg_int8",), "serve_disagg_int8", "bit for bit"),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1686,11 +1737,11 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 def fault_check_phase():
     """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
-    SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS and GEN_FAULTS in a copy of
-    the repository and runs its cases there; fails unless every fault
-    fails a gate, a paged, norm, serving or generation fault only in the
-    cases it may fail, and a speculative serving or host-plane fault in
-    its named run at its named gate."""
+    SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS and GEN_FAULTS
+    in a copy of the repository and runs its cases there; fails unless
+    every fault fails a gate, a paged, norm, serving or generation fault
+    only in the cases it may fail, and a speculative serving, host-plane
+    or serving-front fault in its named run at its named gate."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1737,7 +1788,8 @@ def fault_check_phase():
             missed.append(name)
     for name, source, old, new, broken, must, gate, runs, depth in (
             [(*f, _SPEC_FAULT_RUNS, "4") for f in SPEC_FAULTS]
-            + [(*f, _PLANE_FAULT_RUNS, "2") for f in PLANE_FAULTS]):
+            + [(*f, _PLANE_FAULT_RUNS, "2") for f in PLANE_FAULTS]
+            + [(*f, _FRONT_FAULT_RUNS, "2") for f in FRONT_FAULTS]):
         line = _run_with_fault(name, source, old, new, "--serve-runs",
                                runs, "serve_runs",
                                extra=("--layers", depth))
@@ -2032,6 +2084,11 @@ SERVE_PAGES = 512
 PROFILED_RUNS = {"serve": "profile", "serve_int8": "profile_int8",
                  "serve_off": "profile_off",
                  "serve_off_int8": "profile_off_int8"}
+# profiled runs served at a cut depth (the target's first layers, as
+# layer_skip_draft makes them; the pool keeps its pages a layer): a
+# layer's device time carries over, and the two int8 runs under the
+# profiler are the script's longest phases
+PROFILE_LAYERS = {"serve_int8": 8, "serve_off_int8": 8}
 
 
 def build_server(seed, layers):
@@ -2397,18 +2454,24 @@ def port_flags(values):
 
 
 def _prometheus_problems(path):
-    """The Prometheus text file parses: every line a comment or
+    """The Prometheus text file parses (:func:`_prometheus_text_problems`)."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError as e:
+        return [f"Prometheus export unreadable: {e}"], 0
+    return _prometheus_text_problems(text)
+
+
+def _prometheus_text_problems(text):
+    """The Prometheus text parses: every line a comment or
     ``name[{labels}] value`` with a float value, optionally followed by
     an OpenMetrics exemplar ``# {labels} value``."""
     import re
 
     pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)'
                      r'( # \{[^}]*\} \S+)?$')
-    try:
-        with open(path) as f:
-            lines = [ln for ln in f.read().splitlines() if ln]
-    except OSError as e:
-        return [f"Prometheus export unreadable: {e}"], 0
+    lines = [ln for ln in text.splitlines() if ln]
     bad = 0
     for ln in lines:
         if ln.startswith("#"):
@@ -2750,9 +2813,13 @@ SPEC_SERVE_NEW = 32
 # the host planes' runs, after the others (serve_observed reads serve's
 # result, serve_faults serve_preempt's tokens)
 PLANE_RUNS = ["serve_observed", "serve_faults", "sanitizer_fuzz"]
+# the serving fronts' runs, last (each reads serve's result)
+FRONT_RUNS = ["serve_engine", "serve_disagg", "serve_disagg_int8",
+              "serve_tuned"]
 SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
     r for r, _ in PREFIX_RUNS] + ["serve_preempt"] + [
-    r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"] + PLANE_RUNS
+    r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"] + PLANE_RUNS \
+    + FRONT_RUNS
 
 
 def serve_phase(model, prompts, init_s, seed, layers, names=None):
@@ -2765,6 +2832,7 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
     listed in ``failed`` while the others go on (``--serve-runs``);
     without it the first failure raises."""
     import torch
+    from paddle_tpu_torch.inference import PagedLlamaAdapter
 
     pool_bytes = serve_pool_bytes(model)
     out, failed = {}, []
@@ -2789,6 +2857,12 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
                 run, model, prompts, init_s, layers, kv, mode,
                 pool_bytes=None if kv is None else pool_bytes, base=base)
             if run in PROFILED_RUNS and names is None:
+                cut = PROFILE_LAYERS.get(run)
+                if cut is not None and cut < len(adapter.caches):
+                    adapter = PagedLlamaAdapter(
+                        layer_skip_draft(model, cut), page_size=16,
+                        kv_cache_dtype=kv, page_pool_bytes=pool_bytes
+                        * cut // len(adapter.caches))
                 with ragged_mode(mode):
                     profile_phase(adapter, prompts, PROFILED_RUNS[run])
             return launches, result
@@ -2838,7 +2912,688 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
         got = attempt(run, fn)
         if got is not None:
             out[run] = got
+    for run, fn in (
+            ("serve_engine", lambda: serve_engine_run(
+                model, prompts, layers, base)),
+            ("serve_disagg", lambda: serve_disagg_run(
+                "serve_disagg", model, prompts, layers, None, None, base)),
+            ("serve_disagg_int8", lambda: serve_disagg_run(
+                "serve_disagg_int8", model, prompts, layers, "int8",
+                pool_bytes, base)),
+            ("serve_tuned", lambda: serve_tuned_run(
+                model, prompts, layers, base))):
+        got = attempt(run, fn)
+        if got is not None:
+            out[run] = got
     return out, failed
+
+
+# ------------------------------------------------------------ serving fronts
+# The serving fronts over serve's model and traffic, after the host-plane
+# runs: the async engine (serve_engine), disaggregated prefill/decode over
+# the page-chain wire format (serve_disagg, serve_disagg_int8) and the
+# capacity autotuner driving a live engine (serve_tuned).
+ENGINE_CANCEL_AFTER = 4      # serve_engine cancels r7 after its 4th token
+DISAGG_SHARDS = 2            # Llama-3-8B's 8 KV heads: 4 a payload
+DISAGG_SWAP_BYTES = 4 << 30  # every box's host swap tier
+TUNED_CHUNKS = (128, 248, 512)
+TUNED_WINDOWS = 2            # FLAGS_autotune_eval_windows of serve_tuned
+# a front run that has not ended by then fails (a stream or an op that
+# nobody answers would otherwise wait for ever)
+FRONT_RUN_TIMEOUT_S = 600
+
+
+def _http(url, method="GET"):
+    """(status, body) of one request to the ops server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, method=method, data=None if method == "GET" else b"x")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _ops_sections(body):
+    """{section key: dict} of an ops-server page: each section is a key
+    line followed by its JSON (``/statusz``, ``/enginez``)."""
+    out = {}
+    for block in body.split("\n\n"):
+        key, _, rest = block.partition("\n")
+        if rest.startswith("{"):
+            out[key] = json.loads(rest)
+    return out
+
+
+def ops_pages_problems(url):
+    """GETs ``/metrics``, ``/statusz`` and ``/enginez`` of a live ops
+    server: each must answer 200 and parse (the Prometheus text; a
+    scheduler section in ``/statusz``; an engine section with a running
+    pump in ``/enginez``). Returns ``(problems, readings)``."""
+    problems = []
+    st, body = _http(url + "/metrics")
+    p, samples = _prometheus_text_problems(body) if st == 200 else (
+        [f"/metrics answered {st}"], 0)
+    problems += p
+    st, body = _http(url + "/statusz")
+    scheds = {k: v for k, v in _ops_sections(body).items()
+              if k.startswith("scheduler.")} if st == 200 else {}
+    if st != 200 or not scheds or not all("active" in v
+                                          for v in scheds.values()):
+        problems.append(f"/statusz answered {st} without a scheduler "
+                        "section")
+    st, body = _http(url + "/enginez")
+    engines = {k: v for k, v in _ops_sections(body).items()
+               if k.startswith("engine.")} if st == 200 else {}
+    if st != 200 or not any(v["pump"]["running"] for v in engines.values()):
+        problems.append(f"/enginez answered {st} without a running pump")
+    return problems, {"metrics_samples": samples,
+                      "statusz_sections": sorted(scheds),
+                      "enginez": {k: {"pump_steps": v["pump"]["steps"],
+                                      "inflight": v["streams"]["inflight"]}
+                                  for k, v in engines.items()}}
+
+
+def _ms(seconds):
+    return sorted(s * 1e3 for s in seconds)
+
+
+def _median(xs):
+    import numpy as np
+
+    return float(np.median(xs)) if xs else None
+
+
+def serve_engine_run(model, prompts, layers, base):
+    """``serve_engine``: serve's 8 prompts (32 new tokens, greedy, its
+    pool of SERVE_PAGES bf16 pages, ``auto``) submitted through
+    ``ServingEngine`` from one asyncio task each, every task consuming
+    its ``TokenStream``; the 8th is cancelled after its
+    ENGINE_CANCEL_AFTER-th token. Telemetry in metrics mode and the ops
+    server armed on an ephemeral port. Gates: each stream yields exactly
+    the scheduler's committed tokens in order; each committed token is
+    its step's argmax; two requests against the float32 oracle; the
+    cancelled request ``aborted_deadline`` with its pages freed when its
+    cancel returns; ``/metrics``, ``/statusz`` and ``/enginez`` parse
+    while the run goes; at quiescence ``/metrics`` is byte for byte
+    ``telemetry.prometheus_text()`` and a POST gets 405; every pool free
+    after drain and shutdown; no pump error; exact launch counts.
+    Returns the launches."""
+    import asyncio
+
+    import torch
+    from paddle_tpu_torch.framework import ops_server, telemetry
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request,
+                                            RequestState, ServingEngine)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES, page_size=16)
+    warm = BatchScheduler(adapter, max_batch_size=8,
+                          prefill_chunk_tokens=248)
+    warm.submit(Request("warm", prompts[0][:16], max_new_tokens=2))
+    warm.run_until_complete()
+    watch = {"r0", "r1"}
+    preds = {}
+    captured, row_kinds = record_prefill_chunk(adapter, watch, preds)
+    rids = [f"r{i}" for i in range(len(prompts))]
+    cancel_rid = rids[-1]
+    # the pump's clock of each committed token (the on_token hook runs
+    # inside scheduler.step()) and the consumer's, on the event loop
+    pump_times = {r: [] for r in rids}
+    loop_times = {r: [] for r in rids}
+
+    def on_token(req, tok, is_prompt):
+        if not is_prompt:
+            pump_times[req.req_id].append(time.perf_counter())
+
+    problems, pages, cancel = [], {}, {}
+    with port_flags({"telemetry": "metrics", "ops_server_port": 0}):
+        srv = ops_server.maybe_start(port=0)
+        set_flags({"ops_server_port": srv.port})
+        try:
+            sched = BatchScheduler(adapter, max_batch_size=8,
+                                   prefill_chunk_tokens=248)
+            calls0 = adapter.chunk_stats["calls"]
+            for k in row_kinds:
+                row_kinds[k] = 0
+
+            async def consume(eng, rid, prompt, first):
+                stream = await eng.submit(Request(
+                    rid, prompt, max_new_tokens=32, on_token=on_token))
+                got = []
+                async for tok in stream:
+                    got.append(tok)
+                    loop_times[rid].append(time.perf_counter())
+                    first.set()
+                    if rid == cancel_rid and len(got) == ENGINE_CANCEL_AFTER:
+                        cancel["returned"] = await stream.cancel()
+                        cancel["freed"] = not any(
+                            rid in c._tables for c in adapter.caches)
+                return got
+
+            async def scrape(first):
+                await first.wait()
+                p, pages["live"] = await asyncio.to_thread(
+                    ops_pages_problems, srv.url)
+                problems.extend(p)
+
+            async def main():
+                first = asyncio.Event()
+                async with ServingEngine(sched) as eng:
+                    tasks = [asyncio.ensure_future(consume(
+                        eng, rid, p, first)) for rid, p in zip(rids,
+                                                               prompts)]
+                    scraper = asyncio.ensure_future(scrape(first))
+                    outs = await asyncio.gather(*tasks)
+                    first.set()  # no token came: scrape now, and fail
+                    await scraper
+                    await eng.drain()
+                    # quiescent: the scrape and the renderer must agree
+                    st, body = await asyncio.to_thread(
+                        _http, srv.url + "/metrics")
+                    pages["quiescent_identical"] = (
+                        st == 200 and body == telemetry.prometheus_text())
+                    pages["post_status"] = (await asyncio.to_thread(
+                        _http, srv.url + "/metrics", "POST"))[0]
+                    info = eng._enginez_info()
+                return dict(zip(rids, outs)), info
+
+            torch.cuda.synchronize()
+            kernel_launch_stats(reset=True)
+            t0 = time.perf_counter()
+            streams, info = asyncio.run(asyncio.wait_for(
+                main(), FRONT_RUN_TIMEOUT_S))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launch_stats(reset=True)
+        finally:
+            ops_server.stop()
+    del adapter.prefill_chunk
+    calls = adapter.chunk_stats["calls"] - calls0
+    done = {r: sched.result(r) for r in rids}
+    for rid in rids:
+        if streams[rid] != done[rid].generated_ids:
+            problems.append(f"{rid}: the stream yielded {len(streams[rid])}"
+                            f" tokens, not the {len(done[rid].generated_ids)}"
+                            " committed ones in order")
+    for rid in rids[:-1]:
+        if done[rid].state != RequestState.FINISHED \
+                or len(done[rid].generated_ids) != 32:
+            problems.append(f"{rid}: {done[rid].state} with "
+                            f"{len(done[rid].generated_ids)} tokens")
+    if done[cancel_rid].state != RequestState.ABORTED_DEADLINE \
+            or not cancel.get("returned") or not cancel.get("freed") \
+            or len(streams[cancel_rid]) < ENGINE_CANCEL_AFTER:
+        problems.append(f"{cancel_rid}: cancel after "
+                        f"{ENGINE_CANCEL_AFTER} tokens gave {cancel}, "
+                        f"state {done[cancel_rid].state}")
+    if not pages.get("quiescent_identical"):
+        problems.append("the quiescent /metrics scrape is not "
+                        "telemetry.prometheus_text() byte for byte")
+    if pages.get("post_status") != 405:
+        problems.append(f"a POST got {pages.get('post_status')}, not 405")
+    if info["pump"]["error"] is not None:
+        problems.append(f"pump error: {info['pump']['error']}")
+    if any(c.num_free_pages != c.num_pages for c in adapter.caches):
+        problems.append("pool pages still held after drain and shutdown")
+    wrong, committed = argmax_problems(done, preds)
+    problems += wrong
+    p, kinds = launch_problems(launches, adapter, calls, row_kinds, "auto")
+    problems += p
+    oracle = oracle_check(model, done, captured, watch, COSINE_GATE,
+                          problems)
+    gen = sum(len(r.generated_ids) for r in done.values())
+    total = gen + sum(len(p) for p in prompts)
+    emit("serve_engine", model="llama3_8b", layers=len(adapter.caches),
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)", num_pages=SERVE_PAGES,
+         page_size=16, max_batch_size=8, prefill_chunk_tokens=248,
+         new_tokens=32, cancelled=cancel_rid,
+         cancel_after_tokens=ENGINE_CANCEL_AFTER, cancel=cancel,
+         wall_s=wall, generated_tokens=gen, total_tok_per_s=total / wall,
+         serve_total_tok_per_s=None if base is None
+         else base["total_tok_per_s"],
+         ttft_ms={"consumer_median": _median(_ms(
+             [v[0] - t0 for v in loop_times.values() if v])),
+             "scheduler_median": _median(_ms(
+                 [v[0] - t0 for v in pump_times.values() if v]))},
+         stream_lag_ms_median=_median(_ms(
+             [a - b for r in rids for a, b in zip(loop_times[r],
+                                                  pump_times[r])])),
+         pump_steps=info["pump"]["steps"],
+         idle_waits=info["pump"]["idle_waits"],
+         engine_streams=info["streams"], model_calls=calls,
+         launches=launches, attention_kinds=kinds,
+         committed_tokens=committed, ops_pages=pages,
+         same_tokens_as_serve=None if base is None else sum(
+             streams[r] == base["streams"][r] for r in rids[:-1]),
+         oracle=oracle, cosine_gate=COSINE_GATE, problems=problems)
+    if problems:
+        raise RuntimeError("serve_engine phase failed: "
+                           + "; ".join(problems))
+    return launches
+
+
+def serve_disagg_run(run, model, prompts, layers, kv_cache_dtype,
+                     pool_bytes, base):
+    """``serve_disagg`` (bf16 pages) and ``serve_disagg_int8``: serve's 8
+    prompts (32 new tokens, greedy) through a ``SessionRouter`` (policy
+    ``rr``) over 2 replicas, each a ``PrefillWorker`` (a
+    ``BatchScheduler``, prefix cache off) handing the chains over the
+    page-chain wire format in DISAGG_SHARDS payloads to a
+    ``DecodeWorker`` over a ``ServingEngine``. Four adapters over the
+    one model, each box's pools serve's (512 bf16 pages, or serve's pool
+    bytes of int8 pages), telemetry in metrics mode. Gates: after each
+    swap-in the decode side's chain equals the prefill side's
+    swapped-out record bit for bit (pages and int8 scale rows);
+    ``pool.transfer_out_bytes`` = ``pool.transfer_in_bytes`` = the sum of
+    the payloads; each committed token its step's argmax; two requests
+    against the float32 oracle; the sessions split 4 and 4; every swap
+    space empty and every pool free at the end; exact launch counts over
+    the four adapters. Returns the launches."""
+    import asyncio
+
+    import torch
+    from paddle_tpu_torch.framework import telemetry
+    from paddle_tpu_torch.inference import (BatchScheduler, DisaggReplica,
+                                            PagedLlamaAdapter, PrefillWorker,
+                                            Request, RequestState,
+                                            ServingEngine, SessionRouter)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    def box():
+        if pool_bytes is None:
+            return PagedLlamaAdapter(model, num_pages=SERVE_PAGES,
+                                     page_size=16)
+        return PagedLlamaAdapter(model, page_size=16,
+                                 kv_cache_dtype=kv_cache_dtype,
+                                 page_pool_bytes=pool_bytes)
+
+    names = ("p0", "d0", "p1", "d1")
+    adapters = {n: box() for n in names}
+    warm = BatchScheduler(adapters["p0"], max_batch_size=8,
+                          prefill_chunk_tokens=248)
+    warm.submit(Request("warm", prompts[0][:16], max_new_tokens=2))
+    warm.run_until_complete()
+    watch = {"r0", "r1"}
+    preds = {n: {} for n in names}
+    recorded = {n: record_prefill_chunk(adapters[n], watch, preds[n])
+                for n in names}
+    rids = [f"r{i}" for i in range(len(prompts))]
+    src = {}          # rid -> the prefill side's records, layer by layer
+    wire = {}         # rid -> payload bytes
+    export_ms, import_ms, swap_in_ms = {}, {}, {}
+    problems = []
+
+    def instrument(sp, sd, ad_d):
+        space, export, real_export = sp.swap_space, sp.export_request, \
+            sp.swap_space.export_seq
+
+        def export_seq(seq_id, pools, mp_shards=1):
+            src[seq_id] = [space._swap_get((p._uid, seq_id))
+                           for p in pools]
+            return real_export(seq_id, pools, mp_shards)
+
+        def export_request(req_id, mp_shards=1):
+            t = time.perf_counter()
+            env = export(req_id, mp_shards)
+            export_ms[req_id] = (time.perf_counter() - t) * 1e3
+            wire[req_id] = sum(len(p) for p in env["payloads"])
+            return env
+
+        adopt, swap_in = sd.adopt_swapped, ad_d.swap_in
+
+        def adopt_swapped(req, payloads):
+            t = time.perf_counter()
+            out = adopt(req, payloads)
+            import_ms[req.req_id] = (time.perf_counter() - t) * 1e3
+            return out
+
+        def checked_swap_in(seq_id, space):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = swap_in(seq_id, space)
+            torch.cuda.synchronize()
+            swap_in_ms[seq_id] = (time.perf_counter() - t) * 1e3
+            for li, (c, rec) in enumerate(zip(ad_d.caches, src[seq_id])):
+                pg = torch.tensor(c.seq_pages(seq_id), device=c.device)
+                got = [c.k_pages[pg], c.v_pages[pg]]
+                want = [rec.k_host, rec.v_host]
+                if c.quantized:
+                    got += [c.k_scales[pg], c.v_scales[pg]]
+                    want += [rec.k_scales_host, rec.v_scales_host]
+                if not all(torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)):
+                    problems.append(f"{seq_id}: layer {li}'s restored "
+                                    "chain is not the prefill side's "
+                                    "record bit for bit")
+                    break
+            return n
+
+        space.export_seq = export_seq
+        sp.export_request = export_request
+        sd.adopt_swapped = adopt_swapped
+        ad_d.swap_in = checked_swap_in
+
+    skw = dict(max_batch_size=8, prefill_chunk_tokens=248, preempt=True,
+               swap_bytes=DISAGG_SWAP_BYTES)
+    first, ttft = {}, {}
+    with port_flags({"telemetry": "metrics"}):
+        scheds = {n: BatchScheduler(adapters[n], **skw) for n in names}
+        for r in ("0", "1"):
+            instrument(scheds["p" + r], scheds["d" + r], adapters["d" + r])
+        calls0 = {n: adapters[n].chunk_stats["calls"] for n in names}
+        for _, kinds in recorded.values():
+            for k in kinds:
+                kinds[k] = 0
+
+        async def main(t0):
+            async with ServingEngine(scheds["d0"]) as e0, \
+                    ServingEngine(scheds["d1"]) as e1:
+                router = SessionRouter([
+                    DisaggReplica("rep0", PrefillWorker(
+                        scheds["p0"], mp_shards=DISAGG_SHARDS), e0),
+                    DisaggReplica("rep1", PrefillWorker(
+                        scheds["p1"], mp_shards=DISAGG_SHARDS), e1)],
+                    policy="rr")
+                sessions = []
+                for rid, p in zip(rids, prompts):
+                    sessions.append(await router.submit(
+                        Request(rid, p, max_new_tokens=32)))
+                    ttft[rid] = time.perf_counter() - t0
+                outs = await asyncio.gather(*(s.tokens() for s in sessions))
+                info = router._routerz_info()
+            return {s.req_id: (o, s.req) for s, o in zip(sessions, outs)}, \
+                info, (e0._adopted, e1._adopted)
+
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        got, info, adopted = asyncio.run(asyncio.wait_for(
+            main(t0), FRONT_RUN_TIMEOUT_S))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+        snap = telemetry.registry().snapshot()
+    for n in names:
+        del adapters[n].prefill_chunk
+    done = {rid: req for rid, (_, req) in got.items()}
+    for rid, (toks, req) in got.items():
+        if toks != req.generated_ids or len(toks) != 32 \
+                or req.state != RequestState.FINISHED:
+            problems.append(f"{rid}: the session stream yielded "
+                            f"{len(toks)} tokens, {req.state}, against "
+                            f"{len(req.generated_ids)} committed")
+    if sorted(swap_in_ms) != rids:
+        problems.append(f"swap-ins checked for {sorted(swap_in_ms)}")
+    pool_ns = snap.get("pool", {})
+    moved = (pool_ns.get("transfer_out_bytes"),
+             pool_ns.get("transfer_in_bytes"), sum(wire.values()))
+    if len(set(moved)) != 1:
+        problems.append(f"transfer bytes out/in/payloads {moved} differ")
+    if adopted != (4, 4):
+        problems.append(f"sessions split {adopted}, not 4 and 4")
+    for n in names:
+        s = scheds[n].swap_space
+        if s.num_records or s.used_bytes:
+            problems.append(f"{n}: swap space holds {s.num_records} "
+                            "records at the end")
+        if any(c.num_free_pages != c.num_pages for c in adapters[n].caches):
+            problems.append(f"{n}: pool pages still held at the end")
+    merged, captured = {}, {w: {} for w in watch}
+    for n in names:
+        for rid, by_pos in preds[n].items():
+            merged.setdefault(rid, {}).update(by_pos)
+        for rid, by_pos in recorded[n][0].items():
+            captured[rid].update(by_pos)
+    wrong, committed = argmax_problems(done, merged)
+    problems += wrong
+    n_layers = len(adapters["p0"].caches)
+    calls = {n: adapters[n].chunk_stats["calls"] - calls0[n] for n in names}
+    want = {"rms_norm": (2 * n_layers + 1) * sum(calls.values()),
+            "paged_ragged_attention": n_layers * sum(calls.values())}
+    problems += [f"{k} launches {launches.get(k, 0)} != {v}"
+                 for k, v in want.items() if launches.get(k, 0) != v]
+    if launches.get("paged_decode_attention", 0):
+        problems.append("the decode kernel ran under auto")
+    gate = COSINE_GATE if kv_cache_dtype is None else INT8_COSINE_GATE
+    oracle = oracle_check(model, done, captured, watch, gate, problems)
+    nbytes = [wire[r] for r in rids]
+    exp = [export_ms[r] for r in rids]
+    imp = [import_ms[r] + swap_in_ms[r] for r in rids if r in swap_in_ms]
+    gen = sum(len(r.generated_ids) for r in done.values())
+    total = gen + sum(len(p) for p in prompts)
+    emit(run, model="llama3_8b", layers=n_layers,
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)",
+         kv_cache_dtype=kv_cache_dtype or "bfloat16",
+         num_pages=adapters["p0"].caches[0].num_pages, page_size=16,
+         boxes=4, replicas=2, policy="rr", mp_shards=DISAGG_SHARDS,
+         prefill_chunk_tokens=248, new_tokens=32, wall_s=wall,
+         total_tok_per_s=total / wall,
+         serve_total_tok_per_s=None if base is None
+         else base["total_tok_per_s"],
+         ttft_ms={"median": _median(_ms(ttft.values())),
+                  "max": max(ttft.values()) * 1e3},
+         handoff={"bytes_per_request": nbytes,
+                  "export_ms": exp, "import_ms": [import_ms[r]
+                                                  for r in rids],
+                  "swap_in_ms": [swap_in_ms.get(r) for r in rids],
+                  "export_gb_per_s_median": _median(
+                      [b / m / 1e6 for b, m in zip(nbytes, exp)]),
+                  "import_swap_in_gb_per_s_median": _median(
+                      [b / m / 1e6 for b, m in zip(nbytes, imp)])},
+         transfer={"out_bytes": moved[0], "in_bytes": moved[1],
+                   "payload_bytes": moved[2],
+                   "out_records": pool_ns.get("transfer_out_records"),
+                   "in_records": pool_ns.get("transfer_in_records")},
+         serving={k: snap.get("serving", {}).get(k) for k in (
+             "handoff_out_requests", "handoff_out_bytes",
+             "handoff_in_requests", "handoff_in_bytes")},
+         sessions=info["replicas"], adopted=list(adopted),
+         model_calls=calls, launches=launches, committed_tokens=committed,
+         oracle=oracle, cosine_gate=gate, problems=problems)
+    if problems:
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
+    return launches
+
+
+def serve_tuned_run(model, prompts, layers, base):
+    """``serve_tuned``: an ``Autotuner`` over TUNED_CHUNKS
+    (``prefill_chunk_tokens``) on serve's bucket ladder, with
+    ``FLAGS_autotune_eval_windows`` = TUNED_WINDOWS, driving a live
+    ``ServingEngine`` over serve's pool: each window serves serve's 8
+    prompts (32 new tokens) again and is measured by its total tokens/s
+    (``Measurement(decode_tok_s=...)``); each deployment goes through
+    ``ServingEngine.apply_config``. The profile is measured: the weights'
+    and the pools' bytes fixed, the activation bytes of a token from a
+    248-token prefill step's peak. Gates: every ``apply_capacity_config``
+    lands between steps on the pump thread; the artifact, written and
+    loaded back, re-applies verbatim over another candidate; each
+    window's committed tokens are their steps' argmax, and under every
+    candidate two requests hold against the float32 oracle. Returns the
+    launches."""
+    import asyncio
+    import tempfile
+    import threading
+
+    import torch
+    from paddle_tpu_torch.framework import autotuner as at
+    from paddle_tpu_torch.framework.flags import flag
+    from paddle_tpu_torch.inference import (BatchScheduler,
+                                            PagedLlamaAdapter, Request,
+                                            RequestState, ServingEngine)
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES, page_size=16)
+    warm = BatchScheduler(adapter, max_batch_size=8,
+                          prefill_chunk_tokens=248)
+    chunk = max(prompts, key=len)[:248]
+    warm.submit(Request("warm", chunk, max_new_tokens=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    warm.run_until_complete()
+    act_per_token = (torch.cuda.max_memory_allocated() - before) / len(chunk)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    pools = sum(c.pool_nbytes for c in adapter.caches)
+    max_windows = len(TUNED_CHUNKS) * TUNED_WINDOWS
+    watch = {f"w{w}r{i}" for w in range(max_windows) for i in (0, 1)}
+    preds = {}
+    captured, row_kinds = record_prefill_chunk(adapter, watch, preds)
+    prompt_lens = [len(p) for p in prompts]
+    applies, windows, problems = [], [], []
+    knobs = {k: flag(k) for k in at.CAPACITY_KNOBS}
+    with port_flags(dict(knobs, telemetry="metrics",
+                         autotune_eval_windows=TUNED_WINDOWS)):
+        sched = BatchScheduler(adapter, max_batch_size=8,
+                               prefill_chunk_tokens=248)
+        seam = sched.apply_capacity_config
+
+        def watched_apply(config):
+            applies.append({"in_step": sched._in_step,
+                            "thread": threading.current_thread().name,
+                            "config": dict(config)})
+            return seam(config)
+
+        sched.apply_capacity_config = watched_apply
+        # the candidates differ from the flagged config in the chunk only
+        seeded = at.CandidateConfig.from_flags()
+        ladder = seeded.serving_buckets
+        cands = [at.CandidateConfig(
+            c, ladder, seeded.serving_swap_bytes, seeded.collective_dtype,
+            seeded.goodput_band) for c in TUNED_CHUNKS]
+        profile = at.WorkloadProfile.from_plan(
+            {"hbm_peak_bytes": act_per_token * 248, "comm_bytes_total": 0},
+            248, prompt_lens + [len(prompts)] * 31,
+            hbm_fixed_bytes=weights + pools,
+            wall_per_token_s=1e-4 if base is None
+            else 1.0 / base["total_tok_per_s"])
+        pending = []
+        tuner = at.Autotuner(
+            candidates=cands, profile=profile,
+            apply_fn=lambda f: pending.append(dict(f)) or f,
+            hbm_budget=torch.cuda.get_device_properties(0).total_memory,
+            comm_budget=0)
+
+        async def window(eng, w):
+            reqs = [Request(f"w{w}r{i}", p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+            chunk = sched.prefill_chunk_tokens
+            t = time.perf_counter()
+            streams = [await eng.submit(r) for r in reqs]
+            outs = await asyncio.gather(*(s.tokens() for s in streams))
+            wall = time.perf_counter() - t
+            gen = sum(len(o) for o in outs)
+            return {"window": w, "chunk": chunk,
+                    "wall_s": wall, "total_tok_per_s": (
+                        gen + sum(prompt_lens)) / wall,
+                    "streams": {r.req_id: o for r, o in zip(reqs, outs)}}
+
+        async def main():
+            async with ServingEngine(sched) as eng:
+                async def deploy():
+                    while pending:
+                        await eng.apply_config(pending.pop(0))
+
+                tuner.start()
+                await deploy()
+                w = 0
+                while tuner.state != "converged" and w < max_windows:
+                    got = await window(eng, w)
+                    windows.append(got)
+                    tuner.observe(at.Measurement(
+                        decode_tok_s=got["total_tok_per_s"]))
+                    await deploy()
+                    w += 1
+                with tempfile.TemporaryDirectory(
+                        prefix="serve_tuned_") as tmp:
+                    path = tuner.write_artifact(
+                        os.path.join(tmp, "tuned.json"))
+                    art = at.load_artifact(path)
+                other = next(c for c in cands
+                             if c.flags() != art["flags"])
+                await eng.apply_config(other.flags())
+                await eng.apply_config(art["flags"])
+                reapplied = ({k: flag(k) for k in art["flags"]},
+                             sched.prefill_chunk_tokens)
+            return art, reapplied
+
+        calls0 = adapter.chunk_stats["calls"]
+        for k in row_kinds:
+            row_kinds[k] = 0
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        art, reapplied = asyncio.run(asyncio.wait_for(
+            main(), FRONT_RUN_TIMEOUT_S))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+    del adapter.prefill_chunk
+    calls = adapter.chunk_stats["calls"] - calls0
+    p, kinds = launch_problems(launches, adapter, calls, row_kinds, "auto")
+    problems += p
+    if tuner.state != "converged":
+        problems.append(f"the tuner ended {tuner.state}")
+    bad_seam = [a for a in applies if a["in_step"]
+                or not a["thread"].startswith("paddle-engine-pump")]
+    if bad_seam or not applies:
+        problems.append(f"apply_capacity_config off a step boundary or "
+                        f"the pump thread: {bad_seam or 'never called'}")
+    if reapplied != (art["flags"], art["flags"]["prefill_chunk_tokens"]):
+        problems.append(f"the artifact re-applied as {reapplied}, not "
+                        f"{art['flags']}")
+    oracle, seen = {}, set()
+    for got in windows:
+        w, chunk = got["window"], got["chunk"]
+        done = {r: sched.result(r) for r in got["streams"]}
+        for rid, toks in got["streams"].items():
+            if toks != done[rid].generated_ids or len(toks) != 32 \
+                    or done[rid].state != RequestState.FINISHED:
+                problems.append(f"{rid}: {len(toks)} streamed tokens, "
+                                f"{done[rid].state}")
+        wrong, _ = argmax_problems(done, preds)
+        problems += [f"window {w} (chunk {chunk}): {p}" for p in wrong]
+        if chunk not in seen:
+            seen.add(chunk)
+            wa = {f"w{w}r0", f"w{w}r1"}
+            oracle[chunk] = oracle_check(model, done, captured, wa,
+                                         COSINE_GATE, problems)
+    if seen != set(TUNED_CHUNKS):
+        problems.append(f"windows ran chunks {sorted(seen)}, not "
+                        f"{list(TUNED_CHUNKS)}")
+    if any(c.num_free_pages != c.num_pages for c in adapter.caches):
+        problems.append("pool pages still held at the end")
+    table = [{"chunk": e["candidate"].prefill_chunk_tokens,
+              "static_score": e["static_score"],
+              "live_scores": e["live_scores"], "live_score": e["live_score"],
+              "feasible": e["feasible"]}
+             for e in sorted(tuner.table.values(),
+                             key=lambda e: e["candidate"]
+                             .prefill_chunk_tokens)]
+    emit("serve_tuned", model="llama3_8b", layers=len(adapter.caches),
+         depth_cut=None if layers is None else
+         f"{layers} of 32 layers (--layers)", num_pages=SERVE_PAGES,
+         buckets=list(ladder), candidates=list(TUNED_CHUNKS),
+         eval_windows=TUNED_WINDOWS, score="1 / total tokens/s",
+         profile=profile.to_dict(), chosen=art["chosen"],
+         switches=tuner.switches, state=tuner.state, table=table,
+         windows=[{k: v for k, v in g.items() if k != "streams"}
+                  for g in windows],
+         applies=[{"config": a["config"], "in_step": a["in_step"]}
+                  for a in applies], wall_s=wall, model_calls=calls,
+         launches=launches, attention_kinds=kinds,
+         oracle=oracle, cosine_gate=COSINE_GATE, problems=problems)
+    if problems:
+        raise RuntimeError("serve_tuned phase failed: "
+                           + "; ".join(problems))
+    return launches
 
 
 # one `serve` run in a child process whose working directory is a
@@ -3844,7 +4599,9 @@ def profile_phase(adapter, prompts, phase="profile"):
             steps += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    emit(phase, steps=steps, **device_summary(prof, wall_us))
+    emit(phase, layers=len(adapter.caches),
+         num_pages=adapter.caches[0].num_pages, steps=steps,
+         **device_summary(prof, wall_us))
 
 
 # ------------------------------------------------------------- generation
@@ -4642,8 +5399,8 @@ def main(argv=None):
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS, "
-                    "SPEC_FAULTS, PLANE_FAULTS and GEN_FAULTS, planted in "
-                    "a copy")
+                    "SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS and "
+                    "GEN_FAULTS, planted in a copy")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "

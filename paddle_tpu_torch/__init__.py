@@ -9,6 +9,8 @@ paged KV pool (``incubate.nn.PagedKVCacheManager``), with the RMSNorm
 and ragged paged-attention kernels written by hand in CUDA C++
 (``ops/kernels/csrc``).
 """
+__version__ = "0.1.0"
+
 from . import device, inference, models, nn  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401

@@ -266,3 +266,168 @@ define_flag("serving_faults", "",
 define_flag("serving_fault_seed", 0,
             "seed of FaultInjector.random() plans: the same seed and step "
             "count give the same fault schedule")
+
+# -- the async engine, disaggregated serving, the ops server and the
+# capacity autotuner (inference/engine.py, inference/disagg.py,
+# framework/ops_server.py, framework/autotuner.py)
+define_flag("jit_budget_hbm", 0,
+            "peak-live device-memory budget in bytes: the capacity "
+            "autotuner's check_feasible (framework/autotuner.py) "
+            "discards a candidate whose priced peak (fixed bytes plus "
+            "its largest padded step's activation bytes) exceeds it "
+            "as hbm-over-budget. 0 (default) disables the gate")
+define_flag("jit_budget_comm", 0,
+            "per-device collective-traffic budget in bytes: the "
+            "capacity autotuner's check_feasible discards a candidate "
+            "whose priced wire bytes at its largest padded step "
+            "exceed it as comm-over-budget. 0 (default) disables the "
+            "gate")
+define_flag("collective_dtype", "off",
+            "quantize-on-the-wire dtype for the chunked ring "
+            "collectives: 'off' (default) ships full-precision "
+            "chunks; 'int8' (and 'fp8') ship block-scaled "
+            "payloads, one float32 scale per 128 elements of the "
+            "trailing dim. The port has no ring collectives yet; "
+            "the capacity autotuner (framework/autotuner.py) "
+            "reads it as one of its knobs and prices its wire "
+            "ratio")
+define_flag("ops_server_port", 0,
+            "embedded live-ops debug HTTP server "
+            "(framework/ops_server.py): 0 (default) builds nothing — "
+            "the serving scheduler pays one integer check at "
+            "construction; a positive port starts ONE process-wide, "
+            "read-only, stdlib-only server on 127.0.0.1:<port> "
+            "serving /metrics (byte-identical to "
+            "telemetry.prometheus_text), /statusz (build/flags/"
+            "uptime + SLO-window and watchdog state), /tracez "
+            "(recent spans + chrome/perfetto payload), /planz "
+            "(resource plans + perf-ledger plan-vs-actual), /flagz, "
+            "and /incidentz (flight-recorder bundle index + "
+            "summarize view). Requires FLAGS_telemetry=metrics|trace "
+            "— with telemetry off the server refuses to start")
+define_flag("engine_goodput_low", 0.75,
+            "trip threshold for the ServingEngine admission gate "
+            "(inference/engine.py): when the live serving.goodput "
+            "windowed gauge falls below this fraction (and the SLO "
+            "window holds at least FLAGS_engine_min_window "
+            "requests), the gate counts a bad signal toward "
+            "escalating backpressure (open -> shed -> clamp). Must "
+            "be < FLAGS_engine_goodput_high — the gap is the "
+            "hysteresis band in which the gate holds state")
+define_flag("engine_goodput_high", 0.9,
+            "recovery threshold for the ServingEngine admission "
+            "gate: goodput at or above this fraction (with no fresh "
+            "watchdog events) counts a good signal toward de-"
+            "escalating backpressure one level. Goodput between "
+            "FLAGS_engine_goodput_low and this value is the "
+            "hysteresis band: both trip and recovery streaks freeze "
+            "so the gate doesn't flap at a single threshold")
+define_flag("engine_min_window", 4,
+            "minimum serving.slo_window_requests before the "
+            "ServingEngine admission gate trusts the goodput gauge: "
+            "with fewer retired requests in the SLO window the "
+            "goodput signal is noise (one slow request swings it to "
+            "0.0) and the gate ignores it. Watchdog-event signals "
+            "are not window-gated")
+define_flag("engine_trip_steps", 2,
+            "consecutive bad gate evaluations (goodput below "
+            "FLAGS_engine_goodput_low, or fresh watchdog events in "
+            "the six overload classes) required before the "
+            "ServingEngine escalates backpressure one level — the "
+            "trip half of the gate's hysteresis")
+define_flag("engine_recover_steps", 4,
+            "consecutive good gate evaluations (goodput at or above "
+            "FLAGS_engine_goodput_high or no SLO signal, and no "
+            "fresh watchdog events) required before the "
+            "ServingEngine de-escalates backpressure one level — "
+            "deliberately larger than FLAGS_engine_trip_steps so "
+            "recovery is slower than tripping")
+define_flag("engine_gate_stride", 2,
+            "the ServingEngine re-evaluates its admission gate "
+            "every this-many pump steps: the SLO gauges it reads "
+            "are themselves windowed per scheduler step, so "
+            "per-step evaluation buys nothing and doubles the "
+            "gauge-read overhead on the pump thread")
+define_flag("engine_shed_keep_priority", 1,
+            "priority floor while the ServingEngine gate is in the "
+            "shed state: submissions with request.priority below "
+            "this value are rejected with EngineOverloadError "
+            "(lowest-priority admissions shed first); at or above "
+            "it they are still admitted. The clamp state rejects "
+            "all new admissions regardless of priority")
+define_flag("engine_idle_wait_s", 0.002,
+            "how long the ServingEngine pump thread parks on its "
+            "wake event when the scheduler has no queued, active, "
+            "or swapped work: long enough to avoid a busy spin, "
+            "short enough that a submit landing between the inbox "
+            "drain and the wait (which also sets the event) is "
+            "picked up immediately")
+define_flag("disagg_router_policy", "rr",
+            "replica-selection policy for the disaggregated "
+            "SessionRouter (inference/disagg.py): 'rr' round-robins "
+            "new sessions over the DP replicas; 'least' picks the "
+            "replica with the fewest live sessions (better under "
+            "skewed session lifetimes, one extra scan per submit)")
+define_flag("disagg_mp_shards", 1,
+            "KV-head shard count for the disaggregated page-chain "
+            "transfer (incubate/nn/paged_cache.py export_seq): a "
+            "handed-off chain is split into this many wire payloads "
+            "along the KV-head axis — one per mp-mesh shard on the "
+            "decode side — so each decode shard imports only the "
+            "heads it owns; must divide the pool's KV head count")
+define_flag("disagg_prefill_chunk_tokens", 0,
+            "chunked-prefill token budget override for PREFILL-role "
+            "schedulers in the disaggregated split (inference/"
+            "disagg.py): prefill workers run chunk-budget-heavy "
+            "steps, so this (when > 0) replaces the single-box "
+            "FLAGS_prefill_chunk_tokens on the prefill side only; "
+            "0 keeps the single-box value")
+define_flag("disagg_prefill_budget_hbm", 0,
+            "per-role override of FLAGS_jit_budget_hbm applied by "
+            "disagg.apply_role_budgets('prefill'): prefill workers "
+            "hold full prompt activations so their peak-live-HBM "
+            "budget differs from decode's; 0 leaves the global "
+            "budget untouched")
+define_flag("disagg_prefill_budget_comm", 0,
+            "per-role override of FLAGS_jit_budget_comm applied by "
+            "disagg.apply_role_budgets('prefill'): the prefill "
+            "role's per-device collective-traffic budget in bytes; "
+            "0 leaves the global budget untouched")
+define_flag("disagg_decode_budget_hbm", 0,
+            "per-role override of FLAGS_jit_budget_hbm applied by "
+            "disagg.apply_role_budgets('decode'): decode workers "
+            "are KV-pool-dominated, so their peak-live-HBM budget "
+            "differs from prefill's; 0 leaves the global budget "
+            "untouched")
+define_flag("disagg_decode_budget_comm", 0,
+            "per-role override of FLAGS_jit_budget_comm applied by "
+            "disagg.apply_role_budgets('decode'): the decode role's "
+            "per-device collective-traffic budget in bytes; 0 "
+            "leaves the global budget untouched")
+define_flag("autotune_space", "",
+            "capacity-autotuner search-space override, a "
+            "';'-separated list of knob=alt|alt clauses — e.g. "
+            "'chunk=16|32|64;buckets=8,16,32|8,16,32,64,128;"
+            "swap=0|268435456;dtype=off|int8;band=0.75:0.9' — "
+            "knobs omitted from the spec keep their built-in "
+            "alternatives (autotuner.DEFAULT_SPACE); empty uses "
+            "the built-in space for every knob")
+define_flag("autotune_eval_windows", 3,
+            "live goodput windows the capacity autotuner averages "
+            "per candidate before scoring it (one window = one "
+            "Autotuner.observe() with signal): the hysteresis "
+            "half-width — a single noisy window can never adopt or "
+            "reject a candidate because the decision waits for the "
+            "median of this many")
+define_flag("autotune_min_improve", 0.05,
+            "relative live-score improvement a challenger "
+            "candidate must sustain over the incumbent before the "
+            "capacity autotuner adopts it (0.05 = 5% better on the "
+            "goodput-window score); challengers inside the dead "
+            "band are reverted, so config churn needs a real win")
+define_flag("autotune_artifact", "",
+            "path the capacity autotuner writes its reproducible "
+            "tuned-config JSON artifact to "
+            "(TUNED_CONFIG_LAST.json-style: chosen config, the "
+            "scored candidate table, quarantine list, and the "
+            "flags dict to re-apply it); empty disables the write")

@@ -57,13 +57,23 @@ forks and swapped pages (``pool.*``), and carries each sequence's
 serialized trace context (``set_trace_context``) through the swap
 records.
 
-Not ported yet: the page-chain wire format (``export_seq`` /
-``import_seq``) and its ``pool.transfer_*`` counters.
+Page-chain wire format (disaggregated serving): :meth:`HostKVSwapSpace.
+export_seq` serializes a swapped-out sequence's records into one
+self-describing payload a KV-head shard (``SWAP_WIRE_MAGIC``,
+``SWAP_WIRE_VERSION``, a JSON header with ``sort_keys``, then the
+buffers), and :meth:`HostKVSwapSpace.import_seq` stores a complete shard
+set as swap records of the destination pools, which ``swap_in`` then
+restores. The payloads are byte for byte the reference package's for the
+same chain: bfloat16 travels as its raw 2-byte words. A pool may be one
+``mp`` shard of the KV heads (``mp_size``/``mp_rank``): it stores only
+its contiguous head slice ``[head_start, head_start + kv_heads_local)``.
 """
 from __future__ import annotations
 
 import collections
 import itertools
+import json
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -82,9 +92,26 @@ from ...ops.kernels.paged_attention import (  # noqa: F401 (re-exported)
 from ...ops.kernels.quant import kv_head_scale, quantize_kv
 
 __all__ = ["PagedKVCacheManager", "paged_attention", "HostKVSwapSpace",
-           "SwapSpaceFull"]
+           "SwapSpaceFull", "SwapWireError", "SWAP_WIRE_MAGIC",
+           "SWAP_WIRE_VERSION"]
 
 _pool_uids = itertools.count()
+
+# page-chain wire format (export_seq/import_seq): every payload leads
+# with this magic and a version word, so a worker running drifted code
+# REFUSES the bytes loudly instead of restoring corrupt KV. Bump
+# SWAP_WIRE_VERSION on ANY layout change (header fields, buffer order,
+# shard tagging): mixed-version fleets must fail at ingress.
+SWAP_WIRE_MAGIC = b"PKVC"
+SWAP_WIRE_VERSION = 1
+_WIRE_HEAD = struct.Struct("<4sII")  # magic, version, header length
+
+# wire kv_dtype name -> (torch dtype, the numpy dtype its bytes are read
+# as); bfloat16 has no numpy dtype, so it travels as raw int16 words
+_WIRE_DTYPES = {"float32": (torch.float32, np.float32),
+                "float16": (torch.float16, np.float16),
+                "bfloat16": (torch.bfloat16, np.int16),
+                "int8": (torch.int8, np.int8)}
 
 _KV_DTYPES = {"int8": torch.int8,
               "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -113,6 +140,31 @@ class SwapSpaceFull(RuntimeError):
     """The host swap space cannot hold another record under its byte
     budget (FLAGS_serving_swap_bytes): the caller should pick a different
     victim or fall back to blocking admission."""
+
+
+class SwapWireError(RuntimeError):
+    """A page-chain wire payload failed validation at (de)serialize: bad
+    magic, a version mismatch between workers, an incomplete or
+    overlapping shard set, or geometry that does not match the
+    destination pool. Raised LOUDLY: a silent fallback would restore
+    corrupt KV bytes and decode garbage."""
+
+
+def _wire_bytes(t) -> bytes:
+    """Raw bytes of a contiguous host tensor (bfloat16 as its 2-byte
+    words, which numpy has no dtype for)."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
+def _wire_tensor(buf, dtype, count, offset, shape):
+    """A writable host tensor of ``count`` elements of wire dtype name
+    ``dtype`` read from ``buf`` at byte ``offset``."""
+    tdt, ndt = _WIRE_DTYPES[dtype]
+    a = np.frombuffer(buf, ndt, count, offset).reshape(shape).copy()
+    return torch.from_numpy(a).view(tdt)
 
 
 class _SwapRecord:
@@ -157,7 +209,12 @@ class HostKVSwapSpace:
         # lifetime counters
         self.swapped_out_records = 0
         self.swapped_in_records = 0
+        self.exported_records = 0
+        self.imported_records = 0
         self.peak_used_bytes = 0
+        # transfer counters (pool.transfer_*); None when FLAGS_telemetry
+        # is off: each site pays one check
+        self._reg = telemetry.registry()
         # concurrency-sanitizer handle: the store is single-writer by
         # contract (the thread driving the pools' swap calls)
         _csan = _concurrency.sanitizer()
@@ -201,7 +258,268 @@ class HostKVSwapSpace:
             "records": len(self._swap_store),
             "swapped_out_records": self.swapped_out_records,
             "swapped_in_records": self.swapped_in_records,
+            "exported_records": self.exported_records,
+            "imported_records": self.imported_records,
         }
+
+    # -- page-chain wire transfer (disaggregated serving) ------------------
+    def export_seq(self, seq_id, pools, mp_shards=1):
+        """Serialize a swapped-out sequence's page chains (one swap record
+        per layer pool, in ``pools`` order) into ``mp_shards``
+        self-describing byte payloads and DROP the source records: the
+        bytes leave this worker. Shard ``r`` carries the contiguous
+        KV-head slice ``[r*H/N, (r+1)*H/N)`` of every record (payload and
+        int8 scale rows, bit for bit), so each payload lands on exactly
+        the ``mp`` shard owning those heads. Only fully PRIVATE chains can
+        travel: a kept (shared) page is a prefix-cache/COW reference into
+        THIS worker's pool and raises :class:`SwapWireError`. Atomic:
+        validation happens before any record is popped."""
+        mp_shards = int(mp_shards)
+        if mp_shards < 1:
+            raise ValueError("export_seq: mp_shards must be >= 1")
+        if not pools:
+            raise ValueError("export_seq: no pools given")
+        recs = []
+        for pool in pools:
+            rec = self._swap_get((pool._uid, seq_id))
+            if any(rec.kept):
+                raise SwapWireError(
+                    f"export_seq({seq_id!r}): the chain holds "
+                    f"{sum(rec.kept)} shared (kept) page(s) — "
+                    "prefix-cache/COW references cannot cross "
+                    "workers; hand off only fully-private chains")
+            recs.append(rec)
+        g = pools[0]
+        heads = g.k_pages.shape[2]
+        head_dim = g.k_pages.shape[3]
+        if heads % mp_shards:
+            raise SwapWireError(
+                f"export_seq({seq_id!r}): {heads} KV heads do not "
+                f"split into {mp_shards} mp shards")
+        per = heads // mp_shards
+        payloads = []
+        for r in range(mp_shards):
+            h0, h1 = r * per, (r + 1) * per
+            metas, bufs = [], []
+            for pool, rec in zip(pools, recs):
+                npriv = 0 if rec.k_host is None else len(rec.k_host)
+                metas.append({
+                    "pages": [int(p) for p in rec.pages],
+                    "length": int(rec.length),
+                    "npriv": int(npriv),
+                    "trace_ctx": rec.trace_ctx,
+                    "quantized": bool(pool.quantized),
+                })
+                if npriv:
+                    bufs.append(_wire_bytes(rec.k_host[:, :, h0:h1, :]))
+                    bufs.append(_wire_bytes(rec.v_host[:, :, h0:h1, :]))
+                    if pool.quantized:
+                        bufs.append(_wire_bytes(
+                            rec.k_scales_host[:, h0:h1]))
+                        bufs.append(_wire_bytes(
+                            rec.v_scales_host[:, h0:h1]))
+            header = json.dumps({
+                "seq_id": str(seq_id),
+                "shard": {"rank": r, "size": mp_shards,
+                          "head_start": int(g.head_start + h0),
+                          "heads": int(per)},
+                "geometry": {
+                    "page_size": int(g.page_size),
+                    "head_dim": int(head_dim),
+                    "kv_dtype": str(g.kv_dtype),
+                    "kv_heads_global": int(g.kv_heads_global),
+                    "layers": len(pools),
+                },
+                "records": metas,
+            }, sort_keys=True).encode("utf-8")
+            payloads.append(
+                _WIRE_HEAD.pack(SWAP_WIRE_MAGIC, SWAP_WIRE_VERSION,
+                                len(header))
+                + header + b"".join(bufs))
+        # validation passed for every layer: the records leave now
+        for pool in pools:
+            self._swap_pop((pool._uid, seq_id))
+        self.exported_records += len(recs)
+        if self._reg is not None:
+            self._reg.inc("pool.transfer_out_records", len(recs))
+            self._reg.inc("pool.transfer_out_bytes",
+                          sum(len(p) for p in payloads))
+        return payloads
+
+    @staticmethod
+    def _parse_wire(payload):
+        """Split one wire payload into (header dict, buffer bytes),
+        refusing bad magic or version drift LOUDLY."""
+        if len(payload) < _WIRE_HEAD.size:
+            raise SwapWireError(
+                "page-chain payload truncated: %d bytes is shorter "
+                "than the %d-byte wire header"
+                % (len(payload), _WIRE_HEAD.size))
+        magic, version, hlen = _WIRE_HEAD.unpack_from(payload)
+        if magic != SWAP_WIRE_MAGIC:
+            raise SwapWireError(
+                "not a KV page-chain payload: magic %r != %r — "
+                "refusing to deserialize (bitwise KV corruption)"
+                % (magic, SWAP_WIRE_MAGIC))
+        if version != SWAP_WIRE_VERSION:
+            raise SwapWireError(
+                "page-chain wire version mismatch: payload v%d, this "
+                "worker speaks v%d — upgrade the drifted worker; a "
+                "silent fallback would restore corrupt KV bytes"
+                % (version, SWAP_WIRE_VERSION))
+        head_end = _WIRE_HEAD.size + hlen
+        try:
+            header = json.loads(payload[_WIRE_HEAD.size:head_end])
+        except ValueError as e:
+            raise SwapWireError(
+                "page-chain header is not valid JSON: %s" % e)
+        return header, payload[head_end:]
+
+    def import_seq(self, seq_id, payloads, pools):
+        """Deserialize a complete mp shard set of page-chain payloads
+        (from :meth:`export_seq` on the prefill worker) into THIS space,
+        keyed to the destination ``pools``: afterwards the pools'
+        ``swap_in`` (and :meth:`trace_context`, the decode-worker trace
+        ingress) see the sequence exactly as if it had been swapped out
+        here. Each destination pool takes the KV-head range it owns
+        (``head_start .. head_start + kv_heads_local``), so full-width and
+        mp-sharded decode pools both reassemble from the same shard set.
+        Atomic: shard-set completeness, geometry, duplicate keys and the
+        byte budget are all validated before any record is stored.
+        Returns the host bytes stored."""
+        parsed = sorted((self._parse_wire(p) for p in payloads),
+                        key=lambda hp: hp[0]["shard"]["rank"])
+        if not parsed:
+            raise SwapWireError("import_seq: no payloads given")
+        first = parsed[0][0]
+        size = int(first["shard"]["size"])
+        ranks = [h["shard"]["rank"] for h, _ in parsed]
+        if ranks != list(range(size)):
+            raise SwapWireError(
+                f"import_seq({seq_id!r}): incomplete shard set — got "
+                f"ranks {ranks} of a {size}-shard export")
+        geo = first["geometry"]
+        for h, _ in parsed[1:]:
+            if h["geometry"] != geo or h["seq_id"] != first["seq_id"]:
+                raise SwapWireError(
+                    f"import_seq({seq_id!r}): shard headers disagree "
+                    "on sequence/geometry — mixed exports?")
+        if len(pools) != int(geo["layers"]):
+            raise SwapWireError(
+                f"import_seq({seq_id!r}): export carries "
+                f"{geo['layers']} layer record(s), destination has "
+                f"{len(pools)} pool(s)")
+        if geo["kv_dtype"] not in _WIRE_DTYPES:
+            raise SwapWireError(
+                f"import_seq({seq_id!r}): unknown kv_dtype "
+                f"{geo['kv_dtype']!r} on the wire")
+        dname = geo["kv_dtype"]
+        itemsize = np.dtype(_WIRE_DTYPES[dname][1]).itemsize
+        ps, hd = int(geo["page_size"]), int(geo["head_dim"])
+        quant = dname == "int8"
+        # slice each payload's buffers per record, then reassemble the
+        # head axis per destination pool
+        shards = []  # [(head_start, heads, [record buffers])]
+        for h, buf in parsed:
+            sh = h["shard"]
+            heads = int(sh["heads"])
+            off, per_rec = 0, []
+            for meta in h["records"]:
+                npriv = int(meta["npriv"])
+                n = npriv * ps * heads * hd
+                nk = n * itemsize
+                ns = npriv * heads * 4
+                need = 2 * nk + (2 * ns if quant else 0)
+                if off + need > len(buf):
+                    raise SwapWireError(
+                        f"import_seq({seq_id!r}): payload truncated "
+                        f"mid-record ({len(buf)} bytes, need "
+                        f"{off + need})")
+                shape = (npriv, ps, heads, hd)
+                k = _wire_tensor(buf, dname, n, off, shape)
+                v = _wire_tensor(buf, dname, n, off + nk, shape)
+                off += 2 * nk
+                ks = vs = None
+                if quant:
+                    ks = _wire_tensor(buf, "float32", npriv * heads, off,
+                                      (npriv, heads))
+                    vs = _wire_tensor(buf, "float32", npriv * heads,
+                                      off + ns, (npriv, heads))
+                    off += 2 * ns
+                per_rec.append((k, v, ks, vs))
+            shards.append((int(sh["head_start"]), heads, per_rec))
+        pend = []
+        total = 0
+        for li, pool in enumerate(pools):
+            if (pool.page_size != ps
+                    or pool.k_pages.shape[3] != hd
+                    or pool.kv_dtype != dname
+                    or pool.kv_heads_global
+                    != int(geo["kv_heads_global"])):
+                raise SwapWireError(
+                    f"import_seq({seq_id!r}): destination pool "
+                    f"{li} geometry (page_size={pool.page_size}, "
+                    f"head_dim={pool.k_pages.shape[3]}, "
+                    f"kv_dtype={pool.kv_dtype}, kv_heads_global="
+                    f"{pool.kv_heads_global}) does not match the "
+                    f"export's {geo}")
+            key = (pool._uid, seq_id)
+            if key in self._swap_store:
+                raise SwapWireError(
+                    f"import_seq({seq_id!r}): this space already "
+                    f"holds a record for pool {li}")
+            p0 = pool.head_start
+            p1 = p0 + pool.k_pages.shape[2]
+            meta = first["records"][li]
+            npriv = int(meta["npriv"])
+            kparts, vparts, ksparts, vsparts = [], [], [], []
+            covered = 0
+            for h0, heads, per_rec in shards:
+                lo, hi = max(h0, p0), min(h0 + heads, p1)
+                if lo >= hi:
+                    continue
+                k, v, ks, vs = per_rec[li]
+                kparts.append(k[:, :, lo - h0:hi - h0, :])
+                vparts.append(v[:, :, lo - h0:hi - h0, :])
+                if quant:
+                    ksparts.append(ks[:, lo - h0:hi - h0])
+                    vsparts.append(vs[:, lo - h0:hi - h0])
+                covered += hi - lo
+            if covered != p1 - p0:
+                raise SwapWireError(
+                    f"import_seq({seq_id!r}): shard set covers "
+                    f"{covered} of the {p1 - p0} KV heads pool {li} "
+                    f"owns ([{p0}, {p1}))")
+            k_host = v_host = ks_host = vs_host = None
+            if npriv:
+                k_host = torch.cat(kparts, dim=2).contiguous()
+                v_host = torch.cat(vparts, dim=2).contiguous()
+                if quant:
+                    ks_host = torch.cat(ksparts, dim=1).contiguous()
+                    vs_host = torch.cat(vsparts, dim=1).contiguous()
+            rec = _SwapRecord(
+                pages=[int(p) for p in meta["pages"]],
+                kept=[False] * len(meta["pages"]),
+                length=int(meta["length"]), k_host=k_host,
+                v_host=v_host, k_scales_host=ks_host,
+                v_scales_host=vs_host, gens=None,
+                nbytes=npriv * pool.page_nbytes,
+                trace_ctx=meta.get("trace_ctx"))
+            pend.append((key, rec))
+            total += rec.nbytes
+        if not self.would_fit(total):
+            raise SwapSpaceFull(
+                f"import_seq({seq_id!r}): shard set needs {total} "
+                f"bytes, {self.free_bytes} of {self.capacity_bytes} "
+                "free")
+        for key, rec in pend:
+            self._swap_put(key, rec)
+        self.imported_records += len(pend)
+        if self._reg is not None:
+            self._reg.inc("pool.transfer_in_records", len(pend))
+            self._reg.inc("pool.transfer_in_bytes",
+                          sum(len(p) for p in payloads))
+        return total
 
     # -- pool-only entry points --------------------------------------------
     def _swap_put(self, key, rec):
@@ -262,7 +580,7 @@ class PagedKVCacheManager:
 
     def __init__(self, num_pages, page_size, kv_heads, head_dim,
                  dtype=torch.bfloat16, kv_dtype=None, sanitizer=None,
-                 device=None):
+                 device=None, mp_size=1, mp_rank=0):
         if kv_dtype is not None:
             if kv_dtype not in _KV_DTYPES:
                 raise ValueError(
@@ -274,6 +592,23 @@ class PagedKVCacheManager:
         self.device = resolve_device(device)
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
+        # mp KV-head sharding: ``kv_heads`` is the GLOBAL head count; a
+        # sharded pool stores only the contiguous slice its mp rank owns,
+        # so a page-chain wire shard lands on exactly the pool owning
+        # those heads (export_seq/import_seq)
+        self.mp_size = int(mp_size)
+        self.mp_rank = int(mp_rank)
+        if self.mp_size < 1 or not 0 <= self.mp_rank < self.mp_size:
+            raise ValueError(
+                f"mp_rank {mp_rank} out of range for mp_size "
+                f"{mp_size}")
+        if int(kv_heads) % self.mp_size:
+            raise ValueError(
+                f"{kv_heads} KV heads do not shard across an mp "
+                f"mesh of {mp_size}")
+        self.kv_heads_global = int(kv_heads)
+        kv_heads = self.kv_heads_global // self.mp_size
+        self.head_start = self.mp_rank * kv_heads
         self.kv_dtype = str(dtype).replace("torch.", "")
         self.quantized = dtype == torch.int8
         shape = (self.num_pages, self.page_size, int(kv_heads),
@@ -1227,6 +1562,11 @@ class PagedKVCacheManager:
         if dtype == torch.int8:
             per += kv_heads * 4 * 2
         return per
+
+    @property
+    def kv_heads_local(self) -> int:
+        """KV heads THIS shard stores (``kv_heads_global // mp_size``)."""
+        return self.k_pages.shape[2]
 
     @property
     def page_nbytes(self) -> int:

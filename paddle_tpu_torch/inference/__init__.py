@@ -7,3 +7,18 @@ from .serving import (  # noqa: F401
     RequestState,
     bucket_packed_tokens,
 )
+from .engine import (  # noqa: F401
+    EngineClosedError,
+    EngineOverloadError,
+    ServingEngine,
+    TokenStream,
+)
+from .disagg import (  # noqa: F401
+    DecodeWorker,
+    DisaggReplica,
+    PrefillWorker,
+    SessionRouter,
+    SessionStream,
+    apply_role_budgets,
+    role_scheduler_kwargs,
+)

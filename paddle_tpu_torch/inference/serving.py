@@ -57,6 +57,18 @@ target ``decode_window`` a round, and refuses the prefix cache and
 preemption. ``off`` ignores the draft. Either way the output is the
 non-speculative greedy scheduler's, token for token.
 
+Disaggregated prefill/decode (``inference/disagg.py``): :meth:`BatchScheduler.
+export_request` swaps a prefill-complete request's chains out bit for bit
+and serializes them over the pool's page-chain wire format (one payload a
+KV-head shard), leaving the request ``migrated``; :meth:`BatchScheduler.
+adopt_swapped` on another scheduler imports the payloads into its swap
+tier and registers the request swapped out, so the ordinary swap-in
+resumes its decode. :meth:`BatchScheduler.apply_capacity_config` retargets
+the chunk budget, the bucket ladder and the swap budget between steps
+(``framework/autotuner.py``); with ``FLAGS_ops_server_port`` set, the
+scheduler registers its ``/statusz`` section on the embedded ops server
+at construction (``framework/ops_server.py``).
+
 The host planes, all off by default (one ``is None`` check a site):
 
 * fault injection (``fault_injector=`` or ``FLAGS_serving_faults``,
@@ -104,7 +116,7 @@ from ..framework import concurrency as _concurrency
 from ..framework import telemetry
 from ..framework.flags import flag
 from ..framework.telemetry import NULL_SPAN as _NULL
-from ..incubate.nn.paged_cache import HostKVSwapSpace
+from ..incubate.nn.paged_cache import HostKVSwapSpace, SwapSpaceFull
 from .prefix_cache import RadixPrefixCache
 
 __all__ = ["Request", "BatchScheduler", "RequestState",
@@ -159,6 +171,9 @@ class RequestState:
     # request was cancelled) before completion and every reservation
     # was released
     ABORTED_DEADLINE = "aborted_deadline"
+    # handed off to a decode worker (export_request): gone from THIS
+    # scheduler, not terminal (the request lives on elsewhere)
+    MIGRATED = "migrated"
 
 
 @dataclass
@@ -385,6 +400,8 @@ class BatchScheduler:
         # faulted)
         self._step_extras = {}
         self._admitted_step = 0
+        # True while step() runs: apply_capacity_config refuses then
+        self._in_step = False
         # the page sanitizer's epoch cross-check: every stride steps,
         # shadow against real on every cache (draft pools included)
         self._san_stride = max(1, int(flag("page_sanitizer_stride")))
@@ -468,6 +485,18 @@ class BatchScheduler:
                     registry=self._metrics, tracer=self._tracer,
                     traces=self._traces, watchdog=self._watchdog,
                     ledger=self._ledger)
+            if int(flag("ops_server_port")) > 0:
+                # the embedded read-only ops server (framework/
+                # ops_server.py): one a process, first caller wins; this
+                # scheduler registers its /statusz section. Port 0 (the
+                # default) never imports the module
+                from ..framework import ops_server as _ops_server
+
+                srv = _ops_server.maybe_start()
+                if srv is not None:
+                    srv.add_status_provider(
+                        "scheduler." + self._sched_uid,
+                        self._statusz_info)
 
     # -- pool accounting ---------------------------------------------------
     def _pool(self, model=None):
@@ -1117,6 +1146,214 @@ class BatchScheduler:
                 reason=reason, pages=freed, bytes=nbytes)
         return True
 
+
+    # -- disaggregated prefill/decode handoff (inference/disagg.py) --------
+    def export_request(self, req_id, mp_shards=1):
+        """Hand one prefill-complete active request off to a decode worker:
+        swap its page chains out to the host tier bit for bit (payload and
+        int8 scale rows), serialize them over the versioned
+        ``HostKVSwapSpace`` wire format (one payload per ``mp`` shard,
+        split on the KV-head axis) and return the handoff envelope:
+        request metadata (prompt, committed tokens, budget, priority,
+        tenant, remaining deadline, trace wire) plus the payloads. The
+        request leaves THIS scheduler in state ``migrated`` with a
+        terminal ``handoff`` trace event; the receiving scheduler's
+        :meth:`adopt_swapped` re-registers it and resumes decode through
+        the ordinary swap-in path, so the streamed output is the one it
+        would have had without moving. Needs the host swap tier
+        (``FLAGS_serving_swap_bytes``); a chain still sharing pages with
+        the prefix cache cannot travel (``SwapWireError``). Runs on the
+        stepping thread."""
+        req = self._active.get(req_id)
+        if req is None:
+            raise KeyError(
+                f"export_request({req_id!r}): not an active request")
+        space = self.swap_space
+        if space is None:
+            raise RuntimeError(
+                "export_request needs the host swap tier — construct "
+                "the scheduler with preempt=True and swap_bytes>0 "
+                "(FLAGS_serving_preempt / FLAGS_serving_swap_bytes)")
+        if self.draft is not None:
+            raise RuntimeError(
+                "export_request: speculative scheduling keeps a "
+                "draft-model KV pool that cannot travel — hand off "
+                "from non-speculative schedulers only")
+        if req._pos < len(req.prompt_ids) or not req.generated_ids:
+            raise ValueError(
+                f"export_request({req_id!r}): prefill incomplete "
+                f"({req._pos}/{len(req.prompt_ids)} prompt tokens, "
+                f"{len(req.generated_ids)} committed) — decode "
+                "workers adopt only prefill-complete chains")
+        if self.prefix_cache is not None and req._prefix_path:
+            # drop the radix pins; pages STILL shared with the tree after
+            # this stay on the device and export_seq refuses them
+            self.prefix_cache.unpin(req._prefix_path)
+            req._prefix_path = ()
+        est = sum(c.swap_out_nbytes(req_id) for c in self.model.caches)
+        if not space.would_fit(est):
+            raise SwapSpaceFull(
+                f"export_request({req_id!r}): the handoff staging "
+                f"needs {est} bytes, {space.free_bytes} of "
+                f"{space.capacity_bytes} free")
+        self._tag_pool_trace(req)
+        with self._req_span("serving.handoff_out", req, req=req_id,
+                            shards=int(mp_shards)):
+            self.model.swap_out(req_id, space)
+            payloads = space.export_seq(
+                req_id, list(self.model.caches), mp_shards=mp_shards)
+        deadline_left = None
+        if req._t_deadline:
+            deadline_left = max(req._t_deadline - telemetry.clock(), 1e-3)
+        elif req.deadline_s is not None:
+            deadline_left = float(req.deadline_s)
+        ctx = req.trace_ctx
+        wire = None
+        if ctx is not None:
+            wire = ctx if isinstance(ctx, str) else ctx.to_wire()
+        req.state = RequestState.MIGRATED
+        if self._cv_state is not None:
+            self._cv_state.write()
+        self._active.pop(req_id)
+        self._step_extras["migrated"] = \
+            self._step_extras.get("migrated", 0) + 1
+        wire_bytes = sum(len(p) for p in payloads)
+        if self._metrics is not None:
+            self._metrics.inc("serving.handoff_out_requests")
+            self._metrics.inc("serving.handoff_out_bytes", wire_bytes)
+        if self._traces is not None:
+            # terminal ON THIS WORKER only: the decode worker's
+            # adopt_swapped continues the same trace id
+            self._traces.complete(
+                req_id, "handoff", telemetry.clock(), self._step_epoch,
+                shards=int(mp_shards), wire_bytes=wire_bytes,
+                generated_tokens=len(req.generated_ids))
+        return {
+            "req": {
+                "req_id": req.req_id,
+                "prompt_ids": list(req.prompt_ids),
+                "generated_ids": list(req.generated_ids),
+                "max_new_tokens": req.max_new_tokens,
+                "eos_id": req.eos_id,
+                "priority": req.priority,
+                "tenant": req.tenant,
+                "deadline_s": deadline_left,
+                "trace_ctx": wire,
+            },
+            "payloads": payloads,
+        }
+
+    def adopt_swapped(self, req, payloads):
+        """Adopt a handed-off request from a prefill worker: restore its
+        page-chain payloads into THIS scheduler's host swap tier (magic,
+        version, shard set and geometry validated loudly) and register
+        the request as swapped out: the next step's ``_admit_swapped`` /
+        ``_swap_in`` restore the chains bit for bit and decode resumes
+        where the prefill worker stopped. The trace identity rides the
+        swap records (``swap_space.trace_context(req_id)`` is the
+        decode-side ingress), so the request's spans on both workers
+        share ONE trace id. Runs on the stepping thread (the async engine
+        marshals it through ``ServingEngine.adopt``)."""
+        rid = req.req_id
+        if (rid in self._active or rid in self._swapped
+                or rid in self._finished
+                or any(r.req_id == rid for r in self._queue)):
+            raise ValueError(
+                f"adopt_swapped({rid!r}): this scheduler already "
+                "knows the request id")
+        space = self.swap_space
+        if space is None:
+            raise RuntimeError(
+                "adopt_swapped needs the host swap tier — construct "
+                "the scheduler with preempt=True and swap_bytes>0 "
+                "(FLAGS_serving_preempt / FLAGS_serving_swap_bytes)")
+        if self.draft is not None:
+            raise RuntimeError(
+                "adopt_swapped: speculative scheduling cannot adopt "
+                "a foreign chain (the draft pool never saw the "
+                "prompt)")
+        if not req.generated_ids:
+            raise ValueError(
+                f"adopt_swapped({rid!r}): no committed token rides "
+                "the envelope — only prefill-complete requests hand "
+                "off")
+        space.import_seq(rid, payloads, list(self.model.caches))
+        req._pos = len(req.prompt_ids)
+        req.state = RequestState.SWAPPED
+        self._submit_seq += 1
+        req._order = self._submit_seq
+        if req.deadline_s is not None:
+            req._t_deadline = telemetry.clock() + float(req.deadline_s)
+        if req.trace_ctx is None:
+            # the decode-side trace ingress: the identity the swap
+            # records carried over the wire
+            req.trace_ctx = space.trace_context(rid)
+        if self._metrics is not None or self._traces is not None \
+                or self._tracer is not None:
+            ctx = req.trace_ctx
+            if isinstance(ctx, str):
+                ctx = telemetry.TraceContext.from_wire(ctx)
+            if ctx is None:
+                ctx = telemetry.TraceContext(
+                    tenant=req.tenant, deadline_s=req.deadline_s)
+            req.trace_ctx = ctx
+        if self._metrics is not None:
+            req._t_submit = telemetry.clock()
+            # the NEXT token's inter-token gap starts at adoption
+            req._t_last_tok = req._t_submit
+            self._metrics.inc("serving.handoff_in_requests")
+            self._metrics.inc("serving.handoff_in_bytes",
+                              sum(len(p) for p in payloads))
+        if self._traces is not None:
+            payload = {"adopted": True,
+                       "prompt_tokens": len(req.prompt_ids),
+                       "generated_tokens": len(req.generated_ids),
+                       "max_new_tokens": req.max_new_tokens}
+            if req.trace_ctx is not None:
+                payload["trace_id"] = req.trace_ctx.trace_id
+            self._traces.begin(rid, telemetry.clock(), self._step_epoch,
+                               **payload)
+        if self._cv_state is not None:
+            self._cv_state.write()
+        self._swapped[rid] = req
+        return rid
+
+    def apply_capacity_config(self, config: dict) -> dict:
+        """Step-boundary capacity seam (the scheduler half of
+        ``framework.autotuner.apply_config``): retarget the
+        scheduler-owned capacity knobs (chunk budget, bucket ladder, host
+        swap budget) on a LIVE scheduler. Runs on the thread that drives
+        :meth:`step` and only between steps: a call from inside a step
+        raises, because a chunk budget that changes under
+        ``_step_impl`` would desynchronize the packed feed being built.
+        Unknown keys are ignored; returns the knobs actually changed."""
+        if self._in_step:
+            raise RuntimeError(
+                "apply_capacity_config called mid-step — capacity "
+                "knobs may only change at step boundaries (post it "
+                "through ServingEngine.apply_config, or call "
+                "between step()s)")
+        applied = {}
+        if "prefill_chunk_tokens" in config:
+            v = max(1, int(config["prefill_chunk_tokens"]))
+            if v != self.prefill_chunk_tokens:
+                self.prefill_chunk_tokens = v
+                applied["prefill_chunk_tokens"] = v
+        if "serving_buckets" in config:
+            bl = _parse_buckets(config["serving_buckets"])
+            if bl != self.serving_buckets:
+                self.serving_buckets = bl
+                applied["serving_buckets"] = ",".join(str(b) for b in bl)
+        if "serving_swap_bytes" in config and self.swap_space is not None:
+            # never shrink below what is already resident: swapped chains
+            # stay valid, the tier just stops admitting more
+            v = max(int(config["serving_swap_bytes"]),
+                    self.swap_space.used_bytes)
+            if v != self.swap_space.capacity_bytes:
+                self.swap_space.capacity_bytes = v
+                applied["serving_swap_bytes"] = v
+        return applied
+
     # -- deadlines and cancel ----------------------------------------------
     def _expire_deadlines(self):
         """Abort every request whose deadline passed, queued, active or
@@ -1408,8 +1645,12 @@ class BatchScheduler:
             # an armed tracing window with metrics off still collects
             # request traces: the epoch must advance for them
             self._step_epoch += 1
-        with self._span("serving.step"):
-            ev = self._step_impl()
+        self._in_step = True
+        try:
+            with self._span("serving.step"):
+                ev = self._step_impl()
+        finally:
+            self._in_step = False
         if self._step_extras:
             ev.update(self._step_extras)
         if self._metrics is not None:

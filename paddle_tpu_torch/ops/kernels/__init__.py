@@ -17,14 +17,19 @@ with :func:`kernel_launch_stats` (the counterpart of the reference's
 from __future__ import annotations
 
 import collections as _collections
+import threading as _threading
 
 _LAUNCHES = _collections.Counter()
+# launches come from more than one thread (an engine's pump thread beside
+# the caller's): the read-modify-write of a count must not interleave
+_LAUNCH_LOCK = _threading.Lock()
 
 
 def record_launch(kernel: str) -> None:
     """Count one launch of ``kernel``'s CUDA kernel (called by the
     wrapper right where it launches, and nowhere else)."""
-    _LAUNCHES[kernel] += 1
+    with _LAUNCH_LOCK:
+        _LAUNCHES[kernel] += 1
 
 
 def kernel_launch_stats(reset: bool = False) -> dict:
@@ -34,9 +39,10 @@ def kernel_launch_stats(reset: bool = False) -> dict:
     'flash_varlen_bwd_dkdv': ..., 'flash_varlen_bwd_dq': ...,
     'layer_norm_fused': ..., 'paged_decode_attention': ...}`` — CUDA
     kernel launches since the last reset."""
-    out = dict(_LAUNCHES)
-    if reset:
-        _LAUNCHES.clear()
+    with _LAUNCH_LOCK:
+        out = dict(_LAUNCHES)
+        if reset:
+            _LAUNCHES.clear()
     return out
 
 

@@ -274,3 +274,118 @@ def test_from_hf_takes_no_group_size():
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
     with pytest.raises(TypeError):
         from_hf(m, {}, group_size=32)
+
+
+SERVING_FRONTS = ("inference/engine.py", "inference/disagg.py",
+                  "framework/ops_server.py", "framework/autotuner.py")
+
+
+def test_scan_covers_the_serving_fronts():
+    """The engine, disaggregated serving, the ops server and the
+    autotuner are among the files the AST scan checks, and importing and
+    driving them (an engine with the ops server armed and a router over
+    one disaggregated replica) loads no JAX and nothing of the JAX
+    package."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in SERVING_FRONTS:
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    code = (
+        "import asyncio, sys\n"
+        "from paddle_tpu_torch.framework import flags, ops_server\n"
+        "from paddle_tpu_torch.framework import autotuner\n"
+        "flags.set_flags({'FLAGS_telemetry': 'metrics'})\n"
+        "srv = ops_server.maybe_start(port=0)\n"
+        "flags.set_flags({'FLAGS_ops_server_port': srv.port})\n"
+        "from paddle_tpu_torch.models import LlamaForCausalLM, "
+        "llama_tiny\n"
+        "from paddle_tpu_torch.inference import (BatchScheduler, "
+        "DisaggReplica, PagedLlamaAdapter, Request, ServingEngine, "
+        "SessionRouter)\n"
+        "m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), "
+        "device='cpu')\n"
+        "mk = lambda: BatchScheduler(PagedLlamaAdapter(m, num_pages=16, "
+        "page_size=4), preempt=True, swap_bytes=1 << 24)\n"
+        "async def main():\n"
+        "    async with ServingEngine(mk()) as eng:\n"
+        "        r = SessionRouter([DisaggReplica('r0', mk(), eng)])\n"
+        "        s = await r.submit(Request('a', [1, 2, 3], "
+        "max_new_tokens=3))\n"
+        "        return await s.tokens()\n"
+        "assert len(asyncio.run(main())) == 3\n"
+        "ops_server.stop()\n"
+        "print([m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_ops_server_imports_only_the_standard_library_and_the_port():
+    """``framework/ops_server.py`` is a stdlib HTTP surface: every import
+    is a standard-library module or a module of the port (relative)."""
+    path = ROOT / "paddle_tpu_torch" / "framework" / "ops_server.py"
+    tree = ast.parse(path.read_text(), str(path))
+    seen = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level > 0:
+                continue  # the port's own modules
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            seen.add(top)
+            assert top in sys.stdlib_module_names, \
+                f"ops_server.py:{node.lineno} imports {n}"
+    assert {"http", "json", "threading"} <= seen
+
+
+# calls an ``async def`` of the serving fronts must not make: each blocks
+# the event loop (a sleep, a lock acquire, file IO, a device sync)
+_BLOCKING = {("time", "sleep"), ("torch.cuda", "synchronize"),
+             ("cuda", "synchronize")}
+
+
+def _blocking_calls(fn):
+    out = []
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Name) and f.id in ("open", "sleep"):
+            out.append((node.lineno, f.id))
+        elif isinstance(f, ast.Attribute):
+            base = ast.unparse(f.value)
+            if f.attr == "acquire" or (base, f.attr) in _BLOCKING \
+                    or (f.attr == "synchronize" and "cuda" in base):
+                out.append((node.lineno, f"{base}.{f.attr}"))
+    return out
+
+
+@pytest.mark.parametrize("rel", ["inference/engine.py",
+                                 "inference/disagg.py"])
+def test_async_defs_never_block_the_loop(rel):
+    """The reference's blocking-async rule: no ``async def`` of the
+    engine or of disaggregated serving calls ``time.sleep``, a lock's
+    ``acquire``, ``open`` or ``torch.cuda.synchronize``."""
+    path = ROOT / "paddle_tpu_torch" / rel
+    tree = ast.parse(path.read_text(), str(path))
+    fns = [n for n in ast.walk(tree) if isinstance(n, ast.AsyncFunctionDef)]
+    assert len(fns) >= 5
+    bad = [(fn.name,) + c for fn in fns for c in _blocking_calls(fn)]
+    assert not bad, bad
+
+
+def test_blocking_async_rule_catches_each_call():
+    """The rule's checker flags each forbidden call."""
+    for body in ("time.sleep(1)", "self._lock.acquire()", "open('x')",
+                 "torch.cuda.synchronize()", "sleep(0.1)"):
+        tree = ast.parse(f"async def f(self):\n    {body}\n")
+        assert _blocking_calls(tree.body[0]), body
+    ok = ast.parse("async def f(self):\n    await asyncio.sleep(0)\n")
+    assert not _blocking_calls(ok.body[0])
