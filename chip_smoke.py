@@ -44,6 +44,15 @@ It prints one JSON line per phase:
    launch counters reset just before and read just after, exact launch
    counts, and the served logits of two requests held against the dense
    float32 oracle (``paddle_tpu_torch.testing.dense_reference_logits``);
+   then the weight-only runs (``QUANT_SERVE_RUNS``): ``serve_w8`` (int8
+   weights), ``serve_w4`` (int4, groups of 64) and ``serve_w8_int8kv``
+   (int8 weights and pages, 8 layers), each on a second model from the
+   seed quantized in place by ``PagedLlamaAdapter(weight_dtype=...)``:
+   the fused step refused, every token its logits' argmax, the served
+   logits against the float32 oracle over the quantized weights, layer
+   0 against the reference's numpy oracle, a quality reading against the
+   bf16 model's oracle (gated loosely), ``quant_report``'s bytes exact,
+   the model's device bytes;
    then ``serve_prefix`` and ``serve_prefix_int8`` (``PREFIX_RUNS``): 16
    requests sharing one 1,000-token prefix, ``r0`` served alone first,
    then the other 15 together through ``prefix_cache=True`` from bf16 or
@@ -102,7 +111,9 @@ It prints one JSON line per phase:
    state dict (HF names, [out, in], CPU tensors) and loads them with
    ``from_hf`` into a fresh model from another seed (every parameter
    bit for bit; device memory rising by at most twice the largest
-   tensor); then, on the loaded model, ``generate`` (greedy, 4 prompts
+   tensor), and the same state loaded with ``weight_dtype="int8"`` (its
+   report equal to ``serve_w8``'s, its logits against the float32 oracle
+   over its own weights); then, on the loaded model, ``generate`` (greedy, 4 prompts
    of 512 tokens, 64 new: each token the argmax of its step's logits,
    two rows against the float32 oracle, 2 L + 1 RMSNorm launches a
    step), ``generate_sample`` (temperature, top-k, top-p, repetition
@@ -124,7 +135,14 @@ It prints one JSON line per phase:
    2 warm-up and 5 timed steps on the same batch, with the launch
    counters reset around the timed steps; step time, tokens/s, MFU,
    peak memory, and the loss of every step;
-11. ``train_profile``: one training step under ``torch.profiler``.
+11. ``train_profile``: one training step under ``torch.profiler``;
+12. ``train_sched``: ``train``'s model and batch for 6 steps under AdamW
+   with ``LinearWarmup(CosineAnnealingDecay)``, ``ClipGradByGlobalNorm``,
+   ``L2Decay``, two parameter groups and the final norm built with
+   ``ParamAttr(learning_rate=0.5)``: each step's rate against the closed
+   form, its global norm against an independent float32 norm, at least
+   one step clipping, three parameters against a float32 AdamW oracle on
+   every step, exact launches, the step time beside ``train``'s.
 
 Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
@@ -157,6 +175,13 @@ carrying rank 0's heads, the engine's flush dropping a step's last
 token, adoption zeroing a layer's int8 scale rows) on ``FRONT_RUNS``,
 both at two layers, where each must fail its named run at its named
 gate.
+``--fault-check`` also plants ``QUANT_FAULTS`` (int4 nibbles swapped,
+the int8 payload quantized along the wrong axis, the fused-step gate
+admitting quantized weights) on ``QUANT_SERVE_RUNS`` at two layers and
+``TRAIN_FAULTS`` (the global-norm clip never scaling, the warm-up
+handing over a step late) on ``--train-runs train_sched``, each required
+to fail its named run at its named gate.
+``--train-runs train_sched`` builds the kernels and runs only that run.
 ``--gen-runs NAMES`` builds the kernels and runs only those generation
 runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
 failed run in a ``gen_runs`` line; ``--fault-check`` also plants
@@ -172,6 +197,7 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1695,6 +1721,54 @@ FRONT_FAULTS = [
 ]
 
 
+# faults of weight-only quantized serving, each run through the runs of
+# QUANT_SERVE_RUNS at two layers (``--serve-runs``), and of the training
+# options, each run through train_sched (``--train-runs``): (name, source,
+# text, replacement, the runs it may fail, the run that must fail and the
+# text of the gate that must fail it there)
+_QUANT_PY = "paddle_tpu_torch/ops/kernels/quant.py"
+_PAGED_LLAMA_PY = "paddle_tpu_torch/inference/paged_llama.py"
+_QUANT_FAULT_RUNS = ("serve_w8", "serve_w4", "serve_w8_int8kv")
+QUANT_FAULTS = [
+    # unpack_int4 puts the high nibble first: rows 2i and 2i + 1 swap in
+    # every int4 weight (the float32 oracle over the module's own
+    # dequantized weights cannot see it; the numpy oracle can)
+    ("int4_nibbles_swapped", _QUANT_PY,
+     "    return torch.stack([lo, hi], dim=1).reshape(2 * n, out)\n",
+     "    return torch.stack([hi, lo], dim=1).reshape(2 * n, out)\n",
+     ("serve_w4",), "serve_w4", "numpy oracle"),
+    # the int8 payload is quantized against per-IN-row abs-max scales
+    # while the per-out-channel scale is what the contraction applies
+    ("int8_scale_on_the_wrong_axis", _QUANT_PY,
+     "    q = torch.clamp(torch.round(wf / scale[None, :]), -INT8_QMAX,\n",
+     "    rows = _abs_max_scale(wf, 1, INT8_QMAX)\n"
+     "    q = torch.clamp(torch.round(wf / rows[:, None]), -INT8_QMAX,\n",
+     ("serve_w8", "serve_w8_int8kv"), "serve_w8", "numpy oracle"),
+    # the fused-step gate reads only the biases, as it did before
+    # weight-only serving: it admits quantized weights
+    ("fused_gate_admits_quantized_weights", _PAGED_LLAMA_PY,
+     "                if self.weight_dtype is not None or not all(\n"
+     "                        _has_2d_weight(p) for p in projs):\n"
+     "                    ok = False\n"
+     "                    break\n", "",
+     ("serve_w8", "serve_w4"), "serve_w8", "fused-step gate"),
+]
+_CLIP_PY = "paddle_tpu_torch/nn/clip.py"
+_LR_PY = "paddle_tpu_torch/optimizer/lr.py"
+TRAIN_FAULTS = [
+    # the global-norm clip never scales (its norm is still right)
+    ("clip_scale_forced_to_one", _CLIP_PY,
+     "        scale = _clip_scale(self.clip_norm, global_norm, 1e-12)\n",
+     "        scale = torch.ones_like(global_norm)\n",
+     ("train_sched",), "train_sched", "AdamW oracle"),
+    # LinearWarmup hands over to the wrapped schedule a step late
+    ("warmup_hands_over_a_step_late", _LR_PY,
+     "            self.lr_after.step(self.last_epoch - self.warmup_steps)\n",
+     "            self.lr_after.step(self.last_epoch - self.warmup_steps - 1)"
+     "\n", ("train_sched",), "train_sched", "learning rate"),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1737,11 +1811,12 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 def fault_check_phase():
     """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
-    SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS and GEN_FAULTS
-    in a copy of the repository and runs its cases there; fails unless
-    every fault fails a gate, a paged, norm, serving or generation fault
-    only in the cases it may fail, and a speculative serving, host-plane
-    or serving-front fault in its named run at its named gate."""
+    SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS, QUANT_FAULTS,
+    TRAIN_FAULTS and GEN_FAULTS in a copy of the repository and runs its
+    cases there; fails unless every fault fails a gate, a paged, norm,
+    serving or generation fault only in the cases it may fail, and a
+    speculative serving, host-plane, serving-front, quantized serving or
+    training-option fault in its named run at its named gate."""
     results, missed = [], []
     for name, source, old, new, cases in FLASH_FAULTS:
         line = _run_with_fault(name, source, old, new, "--flash-cases",
@@ -1793,6 +1868,21 @@ def fault_check_phase():
         line = _run_with_fault(name, source, old, new, "--serve-runs",
                                runs, "serve_runs",
                                extra=("--layers", depth))
+        results.append({"fault": name, "may_fail": list(broken),
+                        "must_fail": must, "gate": gate,
+                        "failed": line["failed"], "errors": line["errors"]})
+        caught = any(e["run"] == must and gate in e["error"]
+                     for e in line["errors"])
+        if not caught or set(line["failed"]) - set(broken):
+            missed.append(name)
+    for name, source, old, new, broken, must, gate, option, runs, phase, \
+            extra in (
+            [(*f, "--serve-runs", _QUANT_FAULT_RUNS, "serve_runs",
+              ("--layers", "2")) for f in QUANT_FAULTS]
+            + [(*f, "--train-runs", TRAIN_RUN_NAMES, "train_runs", ())
+               for f in TRAIN_FAULTS]):
+        line = _run_with_fault(name, source, old, new, option, runs, phase,
+                               extra=extra)
         results.append({"fault": name, "may_fail": list(broken),
                         "must_fail": must, "gate": gate,
                         "failed": line["failed"], "errors": line["errors"]})
@@ -2086,9 +2176,26 @@ PROFILED_RUNS = {"serve": "profile", "serve_int8": "profile_int8",
                  "serve_off_int8": "profile_off_int8"}
 # profiled runs served at a cut depth (the target's first layers, as
 # layer_skip_draft makes them; the pool keeps its pages a layer): a
-# layer's device time carries over, and the two int8 runs under the
-# profiler are the script's longest phases
-PROFILE_LAYERS = {"serve_int8": 8, "serve_off_int8": 8}
+# layer's device time carries over, and the profiles were the script's
+# longest phases (at 32 layers: profile 77.9 s, profile_off 75.8,
+# profile_w8 150.5 on an H100 at 700 W, of a 978.9 s run)
+PROFILE_LAYERS = {"serve": 8, "serve_int8": 8, "serve_off": 8,
+                  "serve_off_int8": 8, "serve_w8": 8}
+
+
+def profiled_adapter(run, model, adapter, kv, pool_bytes):
+    """The adapter a run's profile serves through: ``adapter``, or at
+    PROFILE_LAYERS' cut depth a new one over ``model``'s first layers
+    (``layer_skip_draft``) with the same pages a layer (``pool_bytes``
+    is the run's pool bytes at ``adapter``'s depth)."""
+    from paddle_tpu_torch.inference import PagedLlamaAdapter
+
+    cut, n = PROFILE_LAYERS.get(run), len(adapter.caches)
+    if cut is None or cut >= n:
+        return adapter
+    return PagedLlamaAdapter(layer_skip_draft(model, cut), page_size=16,
+                             kv_cache_dtype=kv,
+                             page_pool_bytes=pool_bytes * cut // n)
 
 
 def build_server(seed, layers):
@@ -2178,9 +2285,10 @@ def launch_problems(launches, adapter, calls, row_kinds, mode):
                 for k, v in want.items() if launches.get(k, 0) != v]
     kinds = sorted(set().union(*map(set, adapter.attend_kinds_by_bucket
                                     .values())))
+    # int8 pools and quantized weights refuse the fused step
+    unfused = adapter.caches[0].quantized or adapter.weight_dtype
     want_kinds = {"off": ["decode", "prefill"], "on": ["ragged"],
-                  "auto": ["ragged"] if adapter.caches[0].quantized
-                  else ["ragged_fused"]}[mode]
+                  "auto": ["ragged"] if unfused else ["ragged_fused"]}[mode]
     if kinds != want_kinds:
         problems.append(f"attention kinds {kinds} != {want_kinds}")
     return problems, kinds
@@ -2232,7 +2340,8 @@ def oracle_check(model, done, captured, watch, gate, problems):
 
 
 def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
-              pool_bytes=None, base=None, observe=None):
+              pool_bytes=None, base=None, observe=None, weight_dtype=None,
+              extra=None, depth_cut=None):
     """Serves the 8 prompts (32 new tokens each, greedy,
     ``max_batch_size=8``, ``prefill_chunk_tokens=248``) through
     ``BatchScheduler`` -> ``PagedLlamaAdapter`` -> the paged KV pool
@@ -2245,8 +2354,14 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     ratio are read against. ``observe`` (:class:`ObservedPlanes`) reads
     the host planes: its ``start(sched)`` runs just before the measured
     steps, its ``finish(...)`` just after, returning more fields of the
-    run's line and more problems. Emits the run's line; returns
-    ``(launches, adapter, result)``."""
+    run's line and more problems. ``weight_dtype`` quantizes the model's
+    linears in place through the adapter (the fused-step gate must then
+    refuse, and every committed token must be the argmax of its served
+    logits); ``extra(adapter, done, captured, memory_allocated right
+    after the adapter was built)``, called after the run,
+    returns more fields of the run's line and more problems;
+    ``depth_cut`` states why the model is shallower than 32 layers.
+    Emits the run's line; returns ``(launches, adapter, result)``."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference import (BatchScheduler,
@@ -2258,14 +2373,22 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
     if pool_bytes is None:
         adapter = PagedLlamaAdapter(model, num_pages=SERVE_PAGES,
                                     page_size=16,
-                                    kv_cache_dtype=kv_cache_dtype)
+                                    kv_cache_dtype=kv_cache_dtype,
+                                    weight_dtype=weight_dtype)
     else:
         adapter = PagedLlamaAdapter(model, page_size=16,
                                     kv_cache_dtype=kv_cache_dtype,
-                                    page_pool_bytes=pool_bytes)
+                                    page_pool_bytes=pool_bytes,
+                                    weight_dtype=weight_dtype)
+    torch.cuda.synchronize()
+    memory_after_adapter = torch.cuda.memory_allocated()
+    if weight_dtype is not None and adapter._fusion_eligible():
+        raise RuntimeError(f"{run} phase failed: the fused-step gate "
+                           "admits weight-only quantized weights")
     prompt_lens = [len(p) for p in prompts]
     watch = {"r0", "r1"}
-    captured, row_kinds = record_prefill_chunk(adapter, watch)
+    preds = {} if weight_dtype is not None else None
+    captured, row_kinds = record_prefill_chunk(adapter, watch, preds)
     with ragged_mode(mode):
         # warm-up: one short request (cuBLAS handles, GEMM heuristics)
         warm = BatchScheduler(adapter, max_batch_size=8,
@@ -2334,6 +2457,13 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
         problems.append("a request did not generate 32 tokens")
     gate = COSINE_GATE if kv_cache_dtype is None else INT8_COSINE_GATE
     oracle = oracle_check(model, done, captured, watch, gate, problems)
+    more = {}
+    if preds is not None:
+        problems += argmax_problems(done, preds)[0]
+    if extra is not None:
+        more, extra_problems = extra(adapter, done, captured,
+                                     memory_after_adapter)
+        problems += extra_problems
     streams = {r: d.generated_ids for r, d in done.items()}
     vs_serve = None
     step_ms_mean = float(np.mean([s["ms"] for s in steps]))
@@ -2356,9 +2486,9 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
         if streams != base["streams"]:
             problems.append("generated tokens differ from serve's")
     emit(run, model="llama3_8b", layers=n_layers,
-         depth_cut=None if layers is None else
-         f"{layers} of 32 layers (--layers)",
-         hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+         depth_cut=depth_cut or (None if layers is None else
+                                 f"{layers} of 32 layers (--layers)"),
+         weight_dtype=weight_dtype or "bfloat16", hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
          heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
          vocab=cfg.vocab_size, params=n_params, dtype="bfloat16",
          kv_cache_dtype=kv_cache_dtype or "bfloat16",
@@ -2382,7 +2512,7 @@ def serve_run(run, model, prompts, init_s, layers, kv_cache_dtype, mode,
          step_ms=[round(s["ms"], 3) for s in steps],
          step_tokens=[[s["prefill"], s["decode"]] for s in steps],
          oracle=oracle, cosine_gate=gate, versus_serve=vs_serve,
-         step_ms_mean=step_ms_mean, **observed, problems=problems)
+         step_ms_mean=step_ms_mean, **observed, **more, problems=problems)
     if problems:
         raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
     return launches, adapter, {"streams": streams,
@@ -2406,7 +2536,228 @@ def serve_pool_bytes(model):
                     dtype=torch.bfloat16)
 
 
-# ------------------------------------------------------------ host planes
+# ------------------------------------------------------- quantized serving
+# The weight-only runs: a second bf16 model drawn from serve's seed, its
+# linears quantized in place by PagedLlamaAdapter(weight_dtype=...), serving
+# serve's 8 prompts as serve does. At the served model's depth its weights
+# are the served model's, which is then the bf16 quality reference; at a cut
+# depth a bf16 twin from the same seed is. (run, weight dtype, KV pages,
+# depth or None for the served model's). serve_w8_int8kv runs at 8 layers:
+# its int8 page write is host-bound, as PROFILE_LAYERS cuts the int8 pools.
+QUANT_SERVE_RUNS = [("serve_w8", "int8", None, None),
+                    ("serve_w4", "int4", None, None),
+                    ("serve_w8_int8kv", "int8", "int8", 8)]
+QUANT_GROUP_SIZE = 64   # quantize_for_serving's default int4 group
+QUANT_PROFILED_RUNS = {"serve_w8": "profile_w8"}
+# quantize_for_serving's report for Llama-3-8B at 32 layers: 7 linears a
+# layer, 6,979,321,856 bf16 parameters; int8 adds 43,008 float32 scales a
+# layer, int4 (groups of 64) 3,407,872
+QUANT_REPORT_32 = {"layers": 224, "fp_bytes": 13_958_643_712,
+                   "quant_bytes": {"int8": 6_984_826_880,
+                                   "int4": 3_925_868_544}}
+# Layer 0's quantized projections against the reference's numpy oracle
+# (weight_only_matmul_reference) on a sample of output columns: each
+# column quantizes on its own (int8 per out channel, int4 in groups along
+# IN), so the oracle's dequantized weights are the module's bit for bit
+# and only the float32 sums' order differs (~1e-7 relative).
+QUANT_ORACLE_COLUMNS = 512
+QUANT_ORACLE_RTOL = 1e-5
+# Served logits of the quantized model against the bf16 model's float32
+# oracle: a loose floor, fixed before any chip reading, for a broken
+# layout (the wrong rows or scales give logits uncorrelated with the bf16
+# model's, cosine near 0); int8 and int4 rounding keep it far above.
+QUANT_QUALITY_GATE = 0.5
+
+
+def expected_quant_report(cfg, weight_dtype, group=QUANT_GROUP_SIZE):
+    """``quantize_for_serving``'s byte counts for a Llama config: the
+    attention and MLP linears of every layer, bf16 before; int8 payload
+    and one float32 scale an output, or int4 payload (half a byte) and
+    one float32 scale a group of ``group`` inputs and an output."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    shapes = [(h, h), (h, kv), (h, kv), (h, h), (h, i), (h, i), (i, h)]
+    n = cfg.num_hidden_layers
+    if weight_dtype == "int8":
+        quant = sum(a * b + 4 * b for a, b in shapes)
+    else:
+        quant = sum(a * b // 2 + 4 * (a // group) * b for a, b in shapes)
+    return {"layers": 7 * n, "fp_bytes": 2 * n * sum(a * b for a, b in shapes),
+            "quant_bytes": n * quant}
+
+
+def quant_report_problems(report, cfg, weight_dtype):
+    """The adapter's report against :func:`expected_quant_report` (and,
+    at 32 layers, against QUANT_REPORT_32's figures)."""
+    want = expected_quant_report(cfg, weight_dtype)
+    if cfg.num_hidden_layers == 32:
+        want32 = dict(QUANT_REPORT_32,
+                      quant_bytes=QUANT_REPORT_32["quant_bytes"][weight_dtype])
+        if want32 != want:
+            return [f"expected report {want} != the published {want32}"]
+    got = {k: report[k] for k in want}
+    problems = [f"quant_report {got} != {want}"] if got != want else []
+    if (report["weight_dtype"], report["group_size"]) != (
+            weight_dtype, QUANT_GROUP_SIZE):
+        problems.append(f"quant_report dtype/group {report['weight_dtype']}"
+                        f"/{report['group_size']}")
+    return problems
+
+
+QUANT_PROJECTIONS = ("self_attn.q_proj", "self_attn.k_proj",
+                     "self_attn.v_proj", "self_attn.o_proj", "mlp.gate_proj",
+                     "mlp.up_proj", "mlp.down_proj")
+
+
+def quant_layout_check(qmodel, ref, seed):
+    """Layer 0's seven quantized projections, each called on 4 random
+    float32 rows, against the reference's numpy oracle over the bf16
+    weight it was quantized from (``ref``'s), on QUANT_ORACLE_COLUMNS
+    output columns. Returns ``({projection: relative error}, problems)``;
+    the error is the largest absolute difference over the largest
+    oracle value."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels.quant import (
+        weight_only_matmul_reference)
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+
+    rng = np.random.RandomState(seed)
+    errs, problems = {}, []
+    for name in QUANT_PROJECTIONS:
+        q = qmodel.model.layers[0].get_submodule(name)
+        w = ref.model.layers[0].get_submodule(name).weight
+        if not isinstance(q, WeightOnlyLinear):
+            problems.append(f"numpy oracle: layer 0 {name} is "
+                            f"{type(q).__name__}")
+            continue
+        din, dout = w.shape
+        cols = np.unique(np.linspace(0, dout - 1, QUANT_ORACLE_COLUMNS)
+                         .astype(np.int64))
+        x = rng.randn(4, din).astype(np.float32)
+        with torch.no_grad():
+            got = q(torch.from_numpy(x).to(w.device))[
+                :, torch.from_numpy(cols).to(w.device)].cpu().numpy()
+        want = weight_only_matmul_reference(
+            x, w.detach()[:, torch.from_numpy(cols).to(w.device)].float()
+            .cpu().numpy(), q.weight_dtype, q.group_size)
+        errs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+        if not errs[name] <= QUANT_ORACLE_RTOL:
+            problems.append(f"numpy oracle: layer 0 {name} relative error "
+                            f"{errs[name]:.3e} > {QUANT_ORACLE_RTOL}")
+    return errs, problems
+
+
+def quant_quality_check(ref, done, captured):
+    """The watched requests' served logits (of the quantized model)
+    against the bf16 model's float32 oracle over the same sequences:
+    min cosine (gated at QUANT_QUALITY_GATE), top-1 agreement and the
+    largest absolute logit error. Returns ``(readings, problems)``."""
+    import torch
+    from paddle_tpu_torch.testing import dense_reference_logits
+
+    out, problems = {}, []
+    for rid in sorted(captured):
+        r = done[rid]
+        seq = r.prompt_ids + r.generated_ids[:-1]
+        positions = list(range(len(r.prompt_ids) - 1, len(seq)))
+        ref_logits = dense_reference_logits(ref, seq, positions=positions)[0]
+        served = torch.stack([captured[rid][p] for p in positions])
+        cos = torch.nn.functional.cosine_similarity(served, ref_logits,
+                                                    dim=-1)
+        out[rid] = {"min_cosine": float(cos.min()),
+                    "mean_cosine": float(cos.mean()),
+                    "top1_agreement": float(
+                        (served.argmax(-1) == ref_logits.argmax(-1))
+                        .float().mean()),
+                    "max_abs_logit_err": float(
+                        (served - ref_logits).abs().max()),
+                    "max_abs_logit": float(ref_logits.abs().max())}
+        if not out[rid]["min_cosine"] >= QUANT_QUALITY_GATE:
+            problems.append(f"quality: {rid} min cosine against the bf16 "
+                            f"oracle {out[rid]['min_cosine']:.4f} < "
+                            f"{QUANT_QUALITY_GATE}")
+    return out, problems
+
+
+def _module_bytes(model):
+    import itertools
+
+    return sum(t.numel() * t.element_size() for t in itertools.chain(
+        model.parameters(), model.buffers()))
+
+
+def serve_quant_run(run, served, prompts, layers, weight_dtype, kv, depth,
+                    seed, pool_bytes, base, profile_as=None, reports=None):
+    """One run of QUANT_SERVE_RUNS: a second model from ``seed`` at the
+    served depth (or ``depth``), checked equal to its bf16 reference
+    before it is quantized in place by the adapter; ``serve_run`` with
+    ``weight_dtype`` and the extra gates: the adapter's ``quant_report``
+    exact, layer 0 against the numpy oracle, the served logits against
+    the bf16 model's oracle (quality). ``profile_as``: the phase name
+    of the same traffic served again under the profiler, its weight-only
+    matmuls split into ``quant.WEIGHT_ONLY_RANGES`` (ranges the served
+    function opens under the profiler). ``reports`` (a dict) gets the
+    adapter's ``quant_report`` under ``run``. Returns the launches."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import quant
+
+    full = served.config.num_hidden_layers
+    n = full if depth is None else min(depth, full)
+    cfg = dataclasses.replace(served.config, num_hidden_layers=n)
+    t0 = time.perf_counter()
+    ref = served if n == full else LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    qmodel = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=seed)
+    twins = all(torch.equal(a, b) for a, b in zip(
+        qmodel.state_dict().values(), ref.state_dict().values()))
+    if not twins:
+        raise RuntimeError(f"{run} phase failed: the model to quantize "
+                           "differs from its bf16 reference")
+    init_s = time.perf_counter() - t0
+
+    def extra(adapter, done, captured, memory_after_adapter):
+        report = adapter.quant_report
+        problems = quant_report_problems(report, cfg, weight_dtype)
+        errs, layout = quant_layout_check(qmodel, ref, seed)
+        quality, low = quant_quality_check(ref, done, captured)
+        return {"quant_report": {k: v for k, v in report.items()
+                                 if k != "paths"},
+                "quant_report_expected": expected_quant_report(
+                    cfg, weight_dtype),
+                "model_bytes": _module_bytes(qmodel),
+                "served_model_bytes": _module_bytes(served),
+                "memory_allocated_after_quantization": memory_after_adapter,
+                "quantized_model_device_bytes": memory_after_adapter
+                - before - sum(c.pool_nbytes for c in adapter.caches),
+                "numpy_oracle_rel_err": errs,
+                "numpy_oracle_rtol": QUANT_ORACLE_RTOL,
+                "quality_vs_bf16": quality,
+                "quality_gate": QUANT_QUALITY_GATE}, \
+            problems + layout + low
+
+    launches, adapter, _ = serve_run(
+        run, qmodel, prompts, init_s, n if n != full else layers, kv,
+        "auto", pool_bytes=None if kv is None else pool_bytes * n // full,
+        base=base if n == full else None, weight_dtype=weight_dtype,
+        extra=extra, depth_cut=None if n == full else
+        f"{n} of 32 layers (the int8 page write is host-bound; "
+        "PROFILE_LAYERS cuts the int8 pools alike)")
+    if reports is not None:
+        reports[run] = adapter.quant_report
+    if profile_as is not None:
+        adapter = profiled_adapter(run, qmodel, adapter, kv,
+                                   pool_bytes * n // full)
+        with ragged_mode("auto"):
+            profile_phase(adapter, prompts, profile_as,
+                          ranges=quant.WEIGHT_ONLY_RANGES)
+    return launches
 
 # every host plane on: the flags serve_observed sets (the incident and
 # export paths go into a temporary directory)
@@ -2817,22 +3168,24 @@ PLANE_RUNS = ["serve_observed", "serve_faults", "sanitizer_fuzz"]
 FRONT_RUNS = ["serve_engine", "serve_disagg", "serve_disagg_int8",
               "serve_tuned"]
 SERVE_RUN_NAMES = [r for r, _, _ in SERVE_RUNS] + [
-    r for r, _ in PREFIX_RUNS] + ["serve_preempt"] + [
+    r for r, *_ in QUANT_SERVE_RUNS] + [r for r, _ in PREFIX_RUNS] + ["serve_preempt"] + [
     r for r, *_ in SPEC_SERVE_RUNS] + ["serve_spec_preempt"] + PLANE_RUNS \
     + FRONT_RUNS
 
 
-def serve_phase(model, prompts, init_s, seed, layers, names=None):
+def serve_phase(model, prompts, init_s, seed, layers, names=None,
+                reports=None):
     """The serving runs on one model (``build_server``'s): the four of
     SERVE_RUNS (each followed by nothing but its release; those of
-    PROFILED_RUNS served again under the profiler), then PREFIX_RUNS,
+    PROFILED_RUNS served again under the profiler), QUANT_SERVE_RUNS
+    (each on a second model, quantized in place), then PREFIX_RUNS,
     ``serve_preempt``, SPEC_SERVE_RUNS, ``serve_spec_preempt`` and
-    PLANE_RUNS. Returns ``({run: launches}, failed)``. With
+    PLANE_RUNS. ``reports`` (a dict) gets each QUANT_SERVE_RUNS
+    adapter's ``quant_report``. Returns ``({run: launches}, failed)``. With
     ``names`` only those runs go, unprofiled, and a run that fails is
     listed in ``failed`` while the others go on (``--serve-runs``);
     without it the first failure raises."""
     import torch
-    from paddle_tpu_torch.inference import PagedLlamaAdapter
 
     pool_bytes = serve_pool_bytes(model)
     out, failed = {}, []
@@ -2857,12 +3210,8 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
                 run, model, prompts, init_s, layers, kv, mode,
                 pool_bytes=None if kv is None else pool_bytes, base=base)
             if run in PROFILED_RUNS and names is None:
-                cut = PROFILE_LAYERS.get(run)
-                if cut is not None and cut < len(adapter.caches):
-                    adapter = PagedLlamaAdapter(
-                        layer_skip_draft(model, cut), page_size=16,
-                        kv_cache_dtype=kv, page_pool_bytes=pool_bytes
-                        * cut // len(adapter.caches))
+                adapter = profiled_adapter(run, model, adapter, kv,
+                                           pool_bytes)
                 with ragged_mode(mode):
                     profile_phase(adapter, prompts, PROFILED_RUNS[run])
             return launches, result
@@ -2872,6 +3221,14 @@ def serve_phase(model, prompts, init_s, seed, layers, names=None):
             out[run] = got[0]
             if run == "serve":
                 base = got[1]
+    for run, wd, kv, depth in QUANT_SERVE_RUNS:
+        got = attempt(run, lambda run=run, wd=wd, kv=kv, depth=depth:
+                      serve_quant_run(run, model, prompts, layers, wd, kv,
+                                      depth, seed, pool_bytes, base,
+                                      QUANT_PROFILED_RUNS.get(run)
+                                      if names is None else None, reports))
+        if got is not None:
+            out[run] = got
     vocab = model.config.vocab_size
     traffic = prefix_traffic(seed, vocab)
     for run, kv in PREFIX_RUNS:
@@ -4543,15 +4900,17 @@ def _kernel_class(name):
     return "elementwise/other"
 
 
-def device_summary(prof, wall_us):
+def device_summary(prof, wall_us, skip=()):
     """Device time by kernel class (GPU kernel events only, so no time is
-    counted twice under the op that launched it) and the busy share of
-    ``wall_us``."""
+    counted twice under the op that launched it; ``skip``: the names of
+    ``record_function`` ranges, whose device-side annotations are not
+    kernels) and the busy share of ``wall_us``."""
     from torch.autograd import DeviceType
 
     rows = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if getattr(e, "device_type", None) != DeviceType.CUDA \
+                or e.key in skip:
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -4576,11 +4935,13 @@ def device_summary(prof, wall_us):
                           for us, k, n in rows[:15]]}
 
 
-def profile_phase(adapter, prompts, phase="profile"):
+def profile_phase(adapter, prompts, phase="profile", ranges=()):
     """Where a serving run's time goes: the same 8 requests served
     again under ``torch.profiler``; reports device time by kernel (GPU
     kernel events only, so no time is counted twice under the op that
-    launched it) and the device's busy share of the wall."""
+    launched it) and the device's busy share of the wall; with
+    ``ranges``, the device time of the kernels launched inside each
+    named ``record_function`` range (it fails if one saw none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import BatchScheduler, Request
@@ -4599,9 +4960,26 @@ def profile_phase(adapter, prompts, phase="profile"):
             steps += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+
+    in_ranges = {}
+    for e in prof.key_averages():
+        # the host-side range: the device time of the kernels it launched
+        # (its device-side annotation spans the gaps between them too)
+        if e.key in ranges and getattr(e, "device_type",
+                                       None) == DeviceType.CPU:
+            ms = getattr(e, "device_time_total", None)
+            if ms is None:
+                ms = getattr(e, "cuda_time_total", 0)
+            in_ranges[e.key] = in_ranges.get(e.key, 0.0) + ms / 1e3
     emit(phase, layers=len(adapter.caches),
          num_pages=adapter.caches[0].num_pages, steps=steps,
-         **device_summary(prof, wall_us))
+         **({"device_ms_by_range": in_ranges} if ranges else {}),
+         **device_summary(prof, wall_us, skip=ranges))
+    unseen = [r for r in ranges if not in_ranges.get(r)]
+    if unseen:
+        raise RuntimeError(f"{phase} phase failed: no device time inside "
+                           f"the ranges {unseen}")
 
 
 # ------------------------------------------------------------- generation
@@ -4638,12 +5016,15 @@ def hf_state_of(model):
     return out
 
 
-def hf_load_phase(served, seed):
+def hf_load_phase(served, seed, w8_report=None):
     """Exports the served model's weights as an HF state dict, loads it
     with ``from_hf`` into a fresh ``LlamaForCausalLM`` drawn from another
     seed, and gates: every parameter equal to the served one bit for
     bit, and the rise of ``torch.cuda.max_memory_allocated`` during the
-    load within twice the largest tensor. Returns the loaded model."""
+    load within twice the largest tensor; then the same state quantized
+    on load (:func:`hf_quant_load_check`, against ``w8_report``, the
+    ``serve_w8`` adapter's report, where given). Returns the loaded
+    model."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM, from_hf
 
@@ -4676,14 +5057,69 @@ def hf_load_phase(served, seed):
     if rise > 2 * largest:
         problems.append(f"device memory rose {rise} bytes during the load, "
                         f"> twice the largest tensor ({largest})")
+    quant = hf_quant_load_check(served, state, seed, problems, w8_report)
     emit("hf_load", tensors=len(state),
          bytes=sum(t.numel() * t.element_size() for t in state.values()),
          export_s=export_s, load_s=load_s, memory_rise_bytes=rise,
          largest_tensor_bytes=largest, unequal=len(unequal),
-         problems=problems)
+         quantize_on_load=quant, problems=problems)
     if problems:
         raise RuntimeError("hf_load phase failed: " + "; ".join(problems))
     return fresh
+
+
+HF_QUANT_TOKENS = 256   # the quantize-on-load check's prompt
+
+
+def hf_quant_load_check(served, state, seed, problems,
+                        adapter_report=None):
+    """Quantize on load: ``from_hf(..., weight_dtype="int8")`` of the
+    same HF state into a model from another seed. Its report must equal
+    ``serve_w8``'s adapter's (when that ran) and the expected bytes, and
+    its dense forward's logits over one seeded prompt are held against
+    the float32 oracle over its own dequantized weights (cosine >=
+    COSINE_GATE). Appends to ``problems``; returns the readings."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, from_hf
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    from paddle_tpu_torch.testing import dense_reference_logits
+
+    qm = LlamaForCausalLM(served.config, device=served.device,
+                          dtype=served.dtype, seed=seed + 2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    from_hf(qm, state, weight_dtype="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    report = qm._hf_quant_report
+    problems += quant_report_problems(report, served.config, "int8")
+    if adapter_report is not None and report != adapter_report:
+        problems.append("quantize on load: _hf_quant_report differs from "
+                        "serve_w8's adapter's")
+    swapped = sum(isinstance(m, WeightOnlyLinear) for m in qm.modules())
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, served.config.vocab_size, (1, HF_QUANT_TOKENS))).to(served.device)
+    with torch.no_grad():
+        got = qm(ids)[0].float()
+    ref = dense_reference_logits(qm, ids)[0]
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    if not float(cos.min()) >= COSINE_GATE:
+        problems.append(f"quantize on load: min cosine {float(cos.min()):.6f}"
+                        f" < {COSINE_GATE}")
+    del qm
+    return {"weight_dtype": "int8", "load_s": load_s,
+            "memory_change_bytes": after - before,
+            "swapped_linears": swapped,
+            "quant_report": {k: v for k, v in report.items()
+                             if k != "paths"},
+            "equals_serve_w8_report": None if adapter_report is None
+            else report == adapter_report,
+            "positions": HF_QUANT_TOKENS, "min_cosine": float(cos.min()),
+            "max_abs_logit_err": float((got - ref).abs().max()),
+            "cosine_gate": COSINE_GATE}
 
 
 def record_decode_steps(model, window_argmax=False):
@@ -5144,7 +5580,7 @@ def spec_generate_run(model, prompts, greedy_out, seed):
     return total
 
 
-def gen_phase(served, seed, names=None):
+def gen_phase(served, seed, names=None, w8_report=None):
     """hf_load, then the generation runs on the loaded model (and,
     without ``names``, ``generate_profile`` after ``generate``). Returns
     ``({run: launches}, failed)``. With ``names`` only those runs go, a
@@ -5165,7 +5601,8 @@ def gen_phase(served, seed, names=None):
             failed.append({"run": run, "error": repr(e)[-600:]})
             return None
 
-    model = attempt("hf_load", lambda: hf_load_phase(served, seed))
+    model = attempt("hf_load", lambda: hf_load_phase(served, seed,
+                                                     w8_report))
     if model is None:
         model = served
     prompts = gen_prompts(seed, model.config.vocab_size, model.device)
@@ -5275,7 +5712,8 @@ def train_check_phase(model, opt, x, y):
 
 def train_phase(model, opt, x, y):
     """bench.py's loop: 2 warm-up steps, then TRAIN_STEPS timed ones with
-    the launch counters reset just before and read just after."""
+    the launch counters reset just before and read just after. Returns
+    ``(launches, device ms of each timed step)``."""
     import torch
     from paddle_tpu_torch.ops.kernels import kernel_launch_stats
 
@@ -5334,7 +5772,250 @@ def train_phase(model, opt, x, y):
          problems=problems)
     if problems:
         raise RuntimeError("train phase failed: " + "; ".join(problems))
+    return launches, step_ms
+
+
+# train_sched: train's model and batch under a real run's optimizer options:
+# AdamW over two parameter groups (matrices; vectors) with
+# LinearWarmup(CosineAnnealingDecay) from 0 to 3e-4 over 2 steps, then a
+# cosine over TRAIN_SCHED_TMAX steps, ClipGradByGlobalNorm(0.25),
+# L2Decay(0.01) and the final norm built with ParamAttr(learning_rate=0.5).
+# The clip is 0.25, not a run's usual 1.0: the random model's global norm
+# was 0.380-0.820 over these 6 steps on an H100 (700 W), so a clip at 1.0
+# would never act and its gates would test nothing.
+TRAIN_RUN_NAMES = ["train_sched"]
+TRAIN_SCHED_STEPS = 6
+TRAIN_SCHED_LR, TRAIN_SCHED_WARMUP, TRAIN_SCHED_TMAX = 3e-4, 2, 4
+TRAIN_SCHED_CLIP, TRAIN_SCHED_DECAY, TRAIN_SCHED_NORM_RATE = 0.25, 0.01, 0.5
+# parameters held to the float32 AdamW oracle on the first step that
+# clips: a bf16 matrix, the norm with the 0.5 rate, a bias
+TRAIN_SCHED_SAMPLE = ("model.layers.0.self_attn.q_proj.weight",
+                      "model.norm.weight",
+                      "model.layers.0.self_attn.q_proj.bias")
+# The clip's global norm (a float32 sum of per-gradient float32 sums)
+# against a float32 norm of per-gradient norms: the same float32 values
+# summed in another order, ~1e-7 relative over 290 gradients.
+TRAIN_SCHED_NORM_RTOL = 1e-5
+# The sample's float32 master, moment1 and moment2 after the AdamW step
+# against the oracle's (the same float32 operations, grouped alike but
+# for fused multiply-adds): largest difference over the largest value.
+TRAIN_SCHED_ORACLE_RTOL = 1e-6
+
+
+def sched_lr(epoch):
+    """train_sched's learning rate at scheduler epoch ``epoch``, in
+    closed form: linear from 0 over the warm-up, then the cosine."""
+    if epoch < TRAIN_SCHED_WARMUP:
+        return TRAIN_SCHED_LR * epoch / TRAIN_SCHED_WARMUP
+    return TRAIN_SCHED_LR * (1 + math.cos(
+        math.pi * (epoch - TRAIN_SCHED_WARMUP) / TRAIN_SCHED_TMAX)) / 2
+
+
+def build_sched_trainer(seed):
+    """``build_trainer``'s model with the final norm rebuilt with
+    ``ParamAttr(learning_rate=0.5)`` (its weight ones, as before), and
+    the AdamW of train_sched. Returns ``(model, opt, scheduler)``."""
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ParamAttr, RMSNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True),
+                             device="cuda", dtype=torch.bfloat16, seed=seed)
+    cfg = model.config
+    model.model.norm = RMSNorm(
+        cfg.hidden_size, cfg.rms_norm_eps,
+        weight_attr=ParamAttr(learning_rate=TRAIN_SCHED_NORM_RATE),
+        device=model.device, dtype=model.dtype)
+    named = list(model.named_parameters())
+    groups = [{"params": [(n, p) for n, p in named if p.dim() == 2]},
+              {"params": [(n, p) for n, p in named if p.dim() != 2]}]
+    sched = LinearWarmup(
+        CosineAnnealingDecay(TRAIN_SCHED_LR, T_max=TRAIN_SCHED_TMAX),
+        warmup_steps=TRAIN_SCHED_WARMUP, start_lr=0.0,
+        end_lr=TRAIN_SCHED_LR)
+    opt = AdamW(sched, parameters=groups,
+                weight_decay=L2Decay(TRAIN_SCHED_DECAY),
+                grad_clip=ClipGradByGlobalNorm(TRAIN_SCHED_CLIP),
+                multi_precision=True)
+    return model, opt, sched
+
+
+def adamw_oracle(p32, m, v, g, lr, coeff, opt, b1p, b2p):
+    """One float32 AdamW step of a parameter (master ``p32``, moments
+    ``m``, ``v``, clipped gradient ``g`` in float32) at rate ``lr``."""
+    import torch
+
+    b1, b2 = opt._beta1, opt._beta2
+    p32 = p32 * (1.0 - lr * coeff)
+    m = b1 * m + (1.0 - b1) * g
+    v = b2 * v + (1.0 - b2) * g * g
+    p32 = p32 - lr * (m / (1.0 - b1p)) / (
+        torch.sqrt(v / (1.0 - b2p)) + opt._epsilon)
+    return p32, m, v
+
+
+def train_sched_phase(seed, x, y, train_step_ms=None):
+    """TRAIN_SCHED_STEPS steps of train_sched on train's batch, with the
+    launch counters reset just before and read just after. Gates: each
+    step's rate (what the optimizer read) equal to :func:`sched_lr`;
+    each step's global norm (the clip's own, recorded) equal to an
+    independent float32 norm of the same gradients; at least one step
+    clips; on every step TRAIN_SCHED_SAMPLE's masters and moments equal
+    to the float32 AdamW oracle over the clipped gradients (the norm's
+    rate halved); every loss finite; exact launches. The step's device
+    time (CUDA events around forward + backward and around
+    ``opt.step()``; the checks run on the card between them, and nothing
+    waits for the card until the last step) is read beside ``train``'s."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    model, opt, sched = build_sched_trainer(seed)
+    cfg = model.config
+    clip = opt._grad_clip
+    recorded = []
+    norm_sq = clip._global_norm_sq
+
+    def recording_norm_sq(params_grads):
+        sq = norm_sq(params_grads)
+        recorded.append(sq)
+        return sq
+
+    clip._global_norm_sq = recording_norm_sq
+    index = {n: i for i, n in enumerate(opt._names)}
+    steps, oracles = [], []
+    torch.cuda.synchronize()
+    kernel_launch_stats(reset=True)
+    for step in range(TRAIN_SCHED_STEPS):
+        epoch, lr = sched.last_epoch, opt._learning_rate
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        _, loss = model(x, y)
+        loss.backward()
+        ev[1].record()
+        independent = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad.float())
+             for p in opt._parameter_list]))
+        snap = {n: (opt._master[index[n]].clone(),
+                    opt._moment1[index[n]].clone(),
+                    opt._moment2[index[n]].clone(),
+                    opt._parameter_list[index[n]].grad.clone(),
+                    float(opt._beta1_pow[index[n]]),
+                    float(opt._beta2_pow[index[n]]))
+                for n in TRAIN_SCHED_SAMPLE}
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        sched.step()
+        opt.clear_grad()
+        oracles.append(train_oracle_errors(opt, index, snap, recorded[-1],
+                                           lr))
+        steps.append({"epoch": epoch, "lr": lr, "loss": loss.detach(),
+                      "norm": torch.sqrt(recorded[-1]),
+                      "independent": independent, "events": ev})
+    torch.cuda.synchronize()
+    launches = kernel_launch_stats(reset=True)
+    problems, per_step, clipped = [], [], []
+    for s, o in zip(steps, oracles):
+        ev = s["events"]
+        row = {"epoch": s["epoch"], "lr": s["lr"],
+               "lr_closed_form": sched_lr(s["epoch"]),
+               "loss": float(s["loss"]), "global_norm": float(s["norm"]),
+               "independent_norm": float(s["independent"]),
+               "step_ms_device": ev[0].elapsed_time(ev[1])
+               + ev[2].elapsed_time(ev[3]),
+               "optimizer_ms": ev[2].elapsed_time(ev[3]),
+               "clip_scale": float(o.pop("scale")),
+               "oracle_rel_err": {n: {k: float(v) for k, v in e.items()}
+                                  for n, e in o.items()}}
+        per_step.append(row)
+        if row["global_norm"] > TRAIN_SCHED_CLIP:
+            clipped.append(row["epoch"])
+        if abs(row["lr"] - row["lr_closed_form"]) > 1e-12 * TRAIN_SCHED_LR:
+            problems.append(f"learning rate at epoch {row['epoch']}: "
+                            f"{row['lr']!r} != closed form "
+                            f"{row['lr_closed_form']!r}")
+        if not abs(row["global_norm"] - row["independent_norm"]) \
+                <= TRAIN_SCHED_NORM_RTOL * row["independent_norm"]:
+            problems.append(f"global norm at epoch {row['epoch']}: "
+                            f"{row['global_norm']!r} != "
+                            f"{row['independent_norm']!r}")
+        if not math.isfinite(row["loss"]):
+            problems.append(f"loss at epoch {row['epoch']} is {row['loss']}")
+        for n, errs in row["oracle_rel_err"].items():
+            problems += [f"AdamW oracle at epoch {row['epoch']}: {n} {k} "
+                         f"relative error {v:.3e} > "
+                         f"{TRAIN_SCHED_ORACLE_RTOL}"
+                         for k, v in errs.items()
+                         if not v <= TRAIN_SCHED_ORACLE_RTOL]
+    if not clipped:
+        problems.append("no step clipped: global norms "
+                        f"{[r['global_norm'] for r in per_step]}")
+    n_layers = cfg.num_hidden_layers
+    want = {name: n_layers * TRAIN_SCHED_STEPS for name in FLASH}
+    want["rms_norm"] = (2 * n_layers + 1) * TRAIN_SCHED_STEPS
+    problems += [f"{name} launches {launches.get(name, 0)} != {n}"
+                 for name, n in want.items() if launches.get(name, 0) != n]
+    step_ms = [r["step_ms_device"] for r in per_step]
+    emit("train_sched", model="qwen2_0_5b", layers=n_layers,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_SCHED_STEPS,
+         optimizer=f"AdamW(LinearWarmup(CosineAnnealingDecay("
+         f"{TRAIN_SCHED_LR}, T_max={TRAIN_SCHED_TMAX}), warmup_steps="
+         f"{TRAIN_SCHED_WARMUP}, start_lr=0, end_lr={TRAIN_SCHED_LR}), "
+         f"grad_clip=ClipGradByGlobalNorm({TRAIN_SCHED_CLIP}), "
+         f"weight_decay=L2Decay({TRAIN_SCHED_DECAY}), 2 dict groups, "
+         f"final norm ParamAttr(learning_rate={TRAIN_SCHED_NORM_RATE}))",
+         per_step=per_step, clipped_epochs=clipped,
+         step_ms_device_median=float(np.median(step_ms)),
+         train_step_ms_device_median=None if train_step_ms is None
+         else float(np.median(train_step_ms)),
+         step_ratio_to_train=None if train_step_ms is None
+         else float(np.median(step_ms) / np.median(train_step_ms)),
+         oracle_rtol=TRAIN_SCHED_ORACLE_RTOL,
+         norm_rtol=TRAIN_SCHED_NORM_RTOL, launches=launches,
+         launches_wanted=want,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         problems=problems)
+    if problems:
+        raise RuntimeError("train_sched phase failed: " + "; ".join(problems))
     return launches
+
+
+def train_oracle_errors(opt, index, snap, sq, lr):
+    """TRAIN_SCHED_SAMPLE after ``opt.step()`` against
+    :func:`adamw_oracle` from ``snap`` (each parameter's master, moments,
+    gradient and beta powers before the step): the gradient clipped with
+    the clip's own recorded ``sq`` (``(g.float() * scale)`` back to the
+    gradient's dtype), the rate ``lr`` times the parameter's ParamAttr
+    rate in float32. Returns ``{"scale": tensor, name: {"master" |
+    "moment1" | "moment2": relative error tensor}}`` (device tensors:
+    nothing waits for the card)."""
+    import numpy as np
+    import torch
+
+    clip = opt._grad_clip.clip_norm
+    norm = torch.sqrt(sq)
+    scale = torch.clamp_max(torch.tensor(clip, dtype=norm.dtype,
+                                         device=norm.device)
+                            / torch.clamp_min(norm, 1e-12), 1.0)
+    coeff = opt._decay_coeff()
+    out = {"scale": scale}
+    for name, (p32, m, v, g, b1p, b2p) in snap.items():
+        i = index[name]
+        rate = getattr(opt._parameter_list[i], "optimize_attr",
+                       {}).get("learning_rate", 1.0)
+        lr_eff = float(np.float32(lr) * np.float32(rate))
+        gc = (g.float() * scale).to(g.dtype).float()
+        want = adamw_oracle(p32, m, v, gc, lr_eff, coeff, opt, b1p, b2p)
+        got = (opt._master[i], opt._moment1[i], opt._moment2[i])
+        out[name] = {key: (a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30) for key, a, b in zip(("master", "moment1", "moment2"),
+                                        got, want)}
+    return out
 
 
 def train_profile_phase(model, opt, x, y):
@@ -5399,8 +6080,8 @@ def main(argv=None):
     ap.add_argument("--fault-check", action="store_true",
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS, "
-                    "SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS and "
-                    "GEN_FAULTS, planted in a copy")
+                    "SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS, QUANT_FAULTS, "
+                    "TRAIN_FAULTS and GEN_FAULTS, planted in a copy")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "
@@ -5409,6 +6090,10 @@ def main(argv=None):
                     help="only build the kernels and run these generation "
                     "runs (comma-separated names of GEN_RUN_NAMES) on the "
                     "served model, each failure listed")
+    ap.add_argument("--train-runs", default=None, metavar="NAMES",
+                    help="only build the kernels and run these training "
+                    "runs (comma-separated names of TRAIN_RUN_NAMES), each "
+                    "failure listed")
     ap.add_argument("--serve-ab", default=None, metavar="DIR",
                     help="only serve the `serve` run from the checkout "
                     "DIR and from this one in turns (DIR, this, this, "
@@ -5524,23 +6209,45 @@ def main(argv=None):
              errors=failed)
         return 1 if failed else 0
 
+    if args.train_runs:
+        names = args.train_runs.split(",")
+        if set(names) - set(TRAIN_RUN_NAMES):
+            raise ValueError(f"unknown training runs "
+                             f"{set(names) - set(TRAIN_RUN_NAMES)}")
+        from paddle_tpu_torch.models import qwen2_0_5b
+
+        x, y = train_batch(qwen2_0_5b())
+        failed = []
+        try:
+            train_sched_phase(args.seed, x, y)
+        except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
+            failed.append({"run": "train_sched", "error": repr(e)[-2000:]})
+        emit("train_runs", runs=names, failed=[f["run"] for f in failed],
+             errors=failed)
+        return 1 if failed else 0
+
     cases = kernels_phase()
     varlen_launches = varlen_phase(args.seed)
     ln_launches = layer_norm_phase()
     torch.cuda.empty_cache()
     model, prompts, init_s = build_server(args.seed, args.layers)
+    quant_reports = {}
     serve_launches, _ = serve_phase(model, prompts, init_s, args.seed,
-                                    args.layers)
+                                    args.layers, reports=quant_reports)
     torch.cuda.empty_cache()
-    gen_launches, _ = gen_phase(model, args.seed)
+    gen_launches, _ = gen_phase(model, args.seed,
+                                w8_report=quant_reports.get("serve_w8"))
     del model
     torch.cuda.empty_cache()
 
     model, opt = build_trainer(args.seed)
     x, y = train_batch(model.config)
     train_check_phase(model, opt, x, y)
-    train_launches = train_phase(model, opt, x, y)
+    train_launches, train_step_ms = train_phase(model, opt, x, y)
     train_profile_phase(model, opt, x, y)
+    del model, opt
+    torch.cuda.empty_cache()
+    sched_launches = train_sched_phase(args.seed, x, y, train_step_ms)
 
     def case_times(c):
         return {"case": c["case"], "ms": c["kernel_ms"],
@@ -5552,6 +6259,7 @@ def main(argv=None):
         by_path = {path: launches[name] for path, launches in
                    (*serve_launches.items(), *gen_launches.items(),
                     ("train", train_launches),
+                    ("train_sched", sched_launches),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}

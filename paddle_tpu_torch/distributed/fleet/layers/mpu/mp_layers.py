@@ -6,7 +6,9 @@ state dicts map 1:1. Random initialisation follows the reference's
 ``XavierNormal`` scale, std = sqrt(2 / (fan_in + fan_out)), drawn on the
 parameter's own device from the given ``torch.Generator``. Model
 parallelism (an ``mp_group`` of more than one rank) is the distributed
-slice's work and raises here.
+slice's work and raises here. ``weight_attr`` (a ``ParamAttr``) stamps
+the weight as the reference's ``create_parameter`` does
+(``nn/param_attr.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import math
 
 import torch
 from torch import nn
+
+from .....nn.param_attr import make_parameter
 
 
 def _mp_degree(mp_group) -> int:
@@ -23,6 +27,14 @@ def _mp_degree(mp_group) -> int:
             f"model-parallel degree {n}: the port's mp layers run at "
             "degree 1 only")
     return n
+
+
+def _weight(data, weight_attr):
+    p = make_parameter(data, weight_attr)
+    if p is None:
+        raise NotImplementedError("weight_attr=False: an mp layer "
+                                  "without its weight is not ported")
+    return p
 
 
 def xavier_normal(shape, device=None, dtype=None, generator=None):
@@ -37,12 +49,13 @@ def xavier_normal(shape, device=None, dtype=None, generator=None):
 class VocabParallelEmbedding(nn.Module):
     """Embedding table [vocab, hidden]."""
 
-    def __init__(self, num_embeddings, embedding_dim, mp_group=None,
-                 device=None, dtype=None, generator=None):
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 mp_group=None, device=None, dtype=None, generator=None):
         super().__init__()
-        _mp_degree(mp_group)
-        self.weight = nn.Parameter(xavier_normal(
-            (num_embeddings, embedding_dim), device, dtype, generator))
+        self.mp_degree = _mp_degree(mp_group)
+        self.weight = _weight(xavier_normal(
+            (num_embeddings, embedding_dim), device, dtype, generator),
+            weight_attr)
 
     def forward(self, x):
         return nn.functional.embedding(x, self.weight)
@@ -52,13 +65,14 @@ class ColumnParallelLinear(nn.Module):
     """``y = x @ W (+ b)`` with W [in, out] (output split over mp in the
     reference; whole here)."""
 
-    def __init__(self, in_features, out_features, has_bias=None,
-                 gather_output=True, mp_group=None, device=None,
-                 dtype=None, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=None, gather_output=True, mp_group=None,
+                 device=None, dtype=None, generator=None):
         super().__init__()
-        _mp_degree(mp_group)
-        self.weight = nn.Parameter(xavier_normal(
-            (in_features, out_features), device, dtype, generator))
+        self.mp_degree = _mp_degree(mp_group)
+        self.weight = _weight(xavier_normal(
+            (in_features, out_features), device, dtype, generator),
+            weight_attr)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
                                               dtype=dtype))
                      if has_bias in (True, None) else None)
@@ -74,13 +88,14 @@ class RowParallelLinear(nn.Module):
     """``y = x @ W (+ b)`` with W [in, out] (input split over mp in the
     reference; whole here)."""
 
-    def __init__(self, in_features, out_features, has_bias=True,
-                 input_is_parallel=False, mp_group=None, device=None,
-                 dtype=None, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False, mp_group=None,
+                 device=None, dtype=None, generator=None):
         super().__init__()
-        _mp_degree(mp_group)
-        self.weight = nn.Parameter(xavier_normal(
-            (in_features, out_features), device, dtype, generator))
+        self.mp_degree = _mp_degree(mp_group)
+        self.weight = _weight(xavier_normal(
+            (in_features, out_features), device, dtype, generator),
+            weight_attr)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
                                               dtype=dtype))
                      if has_bias else None)

@@ -30,7 +30,10 @@ mutations and the page tables its kernel gets into a shadow heap
 (``FLAGS_spec_decode=legacy``): a w-token window per sequence through
 one dense float32 masked attention over the gathered pages.
 
-Not ported yet: weight-only quantized serving.
+``weight_dtype="int8"|"int4"`` quantizes the model's attention and MLP
+linears in place at construction (``quantization.quantize_for_serving``)
+and serves through the swapped ``WeightOnlyLinear`` modules; such an
+adapter never takes the fused step, which reads raw float weights.
 """
 from __future__ import annotations
 
@@ -52,6 +55,11 @@ __all__ = ["PagedLlamaAdapter"]
 
 def _pow2(n: int) -> int:
     return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def _has_2d_weight(proj) -> bool:
+    w = getattr(proj, "weight", None)
+    return isinstance(w, torch.Tensor) and w.dim() == 2
 
 
 def _right_align_plan(row_indices, starts, counts, t_pad, rows_pad):
@@ -82,14 +90,18 @@ class PagedLlamaAdapter:
     def __init__(self, model, num_pages=256, page_size=16,
                  max_length=None, dtype=None, kv_cache_dtype=None,
                  weight_dtype=None, page_pool_bytes=None, sanitizer=None):
-        if weight_dtype is not None:
-            raise NotImplementedError(
-                "weight-only quantized serving is not ported yet")
         self.model = model
         cfg = model.config
         self.cfg = cfg
         self.device = model.device
         self._window = int(getattr(cfg, "sliding_window", 0) or 0)
+        self.weight_dtype = weight_dtype
+        self.quant_report = None
+        if weight_dtype is not None:
+            from ..quantization import quantize_for_serving
+
+            self.quant_report = quantize_for_serving(
+                model, weight_dtype=weight_dtype)
         if dtype is None:
             dtype = model.dtype
         self.max_length = int(max_length or cfg.max_position_embeddings)
@@ -157,14 +169,19 @@ class PagedLlamaAdapter:
     def _fusion_eligible(self) -> bool:
         """Fused-step gate, computed once: the fused step writes float
         pages (an int8 pool calibrates per token) and consumes raw
-        [in, out] q/k/v/o weights, so q/k/v biases must be all-or-none
-        and o_proj bias-free."""
+        [in, out] q/k/v/o weights, so the weights must not be quantized
+        and every q/k/v/o projection must hold a 2-D ``weight``; q/k/v
+        biases must be all-or-none and o_proj bias-free."""
         if self._fused_ok is None:
             ok = not self.caches[0].quantized
-            for layer in self.model.model.layers:
+            for layer in self.model.model.layers if ok else ():
                 att = layer.self_attn
-                has = [p.bias is not None
-                       for p in (att.q_proj, att.k_proj, att.v_proj)]
+                projs = (att.q_proj, att.k_proj, att.v_proj, att.o_proj)
+                if self.weight_dtype is not None or not all(
+                        _has_2d_weight(p) for p in projs):
+                    ok = False
+                    break
+                has = [p.bias is not None for p in projs[:3]]
                 if any(has) and not all(has):
                     ok = False
                 if att.o_proj.bias is not None:

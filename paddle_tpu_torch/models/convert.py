@@ -10,7 +10,8 @@ From HuggingFace checkpoints (:func:`from_hf`, the Llama family:
 Llama-2/3, Qwen2, Mistral): HF's key names already match, and 2-D
 projection weights transpose from HF's [out, in]. Each tensor is copied
 into its parameter in place, one at a time, so the device never holds a
-second copy of the model.
+second copy of the model. ``weight_dtype=`` quantizes the loaded
+model's linears for serving.
 """
 from __future__ import annotations
 
@@ -102,25 +103,48 @@ def load_hf_llama(model, state_dict, strict=True):
     return model
 
 
-def from_hf(model, state_dict, strict=True, weight_dtype=None):
+def from_hf(model, state_dict, strict=True, weight_dtype=None,
+            group_size=64):
     """Loads a HF state dict into ``model``, dispatching on its family.
-    The port serves the Llama family only (Llama-2/3, Qwen2, Mistral:
-    :func:`load_hf_llama`)."""
-    if weight_dtype is not None:
-        raise NotImplementedError(
-            "from_hf(weight_dtype=...): quantize-on-load is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+    The port loads the Llama family only (Llama-2/3, Qwen2, Mistral:
+    :func:`load_hf_llama`).
+
+    ``weight_dtype="int8"|"int4"``: quantize on load for serving. After
+    the float weights land, every attention and MLP linear is abs-max
+    quantized and swapped for a ``WeightOnlyLinear``
+    (``quantization/ptq_llm.py``, int4 in groups of ``group_size``), and
+    the report is kept as ``model._hf_quant_report``. It is a knob of
+    the decoder families only."""
     name = type(model).__name__
     if name.startswith("Llama"):
         if getattr(model.config, "num_local_experts", 0) > 0:
             raise NotImplementedError(
                 "from_hf: the Mixtral loader is not ported yet (ROADMAP "
                 "queue 1 item 20)")
-        return load_hf_llama(model, state_dict, strict=strict)
-    if name.startswith(("GPT", "Bert", "ViT", "T5")) \
+        model = load_hf_llama(model, state_dict, strict=strict)
+        return _maybe_quantize(model, weight_dtype, group_size)
+    if name.startswith("GPT"):
+        raise NotImplementedError(
+            f"from_hf: the {name} loader is not ported yet (ROADMAP "
+            "queue 1, slice 4)")
+    if weight_dtype is not None:
+        raise ValueError(
+            f"from_hf: weight_dtype={weight_dtype!r} is a serving "
+            f"knob for the decoder families (Llama*/GPT*), not {name}")
+    if name.startswith(("Bert", "ViT", "T5")) \
             or name == "VisionTransformer":
         raise NotImplementedError(
             f"from_hf: the {name} loader is not ported yet (ROADMAP "
             "queue 1, slice 4)")
     raise TypeError(f"from_hf: no converter for {name} (supported: "
                     "Llama*)")
+
+
+def _maybe_quantize(model, weight_dtype, group_size):
+    if weight_dtype is None:
+        return model
+    from ..quantization import quantize_for_serving
+
+    model._hf_quant_report = quantize_for_serving(
+        model, weight_dtype=weight_dtype, group_size=group_size)
+    return model

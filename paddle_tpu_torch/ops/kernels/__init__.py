@@ -64,8 +64,16 @@ from .paged_attention import (  # noqa: E402,F401
     paged_ragged_fused_step,
 )
 from .quant import (  # noqa: E402,F401
+    INT4_QMAX,
     INT8_QMAX,
+    dequantize_int4,
+    dequantize_int8,
     dequantize_kv,
     kv_head_scale,
+    pack_int4,
+    quantize_int4,
+    quantize_int8,
     quantize_kv,
+    unpack_int4,
+    weight_only_matmul,
 )

@@ -7,6 +7,8 @@
 * per-parameter ``beta1_pow`` / ``beta2_pow``, float32 like the
   reference's accumulators (kept as numpy float32 scalars on the host:
   they take part only as scalars of the update);
+* the rate ``lr * lr_ratio(p) * p.optimize_attr["learning_rate"]``
+  (the last stamped by a ``ParamAttr``, 1 without one), in float32;
 * decoupled decay ``p32 *= 1 - lr * coeff`` (0 where
   ``apply_decay_param_fun(name)`` is false), then
   ``p32 -= lr * m_hat / (sqrt(v_hat) + eps)``.
@@ -56,23 +58,39 @@ class AdamW(Optimizer):
         if self._apply_decay_param_fun is not None and not \
                 self._apply_decay_param_fun(self._names[i]):
             coeff = 0.0
+        p = self._parameter_list[i]
         lr = np.float32(self._learning_rate)
         if self._lr_ratio is not None:
-            lr = lr * np.float32(self._lr_ratio(self._parameter_list[i]))
+            lr = lr * np.float32(self._lr_ratio(p))
+        attr = getattr(p, "optimize_attr", None)
+        if attr is not None:
+            lr = lr * np.float32(attr.get("learning_rate", 1.0))
         return (float(lr), coeff, float(self._beta1_pow[i]),
                 float(self._beta2_pow[i]))
 
-    def _apply(self, indices):
+    def _apply(self, indices, grads):
         buckets = {}
-        for i in indices:
-            buckets.setdefault(self._scalars(i), []).append(i)
-        for (lr, coeff, b1p, b2p), idx in buckets.items():
-            self._update(idx, lr, coeff, b1p, b2p)
+        for i, g in zip(indices, grads):
+            buckets.setdefault(self._scalars(i), []).append((i, g))
+        for (lr, coeff, b1p, b2p), pairs in buckets.items():
+            self._update([i for i, _ in pairs], [g for _, g in pairs], lr,
+                         coeff, b1p, b2p)
         for i in indices:
             self._beta1_pow[i] = self._beta1_pow[i] * np.float32(self._beta1)
             self._beta2_pow[i] = self._beta2_pow[i] * np.float32(self._beta2)
 
-    def _update(self, idx, lr, coeff, b1p, b2p):
+    def _state_items(self):
+        tensors, masters, scalars = {}, {}, {}
+        for i, name in enumerate(self._names):
+            tensors[f"{name}_moment1_0"] = self._moment1[i]
+            tensors[f"{name}_moment2_0"] = self._moment2[i]
+            scalars[f"{name}_beta1_pow_acc_0"] = (self._beta1_pow, i)
+            scalars[f"{name}_beta2_pow_acc_0"] = (self._beta2_pow, i)
+            if self._master[i] is not None:
+                masters[f"{name}_fp32_master_0"] = self._master[i]
+        return tensors, masters, scalars
+
+    def _update(self, idx, grads, lr, coeff, b1p, b2p):
         b1, b2 = self._beta1, self._beta2
         params = [self._parameter_list[i] for i in idx]
         # float32 views of the state: the master, or the parameter (and
@@ -82,7 +100,7 @@ class AdamW(Optimizer):
                else p.float() for i, p in zip(idx, params)]
         m32 = [self._moment1[i].float() for i in idx]
         v32 = [self._moment2[i].float() for i in idx]
-        g32 = [p.grad.float() for p in params]
+        g32 = [g.float() for g in grads]
         if coeff:
             torch._foreach_mul_(p32, 1.0 - lr * coeff)
         torch._foreach_mul_(m32, b1)

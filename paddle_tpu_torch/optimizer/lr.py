@@ -1,0 +1,354 @@
+"""LR schedulers of the port (counterpart of the reference's
+``optimizer/lr.py``, the same schedules, ``last_epoch`` semantics and
+``state_dict``).
+
+Schedulers are host-side Python. The constructor calls :meth:`step`
+once (``last_epoch`` -1 -> 0). An optimizer given a scheduler as its
+``learning_rate`` binds itself: every ``step()``/``set_state_dict()`` of
+the scheduler pushes ``last_lr`` into the optimizer's float learning
+rate, which the optimizer reads at each of its own ``step()``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = float(learning_rate)
+        self.last_epoch = last_epoch
+        self.verbose = verbose
+        self._bound = []
+        self.last_lr = None
+        self.step()
+
+    def _bind(self, optimizer):
+        self._bound.append(optimizer)
+        self._push()
+
+    def _push(self):
+        for opt in self._bound:
+            opt._learning_rate = float(self.last_lr)
+
+    def __call__(self):
+        return self.last_lr
+
+    def get_lr(self):
+        raise NotImplementedError
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+        self._push()
+
+    def state_dict(self):
+        return {
+            k: v for k, v in self.__dict__.items()
+            if k not in ("_bound",) and isinstance(
+                v, (int, float, str, bool, list, tuple, type(None))
+            )
+        }
+
+    def set_state_dict(self, state_dict):
+        for k, v in state_dict.items():
+            if k in self.__dict__:
+                self.__dict__[k] = v
+        self.last_lr = self.get_lr()
+        self._push()
+
+    set_dict = set_state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (
+            self.base_lr * self.d_model ** -0.5
+            * min(step ** -0.5, step * self.warmup_steps ** -1.5)
+        )
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(max(step, 1) / self.decay_steps)
+            decay_steps = self.decay_steps * max(div, 1)
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return (
+            (self.base_lr - self.end_lr)
+            * (1 - step / decay_steps) ** self.power
+            + self.end_lr
+        )
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_after = learning_rate  # float or LRScheduler
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(start_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (
+                self.start_lr
+                + (self.end_lr - self.start_lr)
+                * self.last_epoch / max(self.warmup_steps, 1)
+            )
+        if isinstance(self.lr_after, LRScheduler):
+            self.lr_after.step(self.last_epoch - self.warmup_steps)
+            return self.lr_after()
+        return float(self.lr_after)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+    def state_dict(self):
+        d = super().state_dict()
+        d.pop("lr_lambda", None)
+        return d
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min)
+            * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+        )
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min)
+            * (1 + math.cos(math.pi * t / t_i)) / 2
+        )
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self._current = float(learning_rate)
+        super().__init__(learning_rate, -1, verbose)
+
+    def get_lr(self):
+        return self._current
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            self.last_epoch += 1
+            self.last_lr = self._current
+            self._push()
+            return
+        if isinstance(metrics, torch.Tensor):
+            metrics = float(metrics.item())
+        self.last_epoch += 1
+        if self.best is None:
+            self.best = metrics
+        else:
+            improved = (
+                metrics < self.best - abs(self.best) * self.threshold
+                if self.mode == "min" and self.threshold_mode == "rel"
+                else (
+                    metrics < self.best - self.threshold
+                    if self.mode == "min"
+                    else metrics > self.best + self.threshold
+                )
+            )
+            if improved:
+                self.best = metrics
+                self.num_bad_epochs = 0
+            else:
+                self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self._current * self.factor, self.min_lr)
+            if self._current - new_lr > self.epsilon:
+                self._current = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        self.last_lr = self._current
+        self._push()
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if step <= up and up > 0:
+            pct = step / up
+            lo, hi = self.initial_lr, self.max_lr
+        else:
+            pct = (step - up) / max(self.total_steps - up, 1)
+            lo, hi = self.max_lr, self.end_lr
+        if self.anneal == "cos":
+            return hi + (lo - hi) * (1 + math.cos(math.pi * pct)) / 2
+        return lo + (hi - lo) * pct
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate,
+                 step_size_up=2000, step_size_down=None, mode="triangular",
+                 exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp /= 2 ** (cycle - 1)
+        elif self.mode == "exp_range":
+            amp *= self.exp_gamma ** self.last_epoch
+        return self.base_lr + amp

@@ -2,14 +2,27 @@
 ``optimizer/optimizer.py``).
 
 Parameters are the torch tensors a model hands out (``parameters()``),
-or ``(name, tensor)`` pairs (``named_parameters()``): the name is what
-``apply_decay_param_fun`` receives (``param_<i>`` when none is given).
-The learning rate is a float; LR schedulers, gradient clipping and
-parameter groups are not ported yet and raise.
+``(name, tensor)`` pairs (``named_parameters()``), or dict groups
+``{"params": [...]}`` flattened in order. The name is what
+``apply_decay_param_fun`` receives (``param_<i>`` when none is given) and
+what the ``state_dict`` keys carry. A group key other than ``params``
+raises: the reference reads nothing else of a group. So does a parameter
+that carries its own ``regularizer`` (``ParamAttr(regularizer=...)``),
+which the reference's optimizers never read.
+
+``learning_rate`` is a float or an ``LRScheduler`` (``optimizer/lr.py``),
+which then pushes its rate into the optimizer at each of its steps.
+``grad_clip`` (``nn/clip.py``) clips the gradients in ``step()`` before
+the update; ``weight_decay`` is a float or a regularizer
+(``regularizer.py``), read through its ``_coeff``: an ``L1Decay`` is a
+coefficient like an ``L2Decay``'s, as in the reference (AdamW's decay is
+decoupled, ``p *= 1 - lr * coeff``, whichever class carries it).
 """
 from __future__ import annotations
 
 import torch
+
+from .lr import LRScheduler
 
 
 class Optimizer:
@@ -19,20 +32,26 @@ class Optimizer:
         if parameters is None:
             raise ValueError("paddle_tpu_torch optimizers need explicit "
                              "`parameters` (as the reference in dygraph)")
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip is not ported yet")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "LR schedulers are not ported yet: pass a float")
         self._names, self._parameter_list = [], []
-        for i, p in enumerate(parameters):
-            if isinstance(p, dict):
+        for i, entry in enumerate(_flatten_groups(list(parameters))):
+            name, p = entry if isinstance(entry, tuple) \
+                else (f"param_{i}", entry)
+            if getattr(p, "regularizer", None) is not None:
                 raise NotImplementedError(
-                    "parameter groups are not ported yet")
-            name, p = p if isinstance(p, tuple) else (f"param_{i}", p)
+                    f"parameter {name} carries a regularizer "
+                    "(ParamAttr(regularizer=...)): no optimizer of the "
+                    "port reads it (the reference ignores it); use the "
+                    "optimizer's weight_decay and apply_decay_param_fun")
             self._names.append(name)
             self._parameter_list.append(p)
-        self._learning_rate = float(learning_rate)
+        self._lr_scheduler = None
+        if isinstance(learning_rate, LRScheduler):
+            self._lr_scheduler = learning_rate
+            self._learning_rate = float(learning_rate())
+            learning_rate._bind(self)
+        else:
+            self._learning_rate = float(learning_rate)
+        self._grad_clip = grad_clip
         self._weight_decay = weight_decay
         self._multi_precision = multi_precision
 
@@ -41,10 +60,16 @@ class Optimizer:
                                                          torch.float16)
 
     def get_lr(self):
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
         return self._learning_rate
 
     def set_lr(self, value):
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._lr_scheduler = scheduler
+        scheduler._bind(self)
 
     def clear_grad(self, set_to_zero=False):
         """Drop every gradient (``set_to_zero``: zero it in place)."""
@@ -68,7 +93,77 @@ class Optimizer:
     def step(self):
         live = [i for i, p in enumerate(self._parameter_list)
                 if p.requires_grad and p.grad is not None]
-        self._apply(live)
+        grads = [self._parameter_list[i].grad for i in live]
+        if self._grad_clip is not None:
+            clipped = self._grad_clip(
+                [(self._parameter_list[i], g) for i, g in zip(live, grads)])
+            grads = [g for _, g in clipped]
+        self._apply(live, grads)
 
-    def _apply(self, indices):
+    def _apply(self, indices, grads):
         raise NotImplementedError
+
+    # -- state dict --------------------------------------------------------
+    def _state_items(self):
+        """``(tensors, masters, scalars)``: the per-parameter state
+        tensors and the float32 masters, ``{key: tensor}`` under the
+        reference's key names, and the host scalars, ``{key: (list,
+        index)}``."""
+        return {}, {}, {}
+
+    def state_dict(self):
+        """The per-parameter state under the reference's key names
+        (``<name>_moment1_0``, ``<name>_beta1_pow_acc_0``, ...; the
+        masters under ``master_weights``), and the scheduler's state
+        under ``LR_Scheduler``."""
+        tensors, masters, scalars = self._state_items()
+        sd = dict(tensors)
+        sd.update({k: torch.tensor(lst[i]) for k, (lst, i) in
+                   scalars.items()})
+        if masters:
+            sd["master_weights"] = dict(masters)
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
+        return sd
+
+    def set_state_dict(self, state_dict):
+        """Loads a :meth:`state_dict` in place. An entry that matches no
+        state of this optimizer raises ``KeyError`` (the reference warns
+        and drops it)."""
+        tensors, masters, scalars = self._state_items()
+        extra = {"LR_Scheduler", "master_weights"}
+        unknown = [k for k in state_dict if k not in tensors
+                   and k not in scalars and k not in extra]
+        unknown += [k for k in state_dict.get("master_weights", {})
+                    if k not in masters]
+        if unknown:
+            raise KeyError(f"optimizer.set_state_dict: no state named "
+                           f"{unknown[:3]}")
+        if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
+        with torch.no_grad():
+            for k, v in state_dict.items():
+                if k in tensors:
+                    tensors[k].copy_(torch.as_tensor(v))
+                elif k in scalars:
+                    lst, i = scalars[k]
+                    lst[i] = type(lst[i])(float(v))
+            for k, v in state_dict.get("master_weights", {}).items():
+                masters[k].copy_(torch.as_tensor(v))
+
+
+def _flatten_groups(entries):
+    """Parameters given as dict groups (``{"params": [...]}``, when the
+    first entry is one) flattened in order; a group key other than
+    ``params`` raises ``NotImplementedError``."""
+    if not entries or not isinstance(entries[0], dict):
+        return entries
+    out = []
+    for g in entries:
+        other = sorted(set(g) - {"params"})
+        if other:
+            raise NotImplementedError(
+                f"parameter group keys {other}: the port reads only "
+                "'params' of a group (the reference ignores the rest)")
+        out.extend(g["params"])
+    return out

@@ -7,7 +7,9 @@ dense masked softmax). No kernel and no paged cache is involved, so it
 is the independent yardstick the served logits are held against, on the
 CPU in the tests and on the card in ``chip_smoke.py``. Weights are cast
 to float32 one at a time, so the float32 copy of a large model never
-exists whole. :func:`dense_reference_loss_and_grads` is the training
+exists whole; a weight-only quantized linear (``WeightOnlyLinear``)
+counts as its dequantized float32 weight, so a quantized model is held to
+its own weights. :func:`dense_reference_loss_and_grads` is the training
 counterpart: the same forward on float32 copies of the weights, a plain
 cross-entropy over full logits, and autograd for every parameter's
 gradient. Float32 matrix products run at full float32 precision on the
@@ -18,16 +20,29 @@ from __future__ import annotations
 
 import torch
 
+from .ops.kernels.quant import dequantize_int4, dequantize_int8
 from .ops.kernels.rms_norm import rms_norm_plain
 from .ops.kernels.rope import apply_rotary_emb, build_rope_cache
+from .quantization import WeightOnlyLinear
 
 
 def _f32(t):
     return t.float()
 
 
+def _weight(proj, f32):
+    """The float32 [in, out] weight ``proj`` computes with: a
+    ``WeightOnlyLinear``'s dequantized payload, else ``f32(weight)``."""
+    if isinstance(proj, WeightOnlyLinear):
+        if proj.weight_dtype == "int8":
+            return dequantize_int8(proj.qweight, proj.weight_scale)
+        return dequantize_int4(proj.qweight, proj.weight_scale,
+                               proj.group_size)
+    return f32(proj.weight)
+
+
 def _linear(x, proj, f32=_f32):
-    y = torch.matmul(x, f32(proj.weight))
+    y = torch.matmul(x, _weight(proj, f32))
     if proj.bias is not None:
         y = y + f32(proj.bias)
     return y

@@ -232,12 +232,6 @@ def test_unported_training_options_raise(call):
         call()
 
 
-def test_unported_request_and_adapter_options_raise():
-    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PagedLlamaAdapter(m, weight_dtype="int8")
-
-
 class _Stub:
     def __init__(self, **config):
         self.config = types.SimpleNamespace(**config)
@@ -250,13 +244,12 @@ def _stub(name, **config):
 @pytest.mark.parametrize("call", [
     lambda m: generate(m, torch.zeros(1, 2, dtype=torch.long),
                        use_jit=True),
-    lambda m: from_hf(m, {}, weight_dtype="int8"),
     lambda m: from_hf(_stub("LlamaForCausalLM", num_local_experts=8), {}),
     lambda m: from_hf(_stub("BertModel"), {}),
     lambda m: from_hf(_stub("GPTForCausalLM"), {}),
     lambda m: from_hf(_stub("VisionTransformer"), {}),
     lambda m: from_hf(_stub("T5ForConditionalGeneration"), {}),
-], ids=["use_jit", "weight_dtype", "mixtral", "bert", "gpt", "vit", "t5"])
+], ids=["use_jit", "mixtral", "bert", "gpt", "vit", "t5"])
 def test_unported_generation_and_loader_options_raise(call):
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -268,12 +261,91 @@ def test_from_hf_refuses_an_unknown_family():
         from_hf(_stub("ResNet50"), {})
 
 
-def test_from_hf_takes_no_group_size():
-    # group_size only shapes quantize-on-load, which is not ported: the
-    # loader does not accept it rather than ignore it
-    m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-    with pytest.raises(TypeError):
-        from_hf(m, {}, group_size=32)
+@pytest.mark.parametrize("name", ["BertModel", "VisionTransformer",
+                                  "T5ForConditionalGeneration"])
+def test_from_hf_refuses_weight_dtype_for_an_encoder_family(name):
+    # the reference's ValueError (a serving knob of the decoder
+    # families) comes before the unported loader's NotImplementedError
+    with pytest.raises(ValueError, match="weight_dtype"):
+        from_hf(_stub(name), {}, weight_dtype="int8")
+
+
+def test_parameter_group_keys_other_than_params_raise():
+    from paddle_tpu_torch.optimizer import AdamW
+
+    p = torch.nn.Parameter(torch.ones(2))
+    AdamW(0.1, parameters=[{"params": [p]}])
+    with pytest.raises(NotImplementedError, match="learning_rate"):
+        AdamW(0.1, parameters=[{"params": [p], "learning_rate": 0.5}])
+
+
+@pytest.mark.parametrize("coeff", [0.0, 0.01])
+def test_a_parameter_regularizer_raises(coeff):
+    # no optimizer of the port (nor of the reference) reads a
+    # parameter's own regularizer: the port refuses it at construction
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    plain = pt.nn.RMSNorm(4, device="cpu")
+    AdamW(0.1, parameters=plain.parameters())
+    norm = pt.nn.RMSNorm(4, weight_attr=pt.nn.ParamAttr(
+        regularizer=L2Decay(coeff)), device="cpu")
+    with pytest.raises(NotImplementedError, match="regularizer"):
+        AdamW(0.1, parameters=[{"params": list(plain.parameters())},
+                               {"params": list(norm.parameters())}])
+
+
+@pytest.mark.parametrize("attr", [
+    lambda: pt.nn.ParamAttr(initializer=object()),
+    lambda: pt.nn.ParamAttr(name="w"), lambda: "w", lambda: False,
+], ids=["initializer", "name", "str", "no_weight"])
+def test_unported_param_attr_options_raise(attr):
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import (
+        ColumnParallelLinear)
+
+    with pytest.raises(NotImplementedError):
+        ColumnParallelLinear(4, 4, weight_attr=attr(), device="cpu")
+    if not isinstance(attr(), (str, bool)):
+        with pytest.raises(NotImplementedError):
+            pt.nn.RMSNorm(4, weight_attr=attr(), device="cpu")
+
+
+SLICE_15 = ("ops/kernels/quant.py", "nn/quant/__init__.py",
+            "quantization/__init__.py", "quantization/ptq_llm.py",
+            "optimizer/lr.py", "nn/clip.py", "regularizer.py",
+            "nn/param_attr.py")
+
+
+def test_scan_covers_quantized_serving_and_the_training_options():
+    """Weight-only quantization, the LR schedulers, the clips, the
+    regularizers and ParamAttr are among the files the AST scan checks,
+    and importing them and serving an int8-weight model loads no JAX and
+    nothing of the JAX package."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in SLICE_15:
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    code = ("import sys\n"
+            "import paddle_tpu_torch.nn.quant, paddle_tpu_torch.quantization\n"
+            "import paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.nn.clip\n"
+            "import paddle_tpu_torch.regularizer\n"
+            "import paddle_tpu_torch.nn.param_attr\n"
+            "from paddle_tpu_torch.models import LlamaForCausalLM, "
+            "llama_tiny\n"
+            "from paddle_tpu_torch.inference import BatchScheduler, "
+            "PagedLlamaAdapter, Request\n"
+            "m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), "
+            "device='cpu')\n"
+            "s = BatchScheduler(PagedLlamaAdapter(m, num_pages=8, "
+            "page_size=4, weight_dtype='int4'))\n"
+            "s.submit(Request('a', [1, 2, 3], max_new_tokens=2))\n"
+            "s.run_until_complete()\n"
+            "print([m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 SERVING_FRONTS = ("inference/engine.py", "inference/disagg.py",

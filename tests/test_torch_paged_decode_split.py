@@ -147,7 +147,8 @@ CHIP_SMOKE = _chip_smoke()
     "fault", CHIP_SMOKE.FLASH_FAULTS + CHIP_SMOKE.PAGED_FAULTS
     + CHIP_SMOKE.NORM_FAULTS + CHIP_SMOKE.SERVE_FAULTS
     + CHIP_SMOKE.SPEC_FAULTS + CHIP_SMOKE.GEN_FAULTS
-    + CHIP_SMOKE.PLANE_FAULTS + CHIP_SMOKE.FRONT_FAULTS,
+    + CHIP_SMOKE.PLANE_FAULTS + CHIP_SMOKE.FRONT_FAULTS
+    + CHIP_SMOKE.QUANT_FAULTS + CHIP_SMOKE.TRAIN_FAULTS,
     ids=lambda f: f[0])
 def test_every_planted_fault_names_live_kernel_text(fault):
     """--fault-check replaces each fault's text in its source (CUDA; the
@@ -156,7 +157,9 @@ def test_every_planted_fault_names_live_kernel_text(fault):
     loader modules for the generation faults; the pool, the scheduler
     and the fault injector for the host planes' faults; the pool's wire
     format, the engine and the scheduler's adoption for the serving
-    fronts' faults) and refuses a text that
+    fronts' faults; the quantizer, the fused-step gate, the clip and the
+    warm-up schedule for the quantized serving and training-option
+    faults) and refuses a text that
     does not occur exactly once; an edit that orphans a fault fails
     here, on the CPU."""
     name, source, old, new = fault[:4]
