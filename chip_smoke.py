@@ -142,7 +142,28 @@ It prints one JSON line per phase:
    ``ParamAttr(learning_rate=0.5)``: each step's rate against the closed
    form, its global norm against an independent float32 norm, at least
    one step clipping, three parameters against a float32 AdamW oracle on
-   every step, exact launches, the step time beside ``train``'s.
+   every step, exact launches, the step time beside ``train``'s;
+13. ``train_recompute``: ``train``'s model and batch with every decoder
+   layer a recomputed region (``LlamaConfig.recompute``) under the
+   ``full`` and ``selective`` granularities: one step's loss and every
+   gradient against the plain step's on the same weights (relative L2
+   1e-6; the bit-for-bit count reported), then the plain step and each
+   granularity timed (step time, tokens/s, MFU by ``train``'s count,
+   peak memory below the plain step's and ``train``'s), with exact
+   launches: the flash forward and RMSNorm replay in the backward (2 L
+   and 4 L + 1 a step);
+14. ``train_resume``: ``train_sched``'s optimizer on 4 of Qwen2-0.5B's
+   layers: 2 steps, the model and optimizer state saved through
+   ``paddle_tpu_torch.save`` (bytes, seconds), 2 more; a fresh model and
+   optimizer ``load`` them and take the same 2 steps, bit for bit the
+   uninterrupted run (losses, parameters, masters, moments, beta
+   powers, scheduler);
+15. ``train_optim``: each other optimizer class (``TRAIN_OPTIM_CLASSES``)
+   for 3 steps on 4 of Qwen2-0.5B's layers at batch 1 x 2048, bf16 with
+   masters: ``opt.step()`` ms, three parameters' masters and state
+   against the same class on the CPU and against its functional rule
+   (``optimizer/functional.py``) within 1e-6, LBFGS (float32, a
+   closure, strong Wolfe) lowering the loss, exact launches.
 
 Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
@@ -179,9 +200,13 @@ gate.
 the int8 payload quantized along the wrong axis, the fused-step gate
 admitting quantized weights) on ``QUANT_SERVE_RUNS`` at two layers and
 ``TRAIN_FAULTS`` (the global-norm clip never scaling, the warm-up
-handing over a step late) on ``--train-runs train_sched``, each required
-to fail its named run at its named gate.
-``--train-runs train_sched`` builds the kernels and runs only that run.
+handing over a step late, the recompute replay reading RoPE a position
+late, ``save`` writing bf16 through fp16, Nesterov momentum without its
+look-ahead, LBFGS ascending) on ``--train-runs`` of the run each may
+break, each required to fail its named run at its named gate.
+``--train-runs NAMES`` builds the kernels and runs only those training
+runs (names of ``TRAIN_RUN_NAMES``), listing each failed run in a
+``train_runs`` line.
 ``--gen-runs NAMES`` builds the kernels and runs only those generation
 runs (names of ``GEN_RUN_NAMES``) at ``--layers`` depth, listing each
 failed run in a ``gen_runs`` line; ``--fault-check`` also plants
@@ -1755,6 +1780,10 @@ QUANT_FAULTS = [
 ]
 _CLIP_PY = "paddle_tpu_torch/nn/clip.py"
 _LR_PY = "paddle_tpu_torch/optimizer/lr.py"
+_RECOMPUTE_PY = "paddle_tpu_torch/distributed/fleet/recompute/recompute.py"
+_IO_PY = "paddle_tpu_torch/framework/io.py"
+_MOMENTUM_PY = "paddle_tpu_torch/optimizer/momentum.py"
+_EXTRA_PY = "paddle_tpu_torch/optimizer/extra.py"
 TRAIN_FAULTS = [
     # the global-norm clip never scales (its norm is still right)
     ("clip_scale_forced_to_one", _CLIP_PY,
@@ -1766,6 +1795,34 @@ TRAIN_FAULTS = [
      "            self.lr_after.step(self.last_epoch - self.warmup_steps)\n",
      "            self.lr_after.step(self.last_epoch - self.warmup_steps - 1)"
      "\n", ("train_sched",), "train_sched", "learning rate"),
+    # the recompute replay reads RoPE a position late (the forward reads
+    # it in place, through the same operations): shapes and the operation
+    # sequence agree, so only the gradients can tell
+    ("replay_rope_a_position_late", _RECOMPUTE_PY,
+     "    return checkpoint(function, *args, use_reentrant=False,\n",
+     "    calls = []\n\n"
+     "    def replayed(*a, **k):\n"
+     "        calls.append(1)\n"
+     "        late = int(len(calls) > 1)\n"
+     "        a = (a[0],) + tuple(t.roll(late, 0) for t in a[1:])\n"
+     "        return function(*a, **k)\n\n"
+     "    return checkpoint(replayed, *args, use_reentrant=False,\n",
+     ("train_recompute",), "train_recompute", "gradient of"),
+    # save writes bf16 through fp16 (tiny weights lose bits)
+    ("save_bf16_as_fp16", _IO_PY,
+     '        return t.view(torch.int16).numpy().view(np.uint16), '
+     '"bfloat16"\n',
+     "        return t.to(torch.float16).numpy(), None\n",
+     ("train_resume",), "train_resume", "resumed"),
+    # Nesterov momentum without its look-ahead term
+    ("nesterov_without_look_ahead", _MOMENTUM_PY,
+     "            p_new = p32 - lr_eff * (g32 + mu * v_new)\n",
+     "            p_new = p32 - lr_eff * g32\n",
+     ("train_optim",), "train_optim", "rule_master"),
+    # LBFGS searching along the quasi-Newton direction's opposite
+    ("lbfgs_ascends", _EXTRA_PY, "            d = -q\n",
+     "            d = q\n", ("train_optim",), "train_optim",
+     "did not lower"),
 ]
 
 
@@ -1879,7 +1936,7 @@ def fault_check_phase():
             extra in (
             [(*f, "--serve-runs", _QUANT_FAULT_RUNS, "serve_runs",
               ("--layers", "2")) for f in QUANT_FAULTS]
-            + [(*f, "--train-runs", TRAIN_RUN_NAMES, "train_runs", ())
+            + [(*f, "--train-runs", f[4], "train_runs", ())
                for f in TRAIN_FAULTS]):
         line = _run_with_fault(name, source, old, new, option, runs, phase,
                                extra=extra)
@@ -5710,10 +5767,47 @@ def train_check_phase(model, opt, x, y):
                            + "; ".join(problems))
 
 
+def step_launches_wanted(n_layers, steps, recompute):
+    """Exact kernel launches of ``steps`` training steps of ``n_layers``
+    decoder layers, each layer a recomputed region or not."""
+    replay = n_layers if recompute else 0
+    return {"flash_attention_fwd": (n_layers + replay) * steps,
+            "flash_attention_bwd_dkdv": n_layers * steps,
+            "flash_attention_bwd_dq": n_layers * steps,
+            "rms_norm": (2 * n_layers + 1 + 2 * replay) * steps}
+
+
+def launch_problems_of(launches, want, what=None):
+    what = f"{what}: " if what else ""
+    return [f"{what}{name} launches {launches.get(name, 0)} != {n}"
+            for name, n in want.items() if launches.get(name, 0) != n]
+
+
+def release_device_memory():
+    """Frees what a finished run left: its reference cycles first (an
+    optimizer and its LR scheduler hold each other), then the cached
+    blocks, so the next run's peak memory counts only its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_flops_per_token(cfg, seq):
+    """bench.py's FLOP count of a trained token: 6 N plus attention's
+    6 L H S."""
+    return 6.0 * cfg.num_params() + 6.0 * cfg.num_hidden_layers \
+        * cfg.hidden_size * seq
+
+
 def train_phase(model, opt, x, y):
     """bench.py's loop: 2 warm-up steps, then TRAIN_STEPS timed ones with
     the launch counters reset just before and read just after. Returns
-    ``(launches, device ms of each timed step)``."""
+    ``(launches, device ms of each timed step, reading)``: the reading
+    holds the median step, tokens/s, MFU and peak memory that
+    train_recompute reports beside its own."""
     import torch
     from paddle_tpu_torch.ops.kernels import kernel_launch_stats
 
@@ -5740,19 +5834,19 @@ def train_phase(model, opt, x, y):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     tok_per_s = tokens * steps / wall
     n_params = cfg.num_params()
-    # bench.py's FLOP count: 6 N per token plus attention's 6 L H S
-    flops_per_token = 6.0 * n_params + 6.0 * cfg.num_hidden_layers \
-        * cfg.hidden_size * TRAIN_SEQ
+    flops_per_token = train_flops_per_token(cfg, TRAIN_SEQ)
     model_tflops = tok_per_s * flops_per_token / 1e12
     n_layers = cfg.num_hidden_layers
-    want = {name: n_layers * steps for name in FLASH}
-    want["rms_norm"] = (2 * n_layers + 1) * steps
-    problems = [f"{name} launches {launches.get(name, 0)} != {n}"
-                for name, n in want.items() if launches.get(name, 0) != n]
+    want = step_launches_wanted(n_layers, steps, False)
+    problems = launch_problems_of(launches, want)
     if not all(v == v and abs(v) != float("inf") for v in losses):
         problems.append(f"a loss is not finite: {losses}")
     elif not losses[-1] < losses[0]:
         problems.append(f"the loss did not fall: {losses}")
+    reading = {"step_ms_device_median": float(sorted(step_ms)[steps // 2]),
+               "tokens_per_s": tok_per_s,
+               "mfu_pct": 100.0 * model_tflops / PEAK_BF16_TFLOPS,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit("train", model="qwen2_0_5b", layers=n_layers,
          hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
          heads=cfg.num_attention_heads,
@@ -5772,7 +5866,7 @@ def train_phase(model, opt, x, y):
          problems=problems)
     if problems:
         raise RuntimeError("train phase failed: " + "; ".join(problems))
-    return launches, step_ms
+    return launches, step_ms, reading
 
 
 # train_sched: train's model and batch under a real run's optimizer options:
@@ -5783,7 +5877,8 @@ def train_phase(model, opt, x, y):
 # The clip is 0.25, not a run's usual 1.0: the random model's global norm
 # was 0.380-0.820 over these 6 steps on an H100 (700 W), so a clip at 1.0
 # would never act and its gates would test nothing.
-TRAIN_RUN_NAMES = ["train_sched"]
+TRAIN_RUN_NAMES = ["train_sched", "train_recompute", "train_resume",
+                   "train_optim"]
 TRAIN_SCHED_STEPS = 6
 TRAIN_SCHED_LR, TRAIN_SCHED_WARMUP, TRAIN_SCHED_TMAX = 3e-4, 2, 4
 TRAIN_SCHED_CLIP, TRAIN_SCHED_DECAY, TRAIN_SCHED_NORM_RATE = 0.25, 0.01, 0.5
@@ -5811,10 +5906,11 @@ def sched_lr(epoch):
         math.pi * (epoch - TRAIN_SCHED_WARMUP) / TRAIN_SCHED_TMAX)) / 2
 
 
-def build_sched_trainer(seed):
-    """``build_trainer``'s model with the final norm rebuilt with
-    ``ParamAttr(learning_rate=0.5)`` (its weight ones, as before), and
-    the AdamW of train_sched. Returns ``(model, opt, scheduler)``."""
+def build_sched_trainer(seed, layers=None):
+    """``build_trainer``'s model (``layers`` of its 24, all by default)
+    with the final norm rebuilt with ``ParamAttr(learning_rate=0.5)``
+    (its weight ones, as before), and the AdamW of train_sched. Returns
+    ``(model, opt, scheduler)``."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ParamAttr, RMSNorm
@@ -5823,7 +5919,8 @@ def build_sched_trainer(seed):
                                                LinearWarmup)
     from paddle_tpu_torch.regularizer import L2Decay
 
-    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True),
+    depth = {} if layers is None else {"num_hidden_layers": layers}
+    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True, **depth),
                              device="cuda", dtype=torch.bfloat16, seed=seed)
     cfg = model.config
     model.model.norm = RMSNorm(
@@ -5956,10 +6053,8 @@ def train_sched_phase(seed, x, y, train_step_ms=None):
         problems.append("no step clipped: global norms "
                         f"{[r['global_norm'] for r in per_step]}")
     n_layers = cfg.num_hidden_layers
-    want = {name: n_layers * TRAIN_SCHED_STEPS for name in FLASH}
-    want["rms_norm"] = (2 * n_layers + 1) * TRAIN_SCHED_STEPS
-    problems += [f"{name} launches {launches.get(name, 0)} != {n}"
-                 for name, n in want.items() if launches.get(name, 0) != n]
+    want = step_launches_wanted(n_layers, TRAIN_SCHED_STEPS, False)
+    problems += launch_problems_of(launches, want)
     step_ms = [r["step_ms_device"] for r in per_step]
     emit("train_sched", model="qwen2_0_5b", layers=n_layers,
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_SCHED_STEPS,
@@ -6016,6 +6111,585 @@ def train_oracle_errors(opt, index, snap, sq, lr):
             1e-30) for key, a, b in zip(("master", "moment1", "moment2"),
                                         got, want)}
     return out
+
+
+# train_recompute: train's model and batch with every decoder layer a
+# recomputed region (LlamaConfig.recompute), under each granularity of
+# TRAIN_RECOMPUTE_GRANULARITIES beside the plain step. The forward kernels
+# replay in the backward: a step launches the flash forward 2 L times and
+# RMSNorm 4 L + 1 times (2 L + 1 in the forward, both norms of every
+# layer again in its replay), the flash backward parts L times each
+# (tests/test_torch_recompute.py holds the same counts on the CPU route).
+TRAIN_RECOMPUTE_GRANULARITIES = ("full", "selective")
+TRAIN_RECOMPUTE_STEPS = 3
+# One step's loss and every gradient against the plain step's on the same
+# weights and batch: the replay runs the same kernels and GEMMs on the
+# same inputs, so they should be equal bit for bit; the gate is relative
+# L2 1e-6 per gradient, and the bit-for-bit count is reported.
+TRAIN_RECOMPUTE_GRAD_RTOL = 1e-6
+
+
+def loss_and_grads(model, x, y):
+    """One forward and backward: ``(loss, {name: gradient})``, the
+    gradients taken off the parameters."""
+    _, loss = model(x, y)
+    loss.backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        grads[name], p.grad = p.grad, None
+    return loss.detach(), grads
+
+
+def train_recompute_phase(seed, x, y, train_reading=None):
+    """``build_trainer``'s model with ``config.recompute`` set: first the
+    gradient check (the plain step's loss and gradients, then each
+    granularity's on the same weights and batch, with exact launches),
+    then for the plain step and each granularity 1 warm-up and
+    TRAIN_RECOMPUTE_STEPS timed steps (CUDA events; the peak memory reset
+    after the warm-up; launches counted around the timed steps). Gates:
+    every gradient within TRAIN_RECOMPUTE_GRAD_RTOL relative L2 of the
+    plain one and the losses equal to it within it; each granularity's
+    peak below the plain step's in this run (and below ``train``'s when
+    given); exact launches; every loss finite. Returns the launches of
+    the recomputed timed steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    model, opt = build_trainer(seed)
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    problems = []
+    cfg.recompute = False
+    loss0, g0 = loss_and_grads(model, x, y)
+    checks = {}
+    for gran in TRAIN_RECOMPUTE_GRANULARITIES:
+        cfg.recompute, cfg.recompute_granularity = True, gran
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        loss1, g1 = loss_and_grads(model, x, y)
+        torch.cuda.synchronize()
+        launches = kernel_launch_stats(reset=True)
+        rel = {n: float((g1[n].float() - g0[n].float()).norm()
+                        / g0[n].float().norm().clamp_min(1e-30))
+               for n in g0}
+        equal = sum(bool(torch.equal(g1[n], g0[n])) for n in g0)
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        checks[gran] = {"loss": float(loss1), "plain_loss": float(loss0),
+                        "loss_rel_err": loss_rel,
+                        "grads_bit_equal": equal, "grads": len(g0),
+                        "worst_param": worst, "worst_rel_l2": rel[worst],
+                        "launches": launches}
+        if not loss_rel <= TRAIN_RECOMPUTE_GRAD_RTOL:
+            problems.append(f"{gran}: loss {float(loss1)!r} against the "
+                            f"plain step's {float(loss0)!r}")
+        if not rel[worst] <= TRAIN_RECOMPUTE_GRAD_RTOL:
+            problems.append(f"{gran}: gradient of {worst} relative L2 "
+                            f"{rel[worst]:.3e} > {TRAIN_RECOMPUTE_GRAD_RTOL}")
+        problems += launch_problems_of(
+            launches, step_launches_wanted(n_layers, 1, True),
+            f"{gran} gradient step")
+        del g1
+    del g0
+    tokens = int(x.numel())
+    flops_per_token = train_flops_per_token(cfg, x.shape[1])
+    runs, recomputed = {}, {}
+    for mode in ("plain",) + TRAIN_RECOMPUTE_GRANULARITIES:
+        cfg.recompute = mode != "plain"
+        if cfg.recompute:
+            cfg.recompute_granularity = mode
+        train_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = TRAIN_RECOMPUTE_STEPS
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        kernel_launch_stats(reset=True)
+        t0 = time.perf_counter()
+        events[0].record()
+        losses = []
+        for i in range(steps):
+            losses.append(train_step(model, opt, x, y))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launch_stats(reset=True)
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(steps)]
+        tok_per_s = tokens * steps / wall
+        losses = [float(v) for v in losses]
+        runs[mode] = {"step_ms_device": step_ms,
+                      "step_ms_device_median": float(np.median(step_ms)),
+                      "tokens_per_s": tok_per_s,
+                      "mfu_pct": 100.0 * tok_per_s * flops_per_token
+                      / 1e12 / PEAK_BF16_TFLOPS,
+                      "max_memory_allocated":
+                      torch.cuda.max_memory_allocated(),
+                      "losses": losses, "launches": launches}
+        problems += launch_problems_of(
+            launches, step_launches_wanted(n_layers, steps,
+                                           cfg.recompute), mode)
+        if not all(math.isfinite(v) for v in losses):
+            problems.append(f"{mode}: a loss is not finite: {losses}")
+        if cfg.recompute:
+            for k, v in launches.items():
+                recomputed[k] = recomputed.get(k, 0) + v
+    cfg.recompute = False
+    plain = runs["plain"]
+    for gran in TRAIN_RECOMPUTE_GRANULARITIES:
+        r = runs[gran]
+        r["step_ratio_to_plain"] = (r["step_ms_device_median"]
+                                    / plain["step_ms_device_median"])
+        r["memory_ratio_to_plain"] = (r["max_memory_allocated"]
+                                      / plain["max_memory_allocated"])
+        if not r["max_memory_allocated"] < plain["max_memory_allocated"]:
+            problems.append(f"{gran}: peak {r['max_memory_allocated']} not "
+                            f"below the plain step's "
+                            f"{plain['max_memory_allocated']}")
+        if train_reading is not None and not r["max_memory_allocated"] \
+                < train_reading["max_memory_allocated"]:
+            problems.append(f"{gran}: peak {r['max_memory_allocated']} not "
+                            f"below train's "
+                            f"{train_reading['max_memory_allocated']}")
+    emit("train_recompute", model="qwen2_0_5b", layers=n_layers,
+         batch=int(x.shape[0]), seq=int(x.shape[1]),
+         granularities=list(TRAIN_RECOMPUTE_GRANULARITIES),
+         steps=TRAIN_RECOMPUTE_STEPS, gradient_check=checks,
+         grad_rtol=TRAIN_RECOMPUTE_GRAD_RTOL, runs=runs,
+         train=train_reading, flops_per_step=flops_per_token * tokens,
+         launches_wanted_per_step={
+             "plain": step_launches_wanted(n_layers, 1, False),
+             "recompute": step_launches_wanted(n_layers, 1, True)},
+         problems=problems)
+    del model, opt
+    release_device_memory()
+    if problems:
+        raise RuntimeError("train_recompute phase failed: "
+                           + "; ".join(problems))
+    return recomputed
+
+
+# train_resume: train_sched's optimizer options on Qwen2-0.5B at full width
+# and TRAIN_RESUME_LAYERS of its 24 layers: TRAIN_RESUME_STEPS steps, the
+# model and optimizer state_dicts saved through paddle_tpu_torch.save, the
+# run going on for TRAIN_RESUME_STEPS more; a fresh model and optimizer
+# (another seed's weights) load both files and take the same steps.
+TRAIN_RESUME_LAYERS = 4
+TRAIN_RESUME_STEPS = 2
+
+
+def sched_step(model, opt, sched, x, y):
+    _, loss = model(x, y)
+    loss.backward()
+    opt.step()
+    sched.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def state_differences(a, b):
+    """Entries of two ``state_dict``s (optimizer or model) that are not
+    equal bit for bit (a scheduler's state by ``==``)."""
+    import torch
+
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        if isinstance(a[k], dict):
+            if k == "LR_Scheduler":
+                if a[k] != b[k]:
+                    bad.append(k)
+            else:
+                bad += [f"{k}/{j}" for j in state_differences(a[k], b[k])]
+        elif not torch.equal(a[k], b[k]):
+            bad.append(k)
+    return bad
+
+
+def train_resume_phase(seed, x, y):
+    """TRAIN_RESUME_STEPS steps, ``paddle_tpu_torch.save`` of the model and
+    optimizer state_dicts (bytes, seconds), TRAIN_RESUME_STEPS more
+    (the uninterrupted run); then a fresh model and optimizer from another
+    seed ``load`` both files (seconds) and take the same steps. Gates:
+    the resumed run's losses, parameters, masters, moments, beta powers
+    and scheduler state equal the uninterrupted run's bit for bit (and
+    its weights differ from the fresh model's before loading); exact
+    launches over the three stretches; losses finite."""
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    torch.cuda.synchronize()
+    kernel_launch_stats(reset=True)
+    model, opt, sched = build_sched_trainer(seed, TRAIN_RESUME_LAYERS)
+    losses = [sched_step(model, opt, sched, x, y)
+              for _ in range(TRAIN_RESUME_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        paths = {k: os.path.join(tmp, "ckpt", f"model.{k}")
+                 for k in ("pdparams", "pdopt")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.save(model.state_dict(), paths["pdparams"])
+        pt.save(opt.state_dict(), paths["pdopt"])
+        save_s = time.perf_counter() - t0
+        nbytes = {k: os.path.getsize(v) for k, v in paths.items()}
+        straight = losses + [sched_step(model, opt, sched, x, y)
+                             for _ in range(TRAIN_RESUME_STEPS)]
+        fresh, fopt, fsched = build_sched_trainer(seed + 1,
+                                                  TRAIN_RESUME_LAYERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mstate = pt.load(paths["pdparams"])
+        ostate = pt.load(paths["pdopt"])
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        differed = bool(state_differences(fresh.state_dict(), mstate))
+        t0 = time.perf_counter()
+        fresh.load_state_dict(mstate)
+        fopt.set_state_dict(ostate)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        del mstate, ostate
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = losses + [sched_step(fresh, fopt, fsched, x, y)
+                        for _ in range(TRAIN_RESUME_STEPS)]
+    torch.cuda.synchronize()
+    launches = kernel_launch_stats(reset=True)
+    problems = []
+    if not differed:
+        problems.append("the fresh model held the saved weights before "
+                        "loading them")
+    straight = [float(v) for v in straight]
+    resumed = [float(v) for v in resumed]
+    if resumed != straight:
+        problems.append(f"resumed losses {resumed} != uninterrupted "
+                        f"{straight}")
+    if not all(math.isfinite(v) for v in straight):
+        problems.append(f"a loss is not finite: {straight}")
+    model_bad = state_differences(model.state_dict(), fresh.state_dict())
+    opt_bad = state_differences(opt.state_dict(), fopt.state_dict())
+    problems += [f"resumed state differs: {k}"
+                 for k in (model_bad + opt_bad)[:8]]
+    problems += launch_problems_of(
+        launches, step_launches_wanted(TRAIN_RESUME_LAYERS,
+                                       3 * TRAIN_RESUME_STEPS, False),
+        "train_resume")
+    n_opt = len(opt.state_dict())
+    emit("train_resume", model="qwen2_0_5b", layers=TRAIN_RESUME_LAYERS,
+         batch=int(x.shape[0]), seq=int(x.shape[1]),
+         steps_before_save=TRAIN_RESUME_STEPS,
+         steps_after=TRAIN_RESUME_STEPS, bytes_written=nbytes,
+         save_s=save_s, load_read_s=read_s, load_apply_s=apply_s,
+         losses_uninterrupted=straight, losses_resumed=resumed,
+         model_entries=len(model.state_dict()), optimizer_entries=n_opt,
+         scheduler=fsched.state_dict(), model_differences=model_bad[:8],
+         optimizer_differences=opt_bad[:8], launches=launches,
+         problems=problems)
+    del model, opt, sched, fresh, fopt, fsched
+    release_device_memory()
+    if problems:
+        raise RuntimeError("train_resume phase failed: " + "; ".join(problems))
+    return launches
+
+
+# train_optim: each optimizer class of the port beside AdamW takes
+# TRAIN_OPTIM_STEPS steps on Qwen2-0.5B at full width and
+# TRAIN_OPTIM_LAYERS layers (bf16, float32 masters) at batch 1 x 2048.
+# (class, constructor arguments, the functional rule that is its oracle)
+TRAIN_OPTIM_LAYERS = 4
+TRAIN_OPTIM_STEPS = 3
+TRAIN_OPTIM_CLASSES = [
+    ("Adam", {"learning_rate": 1e-3, "weight_decay": 0.01}, "adam_"),
+    ("Momentum", {"learning_rate": 1e-2, "momentum": 0.9,
+                  "use_nesterov": True, "weight_decay": 0.01}, "momentum_"),
+    ("SGD", {"learning_rate": 1e-2, "weight_decay": 0.01}, "sgd_"),
+    ("Adagrad", {"learning_rate": 1e-2}, "adagrad_"),
+    ("RMSProp", {"learning_rate": 1e-3, "centered": True,
+                 "momentum": 0.9}, "rmsprop_"),
+    ("Lamb", {"learning_rate": 1e-3}, None),
+    ("Adamax", {"learning_rate": 1e-3, "weight_decay": 0.01}, "adamax_"),
+    ("Adadelta", {"learning_rate": 1.0, "weight_decay": 0.01},
+     "adadelta_"),
+    ("NAdam", {"learning_rate": 1e-3}, None),
+    ("RAdam", {"learning_rate": 1e-3}, None),
+    ("Rprop", {"learning_rate": 1e-3}, "rprop_"),
+    ("ASGD", {"learning_rate": 1e-2, "batch_num": 2}, "asgd_"),
+    ("LBFGS", {"learning_rate": 1.0, "max_iter": 4,
+               "line_search_fn": "strong_wolfe"}, None),
+]
+# A sample's float32 master and state after each step against the same
+# class on the CPU (over copies of the sample and its gradients), and
+# against the class's functional rule (optimizer/functional.py, run on
+# the CPU from the state before the step): the same float32 operations,
+# some grouped in another order or divided through a reciprocal on the
+# card; largest difference over the largest value.
+TRAIN_OPTIM_RTOL = 1e-6
+# The classes that step the bf16 parameter itself (their master is kept
+# and never read, as in the reference): the CPU twin steps from the
+# card's parameter of each step (two bf16 trajectories drift a spacing
+# apart a step: 1.67 spacings by Lamb's third step on an H100, 700 W),
+# and the parameter is compared in bf16 spacings of the larger of its
+# value before and after the step, since a float32 value a few ulps
+# apart may round to the neighbouring bf16 value, and an update that
+# nearly cancels the value leaves float32 differences of the size of the
+# value before (Lamb's trust ratio, a float32 norm summed in another
+# order on the card: 31.6 spacings of the value after on the same card);
+# gate: at most one spacing (2^-7 |value|).
+PARAM_STEPPING = ("Adagrad", "RMSProp", "Lamb")
+TRAIN_OPTIM_PARAM_SPACINGS = 1.0
+
+
+def functional_oracle(rule, opt, i, before, g, aux, lr):
+    """What the functional ``rule`` makes of parameter i's state
+    ``before`` (:func:`_sample_state` before the step) and gradient ``g``
+    (CPU float32): the class's update written with the upstream op it
+    stands for. ``aux``: the rule's own running beta powers, updated in
+    place. Returns the state after the step, keyed as ``before``."""
+    import torch
+    import paddle_tpu_torch.optimizer.functional as F
+
+    key = "param" if "param" in before else "master"
+    p = before[key].clone()
+    st = {k: v.clone() for k, v in before.items() if k != key}
+    coeff = opt._decay_coeff()
+    if coeff:
+        g = g + coeff * p
+    if rule == "adam_":
+        b1p, b2p = aux.setdefault(i, (torch.ones(1), torch.ones(1)))
+        F.adam_(p, g, st["moment1"], st["moment2"], b1p, b2p, lr,
+                opt._beta1, opt._beta2, opt._epsilon)
+    elif rule == "momentum_":
+        rate = getattr(opt._parameter_list[i], "optimize_attr",
+                       {}).get("learning_rate", 1.0)
+        F.momentum_(p, g, st["velocity"], lr * rate, opt._momentum,
+                    opt._nesterov)
+    elif rule == "sgd_":
+        F.sgd_(p, lr, g)
+    elif rule == "adagrad_":
+        F.adagrad_(p, g, st["moment"], lr, opt._epsilon)
+    elif rule == "rmsprop_":
+        F.rmsprop_(p, g, st["mean_square"], st["momentum_acc"], lr,
+                   mean_grad=st["mean_grad"], rho=opt._rho,
+                   epsilon=opt._epsilon, momentum=opt._momentum,
+                   centered=opt._centered)
+    elif rule == "adamax_":
+        (b1p,) = aux.setdefault(i, (torch.ones(1),))
+        F.adamax_(p, g, st["moment"], st["inf_norm"], b1p, lr, opt._beta1,
+                  opt._beta2, opt._epsilon)
+    elif rule == "adadelta_":
+        F.adadelta_(p, g, st["avg_squared_grad"], st["avg_squared_update"],
+                    lr, opt._rho, opt._epsilon)
+    elif rule == "rprop_":
+        lrs = st["learning_rate_local"]
+        if not bool(torch.any(lrs != 0)):
+            lrs.fill_(opt._init_lr)
+        F.rprop_(p, g, st["prev_grad"], lrs, opt._lr_range, opt._etas)
+    elif rule == "asgd_":
+        F.asgd_(p, g, st["asgd_d"], st["asgd_y"],
+                min(opt._t, opt._batch_num), lr)
+    out = {key: p.to(torch.bfloat16).float() if key == "param" else p}
+    out.update({k: v for k, v in st.items()
+                if not (rule == "asgd_" and k == "averaged_param")})
+    return out
+
+
+def _state_err(key, a, b, before):
+    """``a`` against ``b``: for a stepped parameter, bf16 spacings of the
+    larger of ``b`` and ``before`` (the value before the step), else the
+    largest difference over the largest value."""
+    import torch
+
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    if key == "param":
+        scale = torch.maximum(b.abs(), before.abs()) * 2.0 ** -7
+        return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _err_gate(key):
+    return TRAIN_OPTIM_PARAM_SPACINGS if key in ("cpu_param", "rule_param") \
+        else TRAIN_OPTIM_RTOL
+
+
+def _sample_state(opt, i):
+    """Parameter i's float32 master (``param``: the bf16 parameter, for
+    the classes that step it) and accumulators, as CPU float32 copies."""
+    p = opt._parameter_list[i]
+    if type(opt).__name__ in PARAM_STEPPING:
+        out = {"param": p}
+    else:
+        out = {"master": opt._master[i] if opt._master[i] is not None
+               else p}
+    out.update({k: v[i] for k, v in opt._accums.items()})
+    return {k: v.detach().float().cpu().clone() for k, v in out.items()}
+
+
+def train_optim_run(cls_name, kwargs, rule, seed, x1, y1):
+    """One class on a fresh model: TRAIN_OPTIM_STEPS steps with
+    ``opt.step()`` timed by CUDA events, a CPU twin of the class over
+    copies of TRAIN_SCHED_SAMPLE stepped on the card's gradients, and the
+    functional rule from the state before each step. Returns the row."""
+    import torch
+    import paddle_tpu_torch.optimizer as topt
+    from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
+
+    model = LlamaForCausalLM(
+        qwen2_0_5b(fused_head_loss=True, num_hidden_layers=TRAIN_OPTIM_LAYERS),
+        device="cuda", dtype=torch.bfloat16, seed=seed)
+    named = list(model.named_parameters())
+    opt = getattr(topt, cls_name)(parameters=named, **kwargs)
+    index = {n: i for i, (n, _) in enumerate(named)}
+    twins = [torch.nn.Parameter(dict(named)[n].detach().cpu().clone())
+             for n in TRAIN_SCHED_SAMPLE]
+    twin = getattr(topt, cls_name)(
+        parameters=list(zip(TRAIN_SCHED_SAMPLE, twins)), **kwargs)
+    losses, step_ms, errs, aux, bit_equal = [], [], [], {}, []
+    for _ in range(TRAIN_OPTIM_STEPS):
+        _, loss = model(x1, y1)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        before = {n: _sample_state(opt, index[n]) for n in TRAIN_SCHED_SAMPLE}
+        lr = float(opt._learning_rate)
+        for t, n in zip(twins, TRAIN_SCHED_SAMPLE):
+            t.grad = dict(named)[n].grad.detach().cpu().clone()
+            if cls_name in PARAM_STEPPING:   # step from the card's value
+                with torch.no_grad():
+                    t.copy_(dict(named)[n].detach().cpu())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        opt.step()
+        ev[1].record()
+        twin.step()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        row = {}
+        for j, n in enumerate(TRAIN_SCHED_SAMPLE):
+            got = _sample_state(opt, index[n])
+            cpu = _sample_state(twin, j)
+            row[n] = {f"cpu_{k}": _state_err(k, got[k], cpu[k],
+                                             before[n][k]) for k in got}
+            if rule is not None:
+                want = functional_oracle(rule, twin, j, before[n],
+                                         twins[j].grad.float(), aux, lr)
+                row[n].update({f"rule_{k}": _state_err(k, got[k], v,
+                                                       before[n][k])
+                               for k, v in want.items()})
+            bit_equal.append(bool(torch.equal(
+                dict(named)[n].detach().cpu(), twins[j].detach())))
+        errs.append(row)
+        opt.clear_grad()
+        twin.clear_grad()
+    problems = [f"{cls_name}: a loss is not finite: {losses}"] \
+        if not all(math.isfinite(v) for v in losses) else []
+    for s, row in enumerate(errs):
+        problems += [f"{cls_name} step {s}: {n} {k} error {v:.3e} > "
+                     f"{_err_gate(k)}"
+                     for n, e in row.items() for k, v in e.items()
+                     if not v <= _err_gate(k)]
+    out = {"class": cls_name, "kwargs": kwargs, "oracle_rule": rule,
+           "losses": losses, "step_ms": step_ms, "rel_err": errs,
+           "params_bit_equal_to_cpu": sum(bit_equal),
+           "params_compared": len(bit_equal), "problems": problems}
+    del model, opt
+    return out
+
+
+def train_lbfgs_run(kwargs, seed, x1, y1):
+    """LBFGS with a closure on the same model in float32: it writes its
+    float32 iterate into the parameters and keeps no master, so bf16
+    parameters would drop the steps below their resolution. Gate: the
+    loss after the steps below the first."""
+    import torch
+    import paddle_tpu_torch.optimizer as topt
+    from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
+
+    model = LlamaForCausalLM(
+        qwen2_0_5b(fused_head_loss=True, num_hidden_layers=TRAIN_OPTIM_LAYERS),
+        device="cuda", dtype=torch.float32, seed=seed)
+    opt = topt.LBFGS(parameters=list(model.named_parameters()), **kwargs)
+    evals = [0]
+
+    def closure():
+        evals[0] += 1
+        opt.clear_grad()
+        _, loss = model(x1, y1)
+        loss.backward()
+        return loss
+
+    losses, step_ms, step_evals = [], [], []
+    for _ in range(TRAIN_OPTIM_STEPS):
+        e0 = evals[0]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        losses.append(float(opt.step(closure).detach()))
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        step_evals.append(evals[0] - e0)
+    with torch.no_grad():
+        final = float(model(x1, y1)[1])
+    problems = []
+    if not all(math.isfinite(v) for v in losses + [final]):
+        problems.append(f"LBFGS: a loss is not finite: {losses}, {final}")
+    elif not final < losses[0]:
+        problems.append(f"LBFGS did not lower the loss: {losses[0]} -> "
+                        f"{final}")
+    out = {"class": "LBFGS", "kwargs": kwargs, "dtype": "float32",
+           "losses": losses, "final_loss": final, "step_ms": step_ms,
+           "closure_evals": step_evals, "history": len(opt._s),
+           "problems": problems}
+    del model, opt
+    return out
+
+
+def train_optim_phase(seed, x, y):
+    """Each class of TRAIN_OPTIM_CLASSES on a fresh model from the seed,
+    with the launch counters reset just before and read just after.
+    Gates: every loss finite; each sample's master and state within
+    TRAIN_OPTIM_RTOL of the class's CPU twin and of its functional rule
+    after every step; LBFGS lowering the loss; the flash forward and
+    backward launched once a layer and forward or backward pass, RMSNorm
+    2 L + 1 times a forward."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    x1, y1 = x[:1], y[:1]
+    torch.cuda.synchronize()
+    kernel_launch_stats(reset=True)
+    rows = []
+    for cls_name, kwargs, rule in TRAIN_OPTIM_CLASSES:
+        if cls_name == "LBFGS":
+            rows.append(train_lbfgs_run(kwargs, seed, x1, y1))
+        else:
+            rows.append(train_optim_run(cls_name, kwargs, rule, seed, x1,
+                                        y1))
+        release_device_memory()
+    torch.cuda.synchronize()
+    launches = kernel_launch_stats(reset=True)
+    problems = [p for r in rows for p in r["problems"]]
+    lbfgs = next(r for r in rows if r["class"] == "LBFGS")
+    backward = (len(TRAIN_OPTIM_CLASSES) - 1) * TRAIN_OPTIM_STEPS \
+        + sum(lbfgs["closure_evals"])
+    forward = backward + 1   # LBFGS's final loss, without a backward
+    n = TRAIN_OPTIM_LAYERS
+    want = {"flash_attention_fwd": n * forward,
+            "flash_attention_bwd_dkdv": n * backward,
+            "flash_attention_bwd_dq": n * backward,
+            "rms_norm": (2 * n + 1) * forward}
+    problems += launch_problems_of(launches, want, "train_optim")
+    emit("train_optim", model="qwen2_0_5b", layers=TRAIN_OPTIM_LAYERS,
+         batch=1, seq=int(x.shape[1]), steps=TRAIN_OPTIM_STEPS,
+         samples=list(TRAIN_SCHED_SAMPLE), rtol=TRAIN_OPTIM_RTOL,
+         runs=rows, launches=launches, launches_wanted=want,
+         problems=problems)
+    if problems:
+        raise RuntimeError("train_optim phase failed: " + "; ".join(problems))
+    return launches
 
 
 def train_profile_phase(model, opt, x, y):
@@ -6218,10 +6892,16 @@ def main(argv=None):
 
         x, y = train_batch(qwen2_0_5b())
         failed = []
-        try:
-            train_sched_phase(args.seed, x, y)
-        except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
-            failed.append({"run": "train_sched", "error": repr(e)[-2000:]})
+        phases = {"train_sched": train_sched_phase,
+                  "train_recompute": train_recompute_phase,
+                  "train_resume": train_resume_phase,
+                  "train_optim": train_optim_phase}
+        for name in names:
+            try:
+                phases[name](args.seed, x, y)
+            except Exception as e:  # noqa: BLE001 (recorded, not swallowed)
+                failed.append({"run": name, "error": repr(e)[-2000:]})
+            release_device_memory()
         emit("train_runs", runs=names, failed=[f["run"] for f in failed],
              errors=failed)
         return 1 if failed else 0
@@ -6243,11 +6923,17 @@ def main(argv=None):
     model, opt = build_trainer(args.seed)
     x, y = train_batch(model.config)
     train_check_phase(model, opt, x, y)
-    train_launches, train_step_ms = train_phase(model, opt, x, y)
+    train_launches, train_step_ms, train_reading = train_phase(model, opt,
+                                                               x, y)
     train_profile_phase(model, opt, x, y)
     del model, opt
     torch.cuda.empty_cache()
     sched_launches = train_sched_phase(args.seed, x, y, train_step_ms)
+    release_device_memory()
+    recompute_launches = train_recompute_phase(args.seed, x, y,
+                                               train_reading)
+    resume_launches = train_resume_phase(args.seed, x, y)
+    optim_launches = train_optim_phase(args.seed, x, y)
 
     def case_times(c):
         return {"case": c["case"], "ms": c["kernel_ms"],
@@ -6260,6 +6946,9 @@ def main(argv=None):
                    (*serve_launches.items(), *gen_launches.items(),
                     ("train", train_launches),
                     ("train_sched", sched_launches),
+                    ("train_recompute", recompute_launches),
+                    ("train_resume", resume_launches),
+                    ("train_optim", optim_launches),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}

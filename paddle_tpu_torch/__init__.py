@@ -14,4 +14,5 @@ __version__ = "0.1.0"
 from . import device, inference, models, nn, regularizer  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401
+from .framework.io import load, save  # noqa: F401
 from .ops.kernels import kernel_launch_stats  # noqa: F401

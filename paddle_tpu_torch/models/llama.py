@@ -4,7 +4,8 @@ of both paths — embedding, per layer RMSNorm -> q/k/v projections ->
 attention -> o_proj -> SwiGLU MLP, final norm, LM head (untied or tied).
 
 The dense whole-sequence ``forward`` is the training path: RoPE, the
-flash-attention kernels, and with ``labels`` the next-token loss, either
+flash-attention kernels (each decoder layer a recomputed region when
+``config.recompute``), and with ``labels`` the next-token loss, either
 through the chunked fused CE head (``fused_head_loss``, no logits) or
 through ``LlamaPretrainingCriterion`` over full logits. The paged
 serving adapter (``inference/paged_llama.py``) drives the same modules'
@@ -29,6 +30,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -56,9 +58,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    # activation recompute in the backward: not ported yet (must stay
-    # False)
     recompute: bool = False
+    # "full" replays the whole layer in backward; "selective"/
+    # "core_attn"/"dots" keep matmul outputs and replay only the glue
+    # (and the kernels); "dots_with_no_batch_dims" keeps mm/addmm only
+    # (upstream recompute_granularity — fleet/recompute)
+    recompute_granularity: str = "full"
     # chunked fused linear+CE loss head: never materializes the [T, V]
     # logits (ops/kernels/fused_loss.py); forward returns (None, loss)
     fused_head_loss: bool = False
@@ -361,8 +366,13 @@ class LlamaModel(nn.Module):
         cos, sin = build_rope_cache(h.shape[1], cfg.head_dim,
                                     base=cfg.rope_theta, dtype=torch.float32,
                                     device=h.device)
-        for layer in self.layers:
-            h = layer(h, cos, sin)
+        if cfg.recompute:
+            for layer in self.layers:
+                h = recompute(layer, h, cos, sin,
+                              granularity=cfg.recompute_granularity)
+        else:
+            for layer in self.layers:
+                h = layer(h, cos, sin)
         return self.norm(h)
 
     def decode_step(self, input_ids, caches, pos):
@@ -409,8 +419,6 @@ class LlamaForCausalLM(nn.Module):
         if config.num_local_experts:
             raise NotImplementedError(
                 "Mixtral MoE layers are not ported yet")
-        if config.recompute:
-            raise NotImplementedError("recompute is not ported yet")
         device = resolve_device(device)
         if dtype is None:
             dtype = _DTYPES[config.dtype or "float32"]

@@ -3,5 +3,5 @@ from .flash_attention import (  # noqa: F401
     flash_attn_unpadded,
     flash_attn_varlen_func,
 )
-from .loss import cross_entropy  # noqa: F401
+from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .norm import rms_norm  # noqa: F401

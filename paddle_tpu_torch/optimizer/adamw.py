@@ -1,4 +1,4 @@
-"""AdamW of the port (counterpart of the reference's
+"""AdamW and Adam of the port (counterpart of the reference's
 ``optimizer/adamw.py``), with the reference's semantics:
 
 * with ``multi_precision`` (the default), bf16/fp16 parameters keep a
@@ -11,7 +11,8 @@
   (the last stamped by a ``ParamAttr``, 1 without one), in float32;
 * decoupled decay ``p32 *= 1 - lr * coeff`` (0 where
   ``apply_decay_param_fun(name)`` is false), then
-  ``p32 -= lr * m_hat / (sqrt(v_hat) + eps)``.
+  ``p32 -= lr * m_hat / (sqrt(v_hat) + eps)``; ``Adam`` folds the decay
+  into the gradient instead (``g32 += coeff * p32``).
 
 The update is torch code: ``torch._foreach_*`` over the parameters that
 share the same scalars (normally all of them), where the reference lets
@@ -27,6 +28,8 @@ from .optimizer import Optimizer
 
 
 class AdamW(Optimizer):
+    _accum_names = ("moment1", "moment2")
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
@@ -41,16 +44,13 @@ class AdamW(Optimizer):
         super().__init__(learning_rate, parameters,
                          weight_decay if weight_decay is not None else 0.0,
                          grad_clip, name, multi_precision)
-        self._master, self._moment1, self._moment2 = [], [], []
-        for p in self._parameter_list:
-            master = p.detach().float() if self._use_master(p) else None
-            state_dtype = torch.float32 if master is not None else p.dtype
-            self._master.append(master)
-            self._moment1.append(torch.zeros_like(p, dtype=state_dtype))
-            self._moment2.append(torch.zeros_like(p, dtype=state_dtype))
-        n = len(self._parameter_list)
-        self._beta1_pow = [np.float32(self._beta1)] * n
-        self._beta2_pow = [np.float32(self._beta2)] * n
+        self._moment1 = self._accums["moment1"]
+        self._moment2 = self._accums["moment2"]
+        self._beta1_pow = self._aux_scalars("beta1_pow_acc_0", self._beta1)
+        self._beta2_pow = self._aux_scalars("beta2_pow_acc_0", self._beta2)
+
+    def _decoupled(self):
+        return True
 
     def _scalars(self, i):
         """(lr_eff, decay coeff, beta1_pow, beta2_pow) of parameter i."""
@@ -79,17 +79,6 @@ class AdamW(Optimizer):
             self._beta1_pow[i] = self._beta1_pow[i] * np.float32(self._beta1)
             self._beta2_pow[i] = self._beta2_pow[i] * np.float32(self._beta2)
 
-    def _state_items(self):
-        tensors, masters, scalars = {}, {}, {}
-        for i, name in enumerate(self._names):
-            tensors[f"{name}_moment1_0"] = self._moment1[i]
-            tensors[f"{name}_moment2_0"] = self._moment2[i]
-            scalars[f"{name}_beta1_pow_acc_0"] = (self._beta1_pow, i)
-            scalars[f"{name}_beta2_pow_acc_0"] = (self._beta2_pow, i)
-            if self._master[i] is not None:
-                masters[f"{name}_fp32_master_0"] = self._master[i]
-        return tensors, masters, scalars
-
     def _update(self, idx, grads, lr, coeff, b1p, b2p):
         b1, b2 = self._beta1, self._beta2
         params = [self._parameter_list[i] for i in idx]
@@ -101,8 +90,10 @@ class AdamW(Optimizer):
         m32 = [self._moment1[i].float() for i in idx]
         v32 = [self._moment2[i].float() for i in idx]
         g32 = [g.float() for g in grads]
-        if coeff:
+        if coeff and self._decoupled():
             torch._foreach_mul_(p32, 1.0 - lr * coeff)
+        elif coeff:  # Adam's L2: the decay folded into the gradient
+            g32 = torch._foreach_add(g32, torch._foreach_mul(p32, coeff))
         torch._foreach_mul_(m32, b1)
         torch._foreach_add_(m32, g32, alpha=1.0 - b1)
         torch._foreach_mul_(v32, b2)
@@ -119,3 +110,20 @@ class AdamW(Optimizer):
             if m is not self._moment1[i]:
                 self._moment1[i].copy_(m)
                 self._moment2[i].copy_(v)
+
+
+class Adam(AdamW):
+    """Adam with the classic (coupled) L2 decay: ``g += coeff * p`` (the
+    master) before the moments, as the reference's ``Adam``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay if weight_decay is not None else 0.0,
+                         None, None, grad_clip, lazy_mode, multi_precision,
+                         name)
+
+    def _decoupled(self):
+        return False

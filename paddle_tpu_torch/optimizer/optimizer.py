@@ -17,15 +17,27 @@ the update; ``weight_decay`` is a float or a regularizer
 (``regularizer.py``), read through its ``_coeff``: an ``L1Decay`` is a
 coefficient like an ``L2Decay``'s, as in the reference (AdamW's decay is
 decoupled, ``p *= 1 - lr * coeff``, whichever class carries it).
+
+State is created at construction, as in the reference: with
+``multi_precision`` a float32 master of every bf16/fp16 parameter, and
+one zero accumulator of each of the class's ``_accum_names`` a
+parameter (float32 beside a master, else in the parameter's dtype).
+Per-parameter scalars (beta powers, step counts) are numpy float32
+values on the host (:meth:`_aux_scalars`). ``state_dict`` keys are the
+reference's: ``<name>_<accum>_0``, ``<name>_<aux>``, and the masters
+``<name>_fp32_master_0`` under ``master_weights``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .lr import LRScheduler
 
 
 class Optimizer:
+    _accum_names: tuple = ()
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=True):
@@ -54,6 +66,67 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._weight_decay = weight_decay
         self._multi_precision = multi_precision
+        self._create_accumulators()
+
+    def _create_accumulators(self):
+        self._master = [p.detach().float() if self._use_master(p) else None
+                        for p in self._parameter_list]
+        self._accums = {
+            name: [torch.zeros_like(p, dtype=torch.float32 if m is not None
+                                    else p.dtype)
+                   for p, m in zip(self._parameter_list, self._master)]
+            for name in self._accum_names}
+        self._aux = {}
+
+    def _aux_scalars(self, key, init):
+        """A host float32 scalar ``<name>_<key>`` for every parameter,
+        starting at ``init``: the list, indexed like the parameters."""
+        lst = [np.float32(init)] * len(self._parameter_list)
+        self._aux[key] = lst
+        return lst
+
+    def _refuse_ignored(self, what, rate=False, decay=False, clip=False):
+        """``NotImplementedError`` for the options the reference's
+        ``what`` accepts and never reads: a ``ParamAttr`` learning rate
+        other than 1, a weight decay, a gradient clip."""
+        if rate:
+            for name, p in zip(self._names, self._parameter_list):
+                r = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+                if r != 1.0:
+                    raise NotImplementedError(
+                        f"{what}: parameter {name} has a ParamAttr "
+                        f"learning rate {r}, which the reference's {what} "
+                        "never reads")
+        if decay and self._decay_coeff():
+            raise NotImplementedError(
+                f"{what}: weight_decay is accepted and never read by the "
+                f"reference's {what}")
+        if clip and self._grad_clip is not None:
+            raise NotImplementedError(
+                f"{what}: grad_clip is accepted and never read by the "
+                f"reference's {what}")
+
+    def _p32(self, i):
+        """Parameter i in float32: its master, or the parameter itself
+        (widened when it is not float32)."""
+        if self._master[i] is not None:
+            return self._master[i]
+        return self._parameter_list[i].float()
+
+    def _commit(self, i, p_new, master=True):
+        """Parameter i (and its master, unless ``master`` is False) set
+        to the float32 ``p_new``."""
+        if master and self._master[i] is not None:
+            self._master[i].copy_(p_new)
+        self._parameter_list[i].copy_(p_new)
+
+    def _put(self, name, i, new):
+        """Accumulator ``name`` of parameter i set to ``new`` (cast to
+        its dtype)."""
+        self._accums[name][i].copy_(new)
+
+    def _acc32(self, name, i):
+        return self._accums[name][i].float()
 
     def _use_master(self, param):
         return self._multi_precision and param.dtype in (torch.bfloat16,
@@ -101,6 +174,11 @@ class Optimizer:
         self._apply(live, grads)
 
     def _apply(self, indices, grads):
+        lr = np.float32(self._learning_rate)
+        for i, g in zip(indices, grads):
+            self._apply_one(i, g, lr)
+
+    def _apply_one(self, i, grad, lr):
         raise NotImplementedError
 
     # -- state dict --------------------------------------------------------
@@ -109,7 +187,15 @@ class Optimizer:
         tensors and the float32 masters, ``{key: tensor}`` under the
         reference's key names, and the host scalars, ``{key: (list,
         index)}``."""
-        return {}, {}, {}
+        tensors, masters, scalars = {}, {}, {}
+        for i, name in enumerate(self._names):
+            for acc in self._accum_names:
+                tensors[f"{name}_{acc}_0"] = self._accums[acc][i]
+            for key, lst in self._aux.items():
+                scalars[f"{name}_{key}"] = (lst, i)
+            if self._master[i] is not None:
+                masters[f"{name}_fp32_master_0"] = self._master[i]
+        return tensors, masters, scalars
 
     def state_dict(self):
         """The per-parameter state under the reference's key names

@@ -103,14 +103,26 @@ def test_adapter_follows_the_model_device():
 
 
 def test_dense_forward_waits_for_the_flash_kernel():
-    """The dense forward runs now (the flash kernels are ported); what
-    it still waits for, recompute, raises."""
+    """The dense forward runs now (the flash kernels are ported), under
+    recompute too; what recompute still refuses raises: an unknown
+    granularity (``ValueError``, as the reference) and offloading
+    (``NotImplementedError``)."""
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
     assert tuple(m(torch.zeros(1, 4, dtype=torch.long)).shape) == (
         1, 4, 512)
+    rc = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, recompute=True),
+                          device="cpu")
+    assert tuple(rc(torch.zeros(1, 4, dtype=torch.long)).shape) == (
+        1, 4, 512)
+    bogus = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, recompute=True,
+                                        recompute_granularity="bogus"),
+                             device="cpu")
+    with pytest.raises(ValueError, match="granularity"):
+        bogus(torch.zeros(1, 4, dtype=torch.long))
+    from paddle_tpu_torch.distributed.fleet.recompute import recompute
     with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(llama_tiny(num_hidden_layers=1, recompute=True),
-                         device="cpu")
+        recompute(m.model.layers[0].mlp, torch.zeros(1, 4, 128),
+                  offload_indices=[0])
 
 
 def test_scan_covers_the_training_slice():
@@ -120,7 +132,7 @@ def test_scan_covers_the_training_slice():
     for rel in ("optimizer/adamw.py", "optimizer/optimizer.py",
                 "nn/functional/loss.py", "nn/functional/flash_attention.py",
                 "incubate/nn/functional.py", "ops/kernels/fused_loss.py",
-                "ops/kernels/flash_attention.py"):
+                "ops/kernels/flash_attention.py") + SLICE_16:
         assert f"paddle_tpu_torch/{rel}" in scanned
 
 
@@ -216,10 +228,13 @@ def test_scan_covers_the_host_planes():
 
 
 @pytest.mark.parametrize("call", [
+    # soft labels with an ignore_index or a class weight: the reference
+    # accepts both there and reads neither
     lambda: pt.nn.functional.cross_entropy(
-        torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True),
+        torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True,
+        ignore_index=1),
     lambda: pt.nn.functional.cross_entropy(
-        torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
+        torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True,
         weight=torch.ones(3)),
     lambda: pt.nn.functional.flash_attention(
         *[torch.zeros(1, 4, 2, 64)] * 3, dropout=0.5),
@@ -308,6 +323,46 @@ def test_unported_param_attr_options_raise(attr):
     if not isinstance(attr(), (str, bool)):
         with pytest.raises(NotImplementedError):
             pt.nn.RMSNorm(4, weight_attr=attr(), device="cpu")
+
+
+SLICE_16 = ("distributed/fleet/recompute/recompute.py",
+            "distributed/fleet/recompute/__init__.py", "framework/io.py",
+            "optimizer/momentum.py", "optimizer/extra.py",
+            "optimizer/functional.py")
+
+
+def test_scan_covers_recompute_io_and_the_other_optimizers():
+    """Recompute, save/load and the other optimizers are among the files
+    the AST scan checks, and importing them and training a recomputed
+    step, saving and loading its state and stepping each optimizer loads
+    no JAX and nothing of the JAX package."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in SLICE_16:
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    code = ("import os, sys, tempfile, torch\n"
+            "import paddle_tpu_torch as pt\n"
+            "import paddle_tpu_torch.optimizer as opt\n"
+            "from paddle_tpu_torch.models import LlamaForCausalLM, "
+            "llama_tiny\n"
+            "m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, "
+            "recompute=True, recompute_granularity='selective'), "
+            "device='cpu')\n"
+            "x = torch.zeros(1, 4, dtype=torch.long)\n"
+            "for cls in ('Momentum', 'Lamb', 'NAdam', 'Rprop'):\n"
+            "    o = getattr(opt, cls)(0.01, parameters=m.parameters())\n"
+            "    m(x, x)[1].backward()\n"
+            "    o.step()\n"
+            "    o.clear_grad()\n"
+            "d = tempfile.mkdtemp()\n"
+            "pt.save(o.state_dict(), os.path.join(d, 's'))\n"
+            "o.set_state_dict(pt.load(os.path.join(d, 's'), device='cpu'))\n"
+            "print([m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 SLICE_15 = ("ops/kernels/quant.py", "nn/quant/__init__.py",

@@ -158,11 +158,16 @@ def test_float32_oracle_matches_the_step(shape):
 
 
 def test_logits_without_labels_and_recompute_raises():
+    """Logits without labels; recompute now runs, and what it refuses
+    raises: an unknown granularity, as in the reference."""
     _, tm = _pair("llama", False)
     x, _ = _batch(tm.config.vocab_size)
     assert tuple(tm(torch.from_numpy(x)).shape) == (B, S, 256)
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(llama_tiny(recompute=True), device="cpu")
+    m = LlamaForCausalLM(llama_tiny(recompute=True,
+                                    recompute_granularity="offload"),
+                         device="cpu")
+    with pytest.raises(ValueError, match="granularity"):
+        m(torch.from_numpy(x))
 
 
 def test_num_params_matches_the_reference_and_the_model():

@@ -297,6 +297,26 @@ def test_clip_grad_norm_matches(norm_type, max_norm):
     _grads_close([(q, q.grad) for q in tp], [(p, p.grad) for p in jp])
     single = torch.nn.Parameter(torch.zeros(2))
     assert float(tclip.clip_grad_norm_(single, 1.0)) == 0.0
+    # bf16 gradients: the norm in float32, the scaled gradients rounded
+    # back to bf16 once; at norm types 2 and inf the reference's bits
+    jpairs, tpairs = _grads(3, "bfloat16")
+    jp = [p for p, _ in jpairs]
+    tp = [torch.nn.Parameter(torch.zeros(h.shape, dtype=torch.bfloat16))
+          for _, h in tpairs]
+    for (p, g), q, (_, h) in zip(jpairs, tp, tpairs):
+        p.grad = g
+        q.grad = h.clone()
+    jt = jclip.clip_grad_norm_(jp, max_norm, norm_type)
+    tt = tclip.clip_grad_norm_(tp, max_norm, norm_type)
+    assert float(tt) == pytest.approx(float(np.asarray(jt._data)), rel=1e-6)
+    for p, q in zip(jp, tp):
+        assert q.grad.dtype == torch.bfloat16
+        want = np.asarray(p.grad._data.astype(jnp.float32))
+        if norm_type in (2.0, float("inf")):
+            np.testing.assert_array_equal(q.grad.float().numpy(), want)
+        else:   # a float32 norm an ulp apart may round a value apart
+            np.testing.assert_allclose(q.grad.float().numpy(), want,
+                                       rtol=2.0 ** -8, atol=0)
 
 
 # -- regularizers and ParamAttr --------------------------------------------
