@@ -125,7 +125,17 @@ It prints one JSON line per phase:
    a seeded quarter of the positions: every committed token the
    target's argmax, the self-draft accepting >= 80%, the spoiled one
    rejected in mid-window at least once and at its first spoiled
-   position in >= 80% of its windows);
+   position in >= 80% of its windows); and ``generate_jit``:
+   ``generate``'s greedy run and ``generate_beam``'s beam run with
+   ``use_jit=True`` beside ``use_jit=False`` (the decode step a
+   captured CUDA graph: tokens equal token for token, the prefill
+   recorded and never captured, the decode step captured at its second
+   call and replayed from there, the ids and the position copied into
+   its buffers on each of those calls and never a cache, 2 L + 1
+   RMSNorm launches a step by the replay accounting and one profiled
+   replay, two rows against the float32 oracle; the decode step's
+   device ms, host ms in the call and the loop's period, and each
+   ``generate`` call's wall, both ways);
 9. ``train_check``: Qwen2-0.5B at its published shape (random bf16
    weights from the seed, fused CE head): the loss and every
    parameter's gradient on one 2048-token sequence against the float32
@@ -163,7 +173,23 @@ It prints one JSON line per phase:
    masters: ``opt.step()`` ms, three parameters' masters and state
    against the same class on the CPU and against its functional rule
    (``optimizer/functional.py``) within 1e-6, LBFGS (float32, a
-   closure, strong Wolfe) lowering the loss, exact launches.
+   closure, strong Wolfe) lowering the loss, exact launches;
+16. ``train_static``: ``train_sched``'s configuration with the step as
+   ``bench.py:383-389`` writes it under ``jit.to_static``: one recorded
+   call, then the capture at the second call and 6 replays in all, each
+   call on a new seeded batch, beside the eager step from the same
+   weights: every loss and the final parameters, masters and moments
+   bit for bit (or relative L2 1e-6 with the bit-for-bit count), every
+   batch as it was made (no call writes a tensor its caller holds),
+   each step's rate read back from the optimizer's device tensor against
+   the closed form, one compile event and 7 execution stamps,
+   ``arg_copies`` x and y a call from the second, a step that leaves
+   its gradients to the caller (``grad_static_check``) giving the eager
+   gradients bit for bit after every call, a replay's
+   launches (#3, #4, #5 L each, #1 2 L + 1) checked under the profiler,
+   the plan's ``hbm_peak_bytes`` within 0.5-2x of the recorded call's
+   peak; step ms both ways, capture seconds, the graph pool's bytes, the
+   plan's flops beside ``bench.py``'s count.
 
 Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
@@ -203,7 +229,10 @@ admitting quantized weights) on ``QUANT_SERVE_RUNS`` at two layers and
 handing over a step late, the recompute replay reading RoPE a position
 late, ``save`` writing bf16 through fp16, Nesterov momentum without its
 look-ahead, LBFGS ascending) on ``--train-runs`` of the run each may
-break, each required to fail its named run at its named gate.
+break, each required to fail its named run at its named gate; with them
+three faults of the compiled step (AdamW's bias correction from a host
+power baked at capture, a replay that skips the argument copy, the
+planner never freeing an intermediate) on ``train_static``.
 ``--train-runs NAMES`` builds the kernels and runs only those training
 runs (names of ``TRAIN_RUN_NAMES``), listing each failed run in a
 ``train_runs`` line.
@@ -214,7 +243,11 @@ failed run in a ``gen_runs`` line; ``--fault-check`` also plants
 ``--gen-runs`` on them at two layers. ``--serve-ab DIR`` serves the
 ``serve`` run from another checkout (an unpacked earlier tree) and from
 this one in turns (DIR, this, this, DIR), each in a child process, on
-one ``serve_ab`` line.
+one ``serve_ab`` line. ``--fault-check GROUPS`` plants only the faults
+of those groups (``FAULT_GROUPS``: ``flash``, ``paged``, ``norm``,
+``serve``, ``spec``, ``plane``, ``front``, ``quant``, ``train``,
+``gen``) or of those names, so that the whole check can be split over
+calls.
 """
 from __future__ import annotations
 
@@ -1609,16 +1642,24 @@ GEN_FAULTS = [
     # the decode step writes the new tokens' K/V one slot late: each
     # token misses its own key and reads an empty slot
     ("decode_kv_one_slot_late", _LLAMA_PY,
-     "        cache_k[:, step.pos:step.pos + s] = k\n"
-     "        cache_v[:, step.pos:step.pos + s] = v\n",
-     "        cache_k[:, step.pos + 1:step.pos + 1 + s] = k\n"
-     "        cache_v[:, step.pos + 1:step.pos + 1 + s] = v\n",
-     ("generate", "generate_beam", "spec_generate")),
+     "            cache_k[:, step.pos:step.pos + s] = k\n"
+     "            cache_v[:, step.pos:step.pos + s] = v\n",
+     "            cache_k[:, step.pos + 1:step.pos + 1 + s] = k\n"
+     "            cache_v[:, step.pos + 1:step.pos + 1 + s] = v\n",
+     ("generate", "generate_beam", "spec_generate", "generate_jit")),
     # beam search keeps the caches on their old lanes after a re-index
     ("beam_skips_cache_reindex", _GENERATION_PY,
-     "            caches = [(ck.index_select(0, lane), cv.index_select(0, lane))"
-     "\n                      for ck, cv in caches]\n", "",
-     ("generate_beam",)),
+     "            for ck, cv in caches:\n"
+     "                ck.copy_(ck.index_select(0, lane))\n"
+     "                cv.copy_(cv.index_select(0, lane))\n", "",
+     ("generate_beam", "generate_jit")),
+    # the decode step reads its device position on the host, where a
+    # captured graph would keep the value the capture read: refused
+    ("decode_pos_read_on_the_host", _LLAMA_PY,
+     "        slots = pos.to(kpos.dtype) + torch.arange(s, device=kpos.device)"
+     "\n",
+     "        slots = torch.arange(s, device=kpos.device) + int(pos)\n",
+     ("generate_jit",)),
     # after a full acceptance the draft never consumes its last proposal:
     # a hole in the draft cache every such round
     ("spec_draft_cache_hole", _GENERATION_PY,
@@ -1784,6 +1825,9 @@ _RECOMPUTE_PY = "paddle_tpu_torch/distributed/fleet/recompute/recompute.py"
 _IO_PY = "paddle_tpu_torch/framework/io.py"
 _MOMENTUM_PY = "paddle_tpu_torch/optimizer/momentum.py"
 _EXTRA_PY = "paddle_tpu_torch/optimizer/extra.py"
+_ADAMW_PY = "paddle_tpu_torch/optimizer/adamw.py"
+_JIT_API_PY = "paddle_tpu_torch/jit/api.py"
+_PLANNER_PY = "paddle_tpu_torch/framework/planner.py"
 TRAIN_FAULTS = [
     # the global-norm clip never scales (its norm is still right)
     ("clip_scale_forced_to_one", _CLIP_PY,
@@ -1823,6 +1867,31 @@ TRAIN_FAULTS = [
     ("lbfgs_ascends", _EXTRA_PY, "            d = -q\n",
      "            d = q\n", ("train_optim",), "train_optim",
      "did not lower"),
+    # AdamW's bias corrections from a host power: right eagerly, baked at
+    # capture (every replay reuses the capture's step count)
+    ("adamw_bias_correction_from_a_host_power", _ADAMW_PY,
+     "        c1 = torch._foreach_neg([self._beta1_pow[i] for i in idx])\n"
+     "        torch._foreach_add_(c1, 1.0)\n"
+     "        c2 = torch._foreach_neg([self._beta2_pow[i] for i in idx])\n"
+     "        torch._foreach_add_(c2, 1.0)\n",
+     "        self._hp = getattr(self, '_hp', {})\n"
+     "        for i in idx:\n"
+     "            self._hp[i] = self._hp.get(i, 0) + 1\n"
+     "        c1 = [torch.full((), 1.0 - b1 ** self._hp[i], device=m.device)"
+     "\n              for i, m in zip(idx, m32)]\n"
+     "        c2 = [torch.full((), 1.0 - b2 ** self._hp[i], device=m.device)"
+     "\n              for i, m in zip(idx, m32)]\n",
+     ("train_static",), "train_static", "bit for bit"),
+    # a replay reads the capture's batch: an argument at a new address is
+    # not copied into the graph's buffer
+    ("replay_skips_the_argument_copy", _JIT_API_PY,
+     "                buf.copy_(t)\n", "", ("train_static",), "train_static",
+     "bit for bit"),
+    # the planner's lifetime pass never frees an intermediate
+    ("lifetime_pass_never_frees", _PLANNER_PY,
+     "                live -= nb\n                transient -= nb\n",
+     "                pass\n", ("train_static",), "train_static",
+     "plan hbm_peak_bytes"),
 ]
 
 
@@ -1866,16 +1935,35 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
     return line
 
 
-def fault_check_phase():
+FAULT_GROUPS = ("flash", "paged", "norm", "serve", "spec", "plane", "front",
+                "quant", "train", "gen")
+
+
+def fault_check_phase(groups=None):
     """Plants each fault of FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
     SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS, QUANT_FAULTS,
     TRAIN_FAULTS and GEN_FAULTS in a copy of the repository and runs its
     cases there; fails unless every fault fails a gate, a paged, norm,
     serving or generation fault only in the cases it may fail, and a
     speculative serving, host-plane, serving-front, quantized serving or
-    training-option fault in its named run at its named gate."""
+    training-option fault in its named run at its named gate. With
+    ``groups`` (names of FAULT_GROUPS or of single faults), only those
+    groups' faults and those faults."""
+    names = {f[0] for g in (FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
+                            SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS,
+                            FRONT_FAULTS, QUANT_FAULTS, TRAIN_FAULTS,
+                            GEN_FAULTS) for f in g}
+    if groups is not None and set(groups) - set(FAULT_GROUPS) - names:
+        raise ValueError(f"unknown fault groups or faults "
+                         f"{set(groups) - set(FAULT_GROUPS) - names}")
+
+    def of(group, faults):
+        if groups is None or group in groups:
+            return faults
+        return [f for f in faults if f[0] in groups]
+
     results, missed = [], []
-    for name, source, old, new, cases in FLASH_FAULTS:
+    for name, source, old, new, cases in of("flash", FLASH_FAULTS):
         line = _run_with_fault(name, source, old, new, "--flash-cases",
                                cases, "flash_cases")
         results.append({"fault": name, "failed": line["failed"],
@@ -1884,7 +1972,7 @@ def fault_check_phase():
                             for k in line["kernels"] for c in k["cases"]}})
         if not line["failed"]:
             missed.append(name)
-    for name, source, old, new, broken in PAGED_FAULTS:
+    for name, source, old, new, broken in of("paged", PAGED_FAULTS):
         line = _run_with_fault(name, source, old, new, "--attn-cases",
                                _PAGED_FAULT_CASES, "attn_cases")
         results.append({"fault": name, "may_fail": list(broken),
@@ -1897,7 +1985,7 @@ def fault_check_phase():
                 for f in line["failed"]):
             missed.append(name)
     norm_names = [name for _, name, _ in NORM_CASES]
-    for name, source, old, new, broken in NORM_FAULTS:
+    for name, source, old, new, broken in of("norm", NORM_FAULTS):
         line = _run_with_fault(name, source, old, new, "--norm-cases",
                                norm_names, "norm_cases")
         kind = {f"{k['name']}:{c['case']}": f"{k['name']}:{c['plan']['kind']}"
@@ -1910,7 +1998,7 @@ def fault_check_phase():
         if not line["failed"] or any(kind[f] not in broken
                                      for f in line["failed"]):
             missed.append(name)
-    for name, source, old, new, broken in SERVE_FAULTS:
+    for name, source, old, new, broken in of("serve", SERVE_FAULTS):
         line = _run_with_fault(name, source, old, new, "--serve-runs",
                                _SERVE_FAULT_RUNS, "serve_runs",
                                extra=("--layers", "2"))
@@ -1919,9 +2007,11 @@ def fault_check_phase():
         if not line["failed"] or set(line["failed"]) - set(broken):
             missed.append(name)
     for name, source, old, new, broken, must, gate, runs, depth in (
-            [(*f, _SPEC_FAULT_RUNS, "4") for f in SPEC_FAULTS]
-            + [(*f, _PLANE_FAULT_RUNS, "2") for f in PLANE_FAULTS]
-            + [(*f, _FRONT_FAULT_RUNS, "2") for f in FRONT_FAULTS]):
+            [(*f, _SPEC_FAULT_RUNS, "4") for f in of("spec", SPEC_FAULTS)]
+            + [(*f, _PLANE_FAULT_RUNS, "2")
+               for f in of("plane", PLANE_FAULTS)]
+            + [(*f, _FRONT_FAULT_RUNS, "2")
+               for f in of("front", FRONT_FAULTS)]):
         line = _run_with_fault(name, source, old, new, "--serve-runs",
                                runs, "serve_runs",
                                extra=("--layers", depth))
@@ -1935,9 +2025,9 @@ def fault_check_phase():
     for name, source, old, new, broken, must, gate, option, runs, phase, \
             extra in (
             [(*f, "--serve-runs", _QUANT_FAULT_RUNS, "serve_runs",
-              ("--layers", "2")) for f in QUANT_FAULTS]
+              ("--layers", "2")) for f in of("quant", QUANT_FAULTS)]
             + [(*f, "--train-runs", f[4], "train_runs", ())
-               for f in TRAIN_FAULTS]):
+               for f in of("train", TRAIN_FAULTS)]):
         line = _run_with_fault(name, source, old, new, option, runs, phase,
                                extra=extra)
         results.append({"fault": name, "may_fail": list(broken),
@@ -1947,7 +2037,7 @@ def fault_check_phase():
                      for e in line["errors"])
         if not caught or set(line["failed"]) - set(broken):
             missed.append(name)
-    for name, source, old, new, broken in GEN_FAULTS:
+    for name, source, old, new, broken in of("gen", GEN_FAULTS):
         line = _run_with_fault(name, source, old, new, "--gen-runs",
                                GEN_RUN_NAMES, "gen_runs",
                                extra=("--layers", "2"))
@@ -1955,7 +2045,8 @@ def fault_check_phase():
                         "failed": line["failed"], "errors": line["errors"]})
         if not line["failed"] or set(line["failed"]) - set(broken):
             missed.append(name)
-    emit("fault_check", tolerance=FLASH_TOL, faults=results, missed=missed)
+    emit("fault_check", groups=groups or "all", tolerance=FLASH_TOL,
+         faults=results, caught=len(results) - len(missed), missed=missed)
     if missed:
         raise RuntimeError(f"planted faults pass the gates, or fail a "
                            f"kernel they did not break: {missed}")
@@ -5044,7 +5135,7 @@ def profile_phase(adapter, prompts, phase="profile", ranges=()):
 # (its weights through an HF-layout state dict into a fresh model), then
 # greedy, sampled, beam and speculative decoding with the loaded model.
 GEN_RUN_NAMES = ["hf_load", "generate", "generate_sample", "generate_beam",
-                 "spec_generate"]
+                 "spec_generate", "generate_jit"]
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 64
 SAMPLE_OPTS = {"do_sample": True, "temperature": 0.8, "top_k": 50,
                "top_p": 0.9, "repetition_penalty": 1.1}
@@ -5476,6 +5567,243 @@ def generate_beam_run(model, prompts, greedy_ref, greedy_out):
     return launches
 
 
+class TimedSteps:
+    """Times each call of a decode step (``fn``): CUDA events around it
+    (the device's time) and the host clock inside it (what the host
+    spends to issue it), and keeps the last position's float32 logits."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, input_ids, caches, pos):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        logits, caches = self.fn(input_ids, caches, pos)
+        host = time.perf_counter() - t0
+        end.record()
+        self.calls.append({"t0": t0, "host_ms": host * 1e3,
+                           "last": logits[:, -1].float(),
+                           "events": (start, end)})
+        return logits, caches
+
+    def step_ms(self):
+        """Decode steps only (the first call is the prefill): device ms,
+        host ms inside the call, and the loop's period (host ms from one
+        call's start to the next's)."""
+        import numpy as np
+
+        dev = [c["events"][0].elapsed_time(c["events"][1])
+               for c in self.calls[1:]]
+        host = [c["host_ms"] for c in self.calls[1:]]
+        period = [(b["t0"] - a["t0"]) * 1e3
+                  for a, b in zip(self.calls[1:], self.calls[2:])]
+
+        def stats(xs):
+            return {"median": float(np.median(xs)),
+                    "p90": float(np.percentile(xs, 90)), "max": max(xs)}
+        return {"device": stats(dev), "host_in_call": stats(host),
+                "period": stats(period),
+                "prefill_device_ms": self.calls[0]["events"][0]
+                .elapsed_time(self.calls[0]["events"][1])}
+
+
+@contextlib.contextmanager
+def timed_decode(model, use_jit):
+    """Times every decode step of the generate calls in the block: the
+    model's ``decode_step`` (eager), or each ``jit.to_static`` of it that
+    ``generate(use_jit=True)`` makes, in a :class:`TimedSteps`. Yields
+    the list of them (with ``.static``: the StaticFunction)."""
+    from paddle_tpu_torch import jit
+
+    made = []
+    if not use_jit:
+        made.append(TimedSteps(model.decode_step))
+        model.decode_step = made[-1]
+        try:
+            yield made
+        finally:
+            del model.decode_step
+        return
+    to_static = jit.to_static
+
+    def spy(fn, **kw):
+        timed = TimedSteps(to_static(fn, **kw))
+        timed.static = timed.fn
+        made.append(timed)
+        return timed
+
+    jit.to_static = spy
+    try:
+        yield made
+    finally:
+        jit.to_static = to_static
+
+
+def capture_refusal_check():
+    """A kernel launch that the C entry refuses while a step is being
+    captured (the RMSNorm wrapper handed a plan the library has no kernel
+    for, at capture only) must raise out of the compiled call through
+    ``_build.check``, and a later compile must capture cleanly. Returns
+    ``{"error": ..., "after": ..., "problem": ...}``."""
+    import torch
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.jit import program
+
+    # the module (the package exports its rms_norm function by that name)
+    norm = importlib.import_module("paddle_tpu_torch.ops.kernels.rms_norm")
+    plan_args = norm._plan_args
+
+    def refused_at_capture(x2, *params):
+        args = plan_args(x2, *params)
+        return (7,) + args[1:] if program.capturing() else args
+
+    x = torch.randn(8, 4096, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+    out = {"error": None, "after": None, "problem": None}
+    norm._plan_args = refused_at_capture
+    try:
+        sf = jit.to_static(lambda x, w: norm.rms_norm(x, w))
+        for _ in range(2):  # the second call captures
+            sf(x, w)
+    except RuntimeError as e:
+        out["error"] = repr(e)[:300]
+    finally:
+        norm._plan_args = plan_args
+    sf = jit.to_static(lambda x, w: norm.rms_norm(x, w))
+    for _ in range(2):
+        got = sf(x, w)
+    out["after"] = sf.entries()
+    if out["error"] is None or "CUDA launch failed" not in out["error"]:
+        out["problem"] = f"a refused launch at capture: {out['error']}"
+    elif not torch.equal(got, norm.rms_norm(x, w)):
+        out["problem"] = ("the capture after a refused one differs from "
+                          "the eager launch")
+    elif out["after"][0]["replays"] != 1:
+        out["problem"] = f"the capture after a refused one: {out['after']}"
+    return out
+
+
+def generate_jit_run(model, prompts):
+    """``generate``'s greedy run and ``generate_beam``'s beam run, each
+    with ``use_jit=True`` beside ``use_jit=False``, every decode step
+    timed (:class:`TimedSteps`). Gates: tokens equal token for token;
+    each ``to_static`` holds two entries: the prefill (S = 512), called
+    once, recorded and never captured, and the decode step (S = 1),
+    captured at its second call and replayed at every call from there,
+    copying in its ids and its position at each of those calls and never
+    a cache (greedy and beams);
+    2 L + 1 RMSNorm launches a step by the replay accounting, and one
+    profiled replay launching exactly the kernels its capture recorded;
+    the greedy logits of rows 0 and 1 against the float32 oracle, cosine
+    >= COSINE_GATE. Returns the launches of the compiled runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    n_layers = model.config.num_hidden_layers
+    s0 = prompts.shape[1]
+    runs, launches, problems = {}, {}, []
+    for name, p, kw, new in (
+            ("greedy", prompts, {}, GEN_NEW),
+            ("beam", prompts[:BEAM_BATCH], {"num_beams": BEAM_WIDTH},
+             BEAM_NEW)):
+        for use_jit in (False, True):
+            torch.cuda.synchronize()
+            kernel_launch_stats(reset=True)
+            with timed_decode(model, use_jit) as made:
+                t0 = time.perf_counter()
+                out = generate(model, p, max_new_tokens=new,
+                               use_jit=use_jit, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = kernel_launch_stats(reset=True)
+            key = f"{name}_{'jit' if use_jit else 'eager'}"
+            runs[key] = {"out": out, "wall_s": wall, "timed": made[0],
+                         "launches": got}
+            want = (2 * n_layers + 1) * new
+            problems += [f"{key}: {m}" for m in rms_launch_problems(got,
+                                                                   want)]
+            if use_jit:
+                launches[f"generate_jit_{name}"] = got
+                entries = made[0].static.entries()
+                runs[key]["entries"] = entries
+                if len(made) != 1:
+                    problems.append(f"{key}: {len(made)} to_static calls")
+                decode = [e for e in entries if e["calls"] > 1]
+                prefill = [e for e in entries if e["calls"] == 1]
+                if len(entries) != 2 or len(prefill) != 1 \
+                        or prefill[0]["captured"]:
+                    problems.append(f"{key}: entries {entries}, not the "
+                                    "prefill's (recorded only) and the "
+                                    "decode step's")
+                if len(decode) != 1 or not decode[0]["captured"] \
+                        or decode[0]["replays"] != new - 2 \
+                        or decode[0]["arg_copies"] != 2 * (new - 2):
+                    problems.append(f"{key}: decode entry {decode}: not "
+                                    f"captured and replayed {new - 2} "
+                                    "times with the ids and the position "
+                                    "copied in each time")
+        if not torch.equal(runs[f"{name}_jit"]["out"],
+                           runs[f"{name}_eager"]["out"]):
+            diff = int((runs[f"{name}_jit"]["out"]
+                        != runs[f"{name}_eager"]["out"]).sum())
+            problems.append(f"{name}: {diff} tokens differ from eager "
+                            "generation's")
+    # two more replays of the greedy decode step, the second profiled
+    # (the first warms the profiler up): the launches the replay
+    # accounting adds against the kernels the card ran
+    timed = runs["greedy_jit"]["timed"]
+    sf = timed.static
+    decode_entry = next(e for e in sf._finalized_entries()
+                        if e.calls > 1)
+    buf = decode_entry.static_args  # ids, (k, v) of each layer, pos
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            kernel_launch_stats(reset=True)
+            sf(buf[0], [(buf[1 + 2 * i], buf[2 + 2 * i])
+                        for i in range(n_layers)], buf[-1])
+            torch.cuda.synchronize()
+            prof.step()
+    accounted = kernel_launch_stats(reset=True)
+    ran = sum(1 for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and "rms_norm" in ev.name)
+    if accounted.get("rms_norm", 0) != 2 * n_layers + 1 or ran != \
+            accounted.get("rms_norm", 0):
+        problems.append(f"profiled replay: accounted {accounted}, the "
+                        f"card ran {ran} RMSNorm kernels")
+    refusal = capture_refusal_check()
+    if refusal["problem"]:
+        problems.append(refusal["problem"])
+    served = torch.stack([c["last"][:2] for c in timed.calls], dim=1)
+    ref = oracle_rows(model, runs["greedy_jit"]["out"], (0, 1), s0, GEN_NEW)
+    cos = torch.nn.functional.cosine_similarity(served, ref, dim=-1)
+    if float(cos.min()) < COSINE_GATE:
+        problems.append(f"min cosine {float(cos.min()):.6f} < {COSINE_GATE}")
+    emit("generate_jit", batch=GEN_BATCH, prompt=s0, new_tokens=GEN_NEW,
+         beam_batch=BEAM_BATCH, beams=BEAM_WIDTH, beam_new=BEAM_NEW,
+         layers=n_layers,
+         **{k: {"wall_s": r["wall_s"], "step_ms": r["timed"].step_ms(),
+                "entries": r.get("entries"), "launches": r["launches"]}
+            for k, r in runs.items()},
+         profiled_replay={"accounted": accounted, "rms_norm_ran": ran},
+         capture_refusal=refusal,
+         min_cosine=float(cos.min()), cosine_gate=COSINE_GATE,
+         problems=problems)
+    if problems:
+        raise RuntimeError("generate_jit phase failed: "
+                           + "; ".join(problems))
+    return launches
+
+
 def layer_skip_draft(target, n_layers):
     """A draft model made of the target's own modules: its embedding, its
     first ``n_layers`` decoder layers, its final norm and head (no weight
@@ -5677,6 +6005,8 @@ def gen_phase(served, seed, names=None, w8_report=None):
         out["spec_generate"] = attempt("spec_generate", lambda:
                                        spec_generate_run(model, prompts,
                                                          greedy_out, seed))
+    out.update(attempt("generate_jit", lambda: generate_jit_run(
+        model, prompts)) or {})
     return {k: v for k, v in out.items() if v is not None}, failed
 
 
@@ -5878,7 +6208,7 @@ def train_phase(model, opt, x, y):
 # was 0.380-0.820 over these 6 steps on an H100 (700 W), so a clip at 1.0
 # would never act and its gates would test nothing.
 TRAIN_RUN_NAMES = ["train_sched", "train_recompute", "train_resume",
-                   "train_optim"]
+                   "train_optim", "train_static"]
 TRAIN_SCHED_STEPS = 6
 TRAIN_SCHED_LR, TRAIN_SCHED_WARMUP, TRAIN_SCHED_TMAX = 3e-4, 2, 4
 TRAIN_SCHED_CLIP, TRAIN_SCHED_DECAY, TRAIN_SCHED_NORM_RATE = 0.25, 0.01, 0.5
@@ -6692,6 +7022,276 @@ def train_optim_phase(seed, x, y):
     return launches
 
 
+# train_static: train_sched's configuration (24 layers, 8 x 2048, the
+# schedule, the clip, L2Decay, two groups, the 0.5-rate final norm) with
+# the step written as bench.py:383-389 writes it under jit.to_static: one
+# recorded call (then the capture) and TRAIN_STATIC_REPLAYS replays, each
+# call on a new seeded batch at a new address; then the eager step from
+# the same seed-0 weights on the same batches. Gate: every loss and,
+# after the last step, every parameter, master and moment bit for bit;
+# if cuBLAS chose other algorithms under capture, relative L2
+# TRAIN_STATIC_RTOL per tensor instead, with the bit-for-bit count
+# reported (as train_recompute).
+TRAIN_STATIC_REPLAYS = 6
+TRAIN_STATIC_RTOL = 1e-6
+# the plan's peak live bytes against the recorded call's measured peak
+TRAIN_STATIC_PLAN_RATIO = (0.5, 2.0)
+
+
+def static_batches(cfg, n, seed):
+    """n batches of random ids, each its own tensors (new addresses)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed + 17)
+    return [(torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(
+        TRAIN_BATCH, TRAIN_SEQ)).astype("int32")).cuda(),
+        torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(
+            TRAIN_BATCH, TRAIN_SEQ)).astype("int64")).cuda())
+        for _ in range(n)]
+
+
+def _state_tensors(model, opt):
+    return ([p.detach() for p in model.parameters()]
+            + [m for m in opt._master if m is not None]
+            + list(opt._moment1) + list(opt._moment2))
+
+
+def grad_static_check(seed):
+    """A compiled step that leaves its gradients to the caller (forward
+    and backward inside, ``opt.step()`` and, every other call,
+    ``clear_grad()`` outside), on a bf16 two-layer MLP at Qwen2-0.5B's
+    widths, 5 calls on new batches beside the eager step from the same
+    weights: after every call each gradient bit for bit the eager one
+    (or relative L2 TRAIN_STATIC_RTOL, the bit-for-bit count reported),
+    and every call from the second a replay."""
+    import torch
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    xs = [torch.randn(TRAIN_BATCH * 256, 896, device="cuda",
+                      dtype=torch.bfloat16, generator=gen)
+          for _ in range(5)]
+    got, problems, entry = {}, [], None
+    for mode in ("static", "eager"):
+        torch.manual_seed(seed)
+        mlp = torch.nn.Sequential(
+            torch.nn.Linear(896, 4864), torch.nn.SiLU(),
+            torch.nn.Linear(4864, 896)).to("cuda", torch.bfloat16)
+        opt = AdamW(1e-3, parameters=mlp.parameters())
+
+        def grad_step(x):
+            loss = mlp(x).float().square().mean()
+            loss.backward()
+            return loss
+
+        fn = jit.to_static(grad_step) if mode == "static" else grad_step
+        got[mode] = []
+        for i, x in enumerate(xs):
+            if mode == "eager":
+                opt.clear_grad()  # a compiled call starts without them
+            fn(x)
+            got[mode].append([p.grad.clone() for p in mlp.parameters()])
+            opt.step()
+            if i % 2:
+                opt.clear_grad()
+        if mode == "static":
+            entry = fn.entries()[0]
+        del mlp, opt, fn
+    pairs = [(a, b) for s, e in zip(got["static"], got["eager"])
+             for a, b in zip(s, e)]
+    bitwise = sum(torch.equal(a, b) for a, b in pairs)
+    worst = max(float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30)) for a, b in pairs)
+    if bitwise != len(pairs) and worst > TRAIN_STATIC_RTOL:
+        problems.append(f"grad_step: {bitwise} of {len(pairs)} gradients "
+                        f"bit for bit, worst relative L2 {worst:.3e}")
+    if not entry["captured"] or entry["replays"] != len(xs) - 1:
+        problems.append(f"grad_step: entry {entry}")
+    return {"gradients": len(pairs), "bit_for_bit": bitwise,
+            "worst_rel_l2": worst, "entry": entry, "problems": problems}
+
+
+def train_static_phase(seed, x=None, y=None):
+    """train_static (see above). Also gates: each step's rate, read back
+    from the optimizer's device tensor, the closed form; one compile
+    event and one capture for the run (``compile.count`` 1,
+    ``exec.count`` 1 + TRAIN_STATIC_REPLAYS); ``arg_copies`` x and y at
+    each call from the second (the capture's and the replays') and
+    nothing else; no batch written; the launches a replay adds equal to
+    ``train``'s a step, and one profiled replay running exactly those
+    kernels; the plan's ``hbm_peak_bytes`` within
+    TRAIN_STATIC_PLAN_RATIO of the recorded call's peak. Reports the step
+    ms both ways (CUDA events and the host clock), the capture seconds,
+    the graph pool's bytes and the plan's flops beside bench.py's count.
+    Returns the launches of the compiled run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.framework import telemetry
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    steps = 1 + TRAIN_STATIC_REPLAYS
+    problems, runs = [], {}
+    for mode in ("static", "eager"):
+        model, opt, sched = build_sched_trainer(seed)
+        cfg = model.config
+
+        def train_step(x, y):
+            _, loss = model(x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        batches = static_batches(cfg, steps, seed)
+        made = [(bx.clone(), by.clone()) for bx, by in batches]
+        with port_flags({"telemetry": "metrics"}):
+            fn = jit.to_static(train_step) if mode == "static" \
+                else train_step
+            losses, rates, epochs, ev, host = [], [], [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel_launch_stats(reset=True)
+            t_all = time.perf_counter()
+            for i, (bx, by) in enumerate(batches):
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                if mode == "static" and i == steps - 2:
+                    # the last replay is profiled; this one warms the
+                    # profiler up
+                    prof = profile(activities=[ProfilerActivity.CUDA],
+                                   schedule=schedule(wait=0, warmup=1,
+                                                     active=1, repeat=1))
+                    prof.__enter__()
+                pair[0].record()
+                t0 = time.perf_counter()
+                losses.append(fn(bx, by).detach())
+                host.append(time.perf_counter() - t0)
+                pair[1].record()
+                if mode == "static" and i >= steps - 2:
+                    torch.cuda.synchronize()
+                    prof.step()
+                if mode == "static" and i == steps - 1:
+                    prof.__exit__(None, None, None)
+                    ran = {}
+                    for e in prof.events():
+                        if e.device_type != torch.autograd.DeviceType.CUDA:
+                            continue
+                        for k, tag in (("flash_attention_fwd", "flash_fwd"),
+                                       ("flash_attention_bwd_dkdv",
+                                        "flash_bwd_dkdv"),
+                                       ("flash_attention_bwd_dq",
+                                        "flash_bwd_dq"),
+                                       ("rms_norm", "rms_norm")):
+                            if tag in e.name:
+                                ran[k] = ran.get(k, 0) + 1
+                ev.append(pair)
+                rates.append(opt._lr_tensor.clone())
+                epochs.append(sched.last_epoch)
+                sched.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_all
+            launches = kernel_launch_stats(reset=True)
+            changed = [i for i, ((bx, by), (mx, my)) in enumerate(
+                zip(batches, made))
+                if not (torch.equal(bx, mx) and torch.equal(by, my))]
+            if changed:
+                problems.append(f"{mode}: the batches of calls {changed} "
+                                "were written")
+            reg = telemetry.registry()
+            counts = {"compile": reg.counter("compile.count"),
+                      "exec": reg.counter("exec.count.train_step")}
+        run = {"losses": [float(v) for v in losses], "wall_s": wall,
+               "launches": launches, "counts": counts,
+               "step_ms_device": [a.elapsed_time(b) for a, b in ev],
+               "step_ms_host": [h * 1e3 for h in host],
+               "rates": [float(r) for r in rates], "epochs": epochs,
+               "state": _state_tensors(model, opt),
+               "peak": torch.cuda.max_memory_allocated()}
+        for epoch, rate in zip(epochs, rates):
+            want = torch.tensor(sched_lr(epoch), dtype=torch.float32)
+            if float(rate) != float(want):
+                problems.append(f"{mode}: rate at epoch {epoch} "
+                                f"{float(rate)!r} != closed form "
+                                f"{float(want)!r}")
+        if mode == "static":
+            entries = fn.entries()
+            entry = fn._finalized_entries()[0]
+            plan = entry.resource_plan
+            run.update(entry=entries[0], ran=ran, plan=plan.to_dict(
+                max_buffers=4), flops_bench=train_flops_per_token(
+                    cfg, TRAIN_SEQ) * TRAIN_BATCH * TRAIN_SEQ)
+            e = entries[0]
+            if len(entries) != 1 or not e["captured"] \
+                    or e["replays"] != TRAIN_STATIC_REPLAYS:
+                problems.append(f"entries {entries}: not one capture "
+                                f"replayed {TRAIN_STATIC_REPLAYS} times")
+            if counts != {"compile": 1, "exec": steps}:
+                problems.append(f"telemetry counts {counts}")
+            if e["arg_copies"] != 2 * TRAIN_STATIC_REPLAYS:
+                problems.append(f"arg_copies {e['arg_copies']} != "
+                                f"{2 * TRAIN_STATIC_REPLAYS} (x and y on "
+                                "each replay)")
+            want = step_launches_wanted(cfg.num_hidden_layers, 1, False)
+            problems += launch_problems_of(e["launches_per_replay"], want,
+                                           "a replay's accounting")
+            problems += launch_problems_of(ran, want, "the profiled replay")
+            problems += launch_problems_of(launches, {
+                k: n * steps for k, n in want.items()})
+            ratio = plan.hbm_peak_bytes / e["record_peak_bytes"]
+            run["plan_to_measured"] = ratio
+            lo, hi = TRAIN_STATIC_PLAN_RATIO
+            if not lo <= ratio <= hi:
+                problems.append(f"plan hbm_peak_bytes "
+                                f"{plan.hbm_peak_bytes} is {ratio:.3f}x the "
+                                f"recorded call's peak "
+                                f"{e['record_peak_bytes']}")
+            del fn, entry
+        runs[mode] = run
+        del model, opt, sched, batches
+        release_device_memory()
+    st, eg = runs["static"], runs["eager"]
+    bitwise = sum(torch.equal(a, b) for a, b in zip(st["state"],
+                                                    eg["state"]))
+    worst = max(float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(st["state"], eg["state"]))
+    losses_equal = st["losses"] == eg["losses"]
+    if not (bitwise == len(st["state"]) and losses_equal) and not (
+            worst <= TRAIN_STATIC_RTOL and all(
+                abs(a - b) <= TRAIN_STATIC_RTOL * abs(b)
+                for a, b in zip(st["losses"], eg["losses"]))):
+        problems.append(f"loss or state not bit for bit the eager run's "
+                        f"(losses {st['losses']} against {eg['losses']}; "
+                        f"{bitwise} of {len(st['state'])} tensors equal, "
+                        f"worst relative L2 {worst:.3e})")
+    n_state = len(st["state"])
+    for r in runs.values():
+        r.pop("state")
+    grads = grad_static_check(seed)
+    problems += grads.pop("problems")
+    emit("train_static", model="qwen2_0_5b", layers=24, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, calls=steps, losses_bit_for_bit=losses_equal,
+         state_bit_for_bit=bitwise, state_tensors=n_state,
+         worst_rel_l2=worst,
+         rtol=TRAIN_STATIC_RTOL,
+         step_ms_device_median={k: float(np.median(r["step_ms_device"][2:]))
+                                for k, r in runs.items()},
+         step_ms_host_median={k: float(np.median(r["step_ms_host"][2:]))
+                              for k, r in runs.items()},
+         grad_step=grads,
+         wall_per_step_ms={k: r["wall_s"] * 1e3 / steps
+                           for k, r in runs.items()},
+         **{k: r for k, r in runs.items()}, problems=problems)
+    if problems:
+        raise RuntimeError("train_static phase failed: "
+                           + "; ".join(problems))
+    return st["launches"]
+
+
 def train_profile_phase(model, opt, x, y):
     """One training step under ``torch.profiler``."""
     import torch
@@ -6751,11 +7351,15 @@ def main(argv=None):
                     help="only build and hold these rms_norm and "
                     "layer_norm_fused cases (comma-separated names of "
                     "NORM_CASES) against their plain versions")
-    ap.add_argument("--fault-check", action="store_true",
+    ap.add_argument("--fault-check", nargs="?", const="all", default=None,
+                    metavar="GROUPS",
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS, "
                     "SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS, QUANT_FAULTS, "
-                    "TRAIN_FAULTS and GEN_FAULTS, planted in a copy")
+                    "TRAIN_FAULTS and GEN_FAULTS, planted in a copy; or "
+                    "only those groups (comma-separated: flash, paged, "
+                    "norm, serve, spec, plane, front, quant, train, gen) "
+                    "or faults named")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "
@@ -6798,7 +7402,8 @@ def main(argv=None):
          varlen_attn=importlib.util.find_spec(
              "torch.nn.attention.varlen") is not None)
     if args.fault_check:
-        fault_check_phase()
+        fault_check_phase(None if args.fault_check == "all"
+                          else args.fault_check.split(","))
         return 0
     if args.ablations:
         ablations_phase(None if args.ablations == "all"
@@ -6895,7 +7500,8 @@ def main(argv=None):
         phases = {"train_sched": train_sched_phase,
                   "train_recompute": train_recompute_phase,
                   "train_resume": train_resume_phase,
-                  "train_optim": train_optim_phase}
+                  "train_optim": train_optim_phase,
+                  "train_static": train_static_phase}
         for name in names:
             try:
                 phases[name](args.seed, x, y)
@@ -6934,6 +7540,8 @@ def main(argv=None):
                                                train_reading)
     resume_launches = train_resume_phase(args.seed, x, y)
     optim_launches = train_optim_phase(args.seed, x, y)
+    release_device_memory()
+    static_launches = train_static_phase(args.seed)
 
     def case_times(c):
         return {"case": c["case"], "ms": c["kernel_ms"],
@@ -6949,6 +7557,7 @@ def main(argv=None):
                     ("train_recompute", recompute_launches),
                     ("train_resume", resume_launches),
                     ("train_optim", optim_launches),
+                    ("train_static", static_launches),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}

@@ -11,7 +11,7 @@ and ragged paged-attention kernels written by hand in CUDA C++
 """
 __version__ = "0.1.0"
 
-from . import device, inference, models, nn, regularizer  # noqa: F401
+from . import device, inference, jit, models, nn, regularizer  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401
 from .framework.io import load, save  # noqa: F401

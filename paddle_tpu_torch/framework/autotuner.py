@@ -21,11 +21,13 @@ by hand. The :class:`Autotuner` closes the loop:
    event while a candidate is deployed quarantines it (never revisited)
    and the tuner reverts to the best non-quarantined config.
 
-The profile's coefficients come from a plan, duck-typed
+The profile's coefficients come from a plan
 (:meth:`WorkloadProfile.from_plan` reads ``hbm_peak_bytes`` and
-``comm_bytes_total`` off a dict or an object). The port has no static
-planner: on the card a caller builds the plan from measured bytes (the
-weights plus the KV pools, and the activation bytes a packed token).
+``comm_bytes_total`` off a dict or an object): the ``ResourcePlan`` the
+static planner (``framework/planner.py``) makes of a ``jit.to_static``
+program, or a dict a caller builds from measured bytes (the weights
+plus the KV pools, and the activation bytes a packed token), since the
+serving steps are not compiled yet.
 
 The chosen config is emitted as a reproducible JSON artifact
 (:meth:`Autotuner.write_artifact` / :func:`load_artifact` /

@@ -267,15 +267,38 @@ define_flag("serving_fault_seed", 0,
             "seed of FaultInjector.random() plans: the same seed and step "
             "count give the same fault schedule")
 
+# -- jit.to_static's compile-time hooks (framework/analysis.py,
+# framework/planner.py)
+define_flag("jit_lint", "warn",
+            "trace-time linter over to_static programs "
+            "(framework/analysis.py): 'off' skips analysis entirely, "
+            "'warn' logs findings (criticals as warnings), 'strict' "
+            "raises JitLintError at compile, before the first call runs, "
+            "on any warning/critical finding")
+define_flag("jit_lint_suppress", "",
+            "comma-separated lint rule ids to suppress globally (e.g. "
+            "'dtype-drift,recompile-weak-scalar'; see "
+            "framework/analysis.RULES for the id list)")
+define_flag("jit_plan", "report",
+            "static resource planner over to_static programs "
+            "(framework/planner.py): 'off' skips planning, 'report' "
+            "(default) attaches each compiled program's peak-live "
+            "device-memory plan to its entry, emits "
+            "compile.hbm_peak_bytes and logs planner findings, 'strict' "
+            "raises JitPlanError at compile on an hbm-over-budget "
+            "finding (suppression shares the linter's three scopes)")
+
 # -- the async engine, disaggregated serving, the ops server and the
 # capacity autotuner (inference/engine.py, inference/disagg.py,
 # framework/ops_server.py, framework/autotuner.py)
 define_flag("jit_budget_hbm", 0,
-            "peak-live device-memory budget in bytes: the capacity "
-            "autotuner's check_feasible (framework/autotuner.py) "
-            "discards a candidate whose priced peak (fixed bytes plus "
-            "its largest padded step's activation bytes) exceeds it "
-            "as hbm-over-budget. 0 (default) disables the gate")
+            "peak-live device-memory budget in bytes: a to_static "
+            "program whose planned peak (framework/planner.py) exceeds "
+            "it fires hbm-over-budget, and the capacity autotuner's "
+            "check_feasible (framework/autotuner.py) discards a "
+            "candidate whose priced peak (fixed bytes plus its largest "
+            "padded step's activation bytes) exceeds it. 0 (default) "
+            "disables the gate")
 define_flag("jit_budget_comm", 0,
             "per-device collective-traffic budget in bytes: the "
             "capacity autotuner's check_feasible discards a candidate "

@@ -1483,11 +1483,14 @@ SURFACE: Tuple[Tuple[str, str, str], ...] = (
      "stamped — the prefix-collapse watchdog windows over it)"),
     # compile path (jit/api.py)
     ("compile.count", "counter",
-     "to_static trace/lower events (recompile-storm visibility)"),
+     "to_static compile events, one a signature (recompile-storm "
+     "visibility)"),
     ("compile.wall_s", "histogram",
-     "wall time per to_static trace+lower (lint included)"),
+     "wall time per to_static compile phase: the recorded first call "
+     "with its lint and plan, and on the card the CUDA-graph capture "
+     "at a signature's second call"),
     ("compile.by_program.<name>", "counter",
-     "to_static trace/lower events per program (storm attribution)"),
+     "to_static compile events per program (storm attribution)"),
     ("compile.hbm_peak_bytes", "histogram",
      "planned peak live HBM per compiled program (static resource "
      "planner, framework/planner.py; FLAGS_jit_plan)"),

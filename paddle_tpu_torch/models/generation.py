@@ -9,6 +9,17 @@ sampling loops and beam search read nothing back to the host until the
 end. Speculative decoding reads each round's proposals and acceptance
 once, as the reference does.
 
+``use_jit=True`` (greedy, sampling and beams, as in the reference) wraps
+``model.decode_step`` in ``jit.to_static`` once a call: on the card the
+decode step runs as a captured CUDA graph (the prefill, called once, is
+recorded and never captured). The position is then one int32 device
+tensor refilled in place every step, and beam search re-indexes the
+caches in place, so the compiled step always writes the caches it
+captured and never copies them; the ids and the position are copied
+into the graph's own buffers each step. The host checks that the
+positions fit the cache (the device position is never read there).
+Sampling stays outside the compiled step, as in the reference.
+
 Randomness comes from an explicit ``generator`` (a ``torch.Generator``
 on the model's device; torch's default one when None) where the
 reference draws a framework key, so draws differ from the reference's;
@@ -80,10 +91,6 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     ``num_beams > 1`` runs beam search (deterministic: ``do_sample``
     must be False). After ``eos_token_id`` a row keeps emitting it.
     Returns [B, S0 + max_new_tokens] (the best beam for beam search)."""
-    if use_jit:
-        raise NotImplementedError(
-            "generate(use_jit=True): a compiled decode step is not ported "
-            "yet (ROADMAP queue 1 item 10)")
     if num_beams > 1:
         if do_sample:
             raise ValueError(
@@ -92,11 +99,12 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
         return _beam_search(
             model, input_ids, max_new_tokens, num_beams,
             eos_token_id=eos_token_id, length_penalty=length_penalty,
-            repetition_penalty=repetition_penalty)
+            repetition_penalty=repetition_penalty, use_jit=use_jit)
     with torch.no_grad():
         ids = _input_ids(model, input_ids)
         b, s0 = ids.shape
         caches = model.init_cache(b, s0 + max_new_tokens)
+        step = _Stepper(model, caches, use_jit)
         need_seen = bool(repetition_penalty) and repetition_penalty != 1.0
         seen = None
         if need_seen:
@@ -107,8 +115,7 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
         rows = torch.arange(b, device=ids.device)
         tokens, cur = [ids], ids
         for i in range(max_new_tokens):
-            logits, caches = model.decode_step(cur, caches,
-                                               0 if i == 0 else s0 + i - 1)
+            logits = step(cur, 0 if i == 0 else s0 + i - 1)
             nxt = _step_sample(
                 logits[:, -1], seen, generator, do_sample=do_sample,
                 temperature=temperature, top_k=top_k, top_p=top_p,
@@ -121,6 +128,40 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
             cur = nxt[:, None].to(ids.dtype)
             tokens.append(cur)
         return torch.cat(tokens, dim=1)
+
+
+class _Stepper:
+    """``model.decode_step`` over ``caches`` a step, eager (an int
+    position, a new ids tensor each step) or with ``use_jit`` compiled
+    (``jit.to_static``, once a call as the reference's ``generate``): the
+    position is one int32 device tensor refilled in place, so the
+    compiled decode step reads it on the device. The positions are
+    checked against the cache on the host, where they are ints."""
+
+    def __init__(self, model, caches, use_jit):
+        self.model, self.caches = model, caches
+        self.fn = model.decode_step
+        self.pos = None
+        if use_jit:
+            from .. import jit
+
+            self.fn = jit.to_static(model.decode_step)
+            self.pos = torch.zeros((), dtype=torch.int32,
+                                   device=caches[0][0].device)
+
+    def __call__(self, ids, pos):
+        """The logits of ``ids`` at positions [pos, pos + S)."""
+        if self.pos is None:
+            logits, _ = self.fn(ids, self.caches, pos)
+            return logits
+        smax = self.caches[0][0].shape[1]
+        if pos < 0 or pos + ids.shape[1] > smax:
+            raise ValueError(f"decode_step: positions [{pos}, "
+                             f"{pos + ids.shape[1]}) do not fit the "
+                             f"cache's {smax} slots")
+        self.pos.fill_(pos)
+        logits, _ = self.fn(ids, self.caches, self.pos)
+        return logits
 
 
 def _spec_accept_core(p_logits, proposals, q_probs, u, temperature):
@@ -296,7 +337,7 @@ def _best_beam(generated, scores, lengths, b, k, length_penalty):
 
 def _beam_search(model, input_ids, max_new_tokens, num_beams,
                  eos_token_id=None, length_penalty=1.0,
-                 repetition_penalty=1.0):
+                 repetition_penalty=1.0, use_jit=False):
     """Fixed-width beam search: the prompt prefills once at B lanes, the
     caches and logits then expand to B * K lanes; each step takes the
     top K of K * V ``score + log_softmax`` per row (equal values lowest
@@ -304,8 +345,10 @@ def _beam_search(model, input_ids, max_new_tokens, num_beams,
     the history onto the chosen lanes. A beam that emitted eos is
     frozen: it emits eos at zero cost and stops growing its length. The
     repetition penalty applies to the raw logits, with the prompt's
-    tokens seen. Returns [B, S0 + max_new_tokens], each row's best beam
-    by :func:`_best_beam`."""
+    tokens seen. The caches are re-indexed in place (``use_jit``: the
+    compiled decode step keeps reading the buffers it captured). Returns
+    [B, S0 + max_new_tokens], each row's best beam by
+    :func:`_best_beam`."""
     with torch.no_grad():
         ids = _input_ids(model, input_ids)
         b, s0 = ids.shape
@@ -314,9 +357,11 @@ def _beam_search(model, input_ids, max_new_tokens, num_beams,
         dev = ids.device
         need_pen = bool(repetition_penalty) and repetition_penalty != 1.0
         caches = model.init_cache(b, s0 + max_new_tokens)
-        logits, caches = model.decode_step(ids, caches, 0)
-        caches = [(ck.repeat_interleave(k, dim=0),
-                   cv.repeat_interleave(k, dim=0)) for ck, cv in caches]
+        step = _Stepper(model, caches, use_jit)
+        logits = step(ids, 0)
+        caches = step.caches = [(ck.repeat_interleave(k, dim=0),
+                                 cv.repeat_interleave(k, dim=0))
+                                for ck, cv in caches]
         last = logits[:, -1].repeat_interleave(k, dim=0)  # [B * K, V]
 
         scores = torch.tensor([0.0] + [-1e30] * (k - 1),
@@ -336,8 +381,7 @@ def _beam_search(model, input_ids, max_new_tokens, num_beams,
         generated = None  # [B * K, T]
         for i in range(max_new_tokens):
             if i > 0:
-                logits, caches = model.decode_step(cur, caches, s0 + i - 1)
-                last = logits[:, -1]
+                last = step(cur, s0 + i - 1)[:, -1]
             lraw = last.float()
             if need_pen:
                 lraw = _apply_repetition_penalty(lraw, seen,
@@ -363,9 +407,10 @@ def _beam_search(model, input_ids, max_new_tokens, num_beams,
                 seen[lanes_all, tok] = True
             scores = top_sc.reshape(-1)
             cur = tok[:, None].to(ids.dtype)
-            # the caches and the history onto the chosen lanes
-            caches = [(ck.index_select(0, lane), cv.index_select(0, lane))
-                      for ck, cv in caches]
+            # the caches (in place) and the history onto the chosen lanes
+            for ck, cv in caches:
+                ck.copy_(ck.index_select(0, lane))
+                cv.copy_(cv.index_select(0, lane))
             generated = cur if generated is None else torch.cat(
                 [generated[lane], cur], dim=1)
         best, _ = _best_beam(generated, scores, lengths, b, k,

@@ -208,22 +208,39 @@ def llama_tiny(**kw) -> LlamaConfig:
 class DecodeStep(NamedTuple):
     """What every layer of one decode step shares: the new tokens' first
     slot ``pos``, their RoPE rows ``cos``/``sin`` ([S, D]) and ``keep``
-    ([S, S_max], the slots each new token attends to)."""
-    pos: int
+    ([S, S_max], the slots each new token attends to). With a device
+    position, ``pos`` is None and ``slots`` holds the new tokens' slots
+    ([S], on the device)."""
+    pos: object
     cos: torch.Tensor
     sin: torch.Tensor
     keep: torch.Tensor
+    slots: object = None
 
 
 def decode_step_inputs(config, pos, s, tables):
     """The :class:`DecodeStep` of ``s`` new tokens at positions
     [pos, pos + s) of a cache whose ``tables`` are ``(cos, sin, kpos)``
-    (:meth:`LlamaModel.decode_tables`). ``pos`` is an int or a 0-dim
-    tensor (read once on the host). Raises ``ValueError`` when the
-    tokens do not fit the slots: the reference's ``dynamic_update_slice``
-    and ``jnp.take`` clamp instead."""
+    (:meth:`LlamaModel.decode_tables`).
+
+    An int ``pos`` slices the tables on the host, and raises
+    ``ValueError`` when the tokens do not fit the slots: the reference's
+    ``dynamic_update_slice`` and ``jnp.take`` clamp instead. A 0-d
+    device tensor ``pos`` is never read on the host, so a captured
+    decode step (``jit.to_static``) reads it at every replay: the RoPE
+    rows and the mask come from device index ops, and the bounds check
+    is the caller's, which knows the positions as ints
+    (``models/generation.py``)."""
     cos, sin, kpos = tables
     smax = kpos.shape[0]
+    if isinstance(pos, torch.Tensor):
+        slots = pos.to(kpos.dtype) + torch.arange(s, device=kpos.device)
+        keep = kpos[None, :] <= slots[:, None]
+        w = int(config.sliding_window or 0)
+        if w:
+            keep = keep & (kpos[None, :] > slots[:, None] - w)
+        return DecodeStep(None, cos.index_select(0, slots),
+                          sin.index_select(0, slots), keep, slots)
     pos = int(pos)
     if pos < 0 or pos + s > smax:
         raise ValueError(f"decode_step: positions [{pos}, {pos + s}) do "
@@ -307,8 +324,12 @@ class LlamaAttention(nn.Module):
         k = apply_rotary_emb(self.k_proj(x).reshape(b, s, nkv, hd),
                              step.cos, step.sin)
         v = self.v_proj(x).reshape(b, s, nkv, hd)
-        cache_k[:, step.pos:step.pos + s] = k
-        cache_v[:, step.pos:step.pos + s] = v
+        if step.slots is not None:  # a device position
+            cache_k.index_copy_(1, step.slots, k)
+            cache_v.index_copy_(1, step.slots, v)
+        else:
+            cache_k[:, step.pos:step.pos + s] = k
+            cache_v[:, step.pos:step.pos + s] = v
         # q heads grouped over their kv head: the reference's repeated
         # K/V give the same sums
         qg = q.float().reshape(b, s, nkv, nh // nkv, hd)
@@ -490,8 +511,10 @@ class LlamaForCausalLM(nn.Module):
         """One incremental step: ``(logits [B, S, V], caches)`` for the
         new tokens ``input_ids`` [B, S] at positions [pos, pos + S).
         Their K/V are written into ``caches`` in place, and the same list
-        is returned. ``pos`` is an int (a 0-dim tensor is read once on
-        the host). Runs without autograd."""
+        is returned. ``pos`` is an int, or a 0-d tensor on the model's
+        device that is never read on the host (what a compiled step
+        takes; the caller then checks ``pos + S <= S_max``). Runs without
+        autograd."""
         h, caches = self.model.decode_step(input_ids, caches, pos)
         return self._head(h), caches
 

@@ -33,8 +33,10 @@ class ClipGradBase:
 
 def _clip_scale(clip, norm, floor):
     """``min(clip / max(norm, floor), 1)`` in ``norm``'s dtype (a true
-    division: a Python number over a tensor would take a reciprocal)."""
-    num = torch.tensor(clip, dtype=norm.dtype, device=norm.device)
+    division: a Python number over a tensor would take a reciprocal).
+    The numerator is filled on the device, not copied from the host, so
+    a captured step (``jit.to_static``) can hold it."""
+    num = torch.full((), clip, dtype=norm.dtype, device=norm.device)
     return torch.clamp_max(num / torch.clamp_min(norm, floor), 1.0)
 
 

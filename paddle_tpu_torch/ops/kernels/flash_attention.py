@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from . import _build, record_launch
+from . import _build, program_op, record_launch
 
 NO_KEY_LSE = -1e30  # lse of a row that sees no key
 
@@ -213,7 +213,7 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window):
         lse.data_ptr(), b, h, kvh, sq, sk, d, scale, int(bool(causal)),
         int(window), _build.DTYPE_CODES[q.dtype], _stream(q))
     _build.check(status, "flash_attention_fwd")
-    record_launch("flash_attention_fwd")
+    record_launch("flash_attention_fwd", (q, k, v), (out, lse))
     return out, lse
 
 
@@ -240,6 +240,26 @@ def _bwd_cuda_args(name, q, k, v, do, lse, delta, causal, scale, window):
     return ins, args
 
 
+def _dkdv_plain_of(q, k, v, do, lse, delta, causal=False, scale=None,
+                   window=0):
+    window = int(window or 0) if causal else 0
+    return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal,
+                                          scale, window)
+
+
+def _dq_plain_of(q, k, v, do, lse, delta, causal=False, scale=None,
+                 window=0):
+    window = int(window or 0) if causal else 0
+    return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                        scale, window)
+
+
+def _fwd_plain_of(q, k, v, causal=False, scale=None, window=0):
+    window = int(window or 0) if causal else 0
+    return flash_attention_fwd_plain(q, k, v, causal, scale, window)
+
+
+@program_op("flash_attention_bwd_dkdv", _dkdv_plain_of)
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=False,
                              scale=None, window=0):
     """(dk, dv): the dK/dV CUDA kernel for CUDA tensors, the plain
@@ -255,10 +275,11 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=False,
     status = _build.library().ptt_flash_bwd_dkdv(
         *[t.data_ptr() for t in ins], dk.data_ptr(), dv.data_ptr(), *args)
     _build.check(status, "flash_attention_bwd_dkdv")
-    record_launch("flash_attention_bwd_dkdv")
+    record_launch("flash_attention_bwd_dkdv", ins, (dk, dv))
     return dk, dv
 
 
+@program_op("flash_attention_bwd_dq", _dq_plain_of)
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                            scale=None, window=0):
     """dq: the dQ CUDA kernel for CUDA tensors, the plain version for
@@ -273,7 +294,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     status = _build.library().ptt_flash_bwd_dq(
         *[t.data_ptr() for t in ins], dq.data_ptr(), *args)
     _build.check(status, "flash_attention_bwd_dq")
-    record_launch("flash_attention_bwd_dq")
+    record_launch("flash_attention_bwd_dq", ins, (dq,))
     return dq
 
 
@@ -284,6 +305,7 @@ def _device_of(name, q):
     return q.device.type
 
 
+@program_op("flash_attention_fwd", _fwd_plain_of)
 def flash_attention_fwd(q, k, v, causal=False, scale=None, window=0):
     """(out, lse): the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, record_launch
+from . import _build, program_op, record_launch
 from . import flash_attention as fa
 
 NO_KEY_LSE = fa.NO_KEY_LSE
@@ -172,6 +172,12 @@ def _check_cuda(name, q, k, v, cu_q, cu_k, *more):
             cu_q.numel() - 1)
 
 
+def _fwd_plain_of(q, k, v, cu_q, cu_k, causal=False, scale=None):
+    return flash_varlen_fwd_plain(q, k, v, cu_q, cu_k, causal,
+                                  fa._scale(q, scale))
+
+
+@program_op("flash_varlen_fwd", _fwd_plain_of)
 def flash_varlen_fwd(q, k, v, cu_q, cu_k, causal=False, scale=None):
     """(out, lse): the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
@@ -191,7 +197,7 @@ def flash_varlen_fwd(q, k, v, cu_q, cu_k, causal=False, scale=None):
         kvh, tq, tk, d, scale, int(bool(causal)),
         _build.DTYPE_CODES[q.dtype], fa._stream(q))
     _build.check(status, "flash_varlen_fwd")
-    record_launch("flash_varlen_fwd")
+    record_launch("flash_varlen_fwd", ins, (out, lse))
     return out, lse
 
 
@@ -219,6 +225,7 @@ def _bwd_cuda(name, q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
     return ins, args
 
 
+@program_op("flash_varlen_bwd_dkdv", flash_varlen_bwd_dkdv_plain)
 def flash_varlen_bwd_dkdv(q, k, v, do, lse, delta, cu_q, cu_k,
                           causal=False, scale=None):
     """(dk, dv): the dK/dV CUDA kernel for CUDA tensors, the plain version
@@ -234,10 +241,11 @@ def flash_varlen_bwd_dkdv(q, k, v, do, lse, delta, cu_q, cu_k,
     status = _build.library().ptt_flash_varlen_bwd_dkdv(
         *[t.data_ptr() for t in ins], dk.data_ptr(), dv.data_ptr(), *args)
     _build.check(status, "flash_varlen_bwd_dkdv")
-    record_launch("flash_varlen_bwd_dkdv")
+    record_launch("flash_varlen_bwd_dkdv", ins, (dk, dv))
     return dk, dv
 
 
+@program_op("flash_varlen_bwd_dq", flash_varlen_bwd_dq_plain)
 def flash_varlen_bwd_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal=False,
                         scale=None):
     """dq: the dQ CUDA kernel for CUDA tensors, the plain version for CPU
@@ -257,7 +265,7 @@ def flash_varlen_bwd_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal=False,
     status = _build.library().ptt_flash_varlen_bwd_dq(
         *[t.data_ptr() for t in ins], dq.data_ptr(), *args)
     _build.check(status, "flash_varlen_bwd_dq")
-    record_launch("flash_varlen_bwd_dq")
+    record_launch("flash_varlen_bwd_dq", ins, (dq,))
     return dq
 
 

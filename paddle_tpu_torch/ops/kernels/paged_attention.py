@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ...framework.flags import ragged_attention_mode
-from . import _build, record_launch
+from . import _build, program_op, record_launch
 from .rope import apply_rotary_emb
 
 NEG_INF = -1e30
@@ -364,10 +364,12 @@ def _paged_ragged_attention_cuda(q, k_pages, v_pages, page_table,
         _build.KV_DTYPE_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_ragged_attention")
-    record_launch("paged_ragged_attention")
+    record_launch("paged_ragged_attention", (q, k_pages, v_pages, page_table,
+                                            seq_lens), (out,))
     return out
 
 
+@program_op("paged_ragged_attention", paged_ragged_attention_plain)
 def paged_ragged_attention(q, k_pages, v_pages, page_table, seq_lens,
                            q_lens=None, sm_scale=None, window=0,
                            k_scales=None, v_scales=None):
@@ -533,10 +535,12 @@ def _paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
         _build.DTYPE_CODES[q.dtype], _build.KV_DTYPE_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_attention")
-    record_launch("paged_decode_attention")
+    record_launch("paged_decode_attention", (q, k_pages, v_pages,
+                                             page_table, seq_lens), (out,))
     return out
 
 
+@program_op("paged_decode_attention", paged_attention_plain)
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                     sm_scale=None, window=0, k_scales=None, v_scales=None):
     """Decode attention over a paged KV cache, one token per sequence.

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, record_launch
+from . import _build, program_op, record_launch
 
 # csrc/rms_norm.cu's instantiations: VPL (16-byte vectors a lane holds)
 # of each class, the rows (warps) of a warp-class block, the widest
@@ -130,10 +130,11 @@ def _rms_norm_cuda(x, weight, eps):
             _build.DTYPE_CODES[x.dtype], *_plan_args(x2, weight),
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(status, "rms_norm")
-        record_launch("rms_norm")
+        record_launch("rms_norm", (x2, weight), (y,))
     return y.reshape(x.shape)
 
 
+@program_op("rms_norm", rms_norm_plain)
 def _rms_norm_fwd(x, weight, eps):
     if x.device.type == "cuda":
         return _rms_norm_cuda(x, weight, eps)
@@ -214,10 +215,11 @@ def _layer_norm_cuda(x, weight, bias, eps):
             _build.DTYPE_CODES[x.dtype], *_plan_args(x2, weight, bias),
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(status, "layer_norm_fused")
-        record_launch("layer_norm_fused")
+        record_launch("layer_norm_fused", (x2, weight, bias), (y,))
     return y.reshape(x.shape)
 
 
+@program_op("layer_norm_fused", layer_norm_plain)
 def _layer_norm_fwd(x, weight, bias, eps):
     if x.device.type == "cuda":
         return _layer_norm_cuda(x, weight, bias, eps)

@@ -5,8 +5,9 @@
 Schedulers are host-side Python. The constructor calls :meth:`step`
 once (``last_epoch`` -1 -> 0). An optimizer given a scheduler as its
 ``learning_rate`` binds itself: every ``step()``/``set_state_dict()`` of
-the scheduler pushes ``last_lr`` into the optimizer's float learning
-rate, which the optimizer reads at each of its own ``step()``.
+the scheduler pushes ``last_lr`` into the optimizer's learning rate: its
+float, and in place its float32 0-d device tensor, which the optimizer
+reads at each of its own ``step()`` (a captured step at each replay).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class LRScheduler:
 
     def _push(self):
         for opt in self._bound:
-            opt._learning_rate = float(self.last_lr)
+            opt._set_lr_value(self.last_lr)
 
     def __call__(self):
         return self.last_lr

@@ -23,9 +23,20 @@ State is created at construction, as in the reference: with
 one zero accumulator of each of the class's ``_accum_names`` a
 parameter (float32 beside a master, else in the parameter's dtype).
 Per-parameter scalars (beta powers, step counts) are numpy float32
-values on the host (:meth:`_aux_scalars`). ``state_dict`` keys are the
-reference's: ``<name>_<accum>_0``, ``<name>_<aux>``, and the masters
-``<name>_fp32_master_0`` under ``master_weights``.
+values on the host (:meth:`_aux_scalars`), except in a *capturable*
+class (``_capturable``: AdamW and Adam), which keeps them as float32 0-d
+tensors on the parameters' device, stepped there (:meth:`_aux_tensors`),
+so that a captured step (``jit.to_static`` on the card) reads and steps
+them at every replay. The learning rate is a float32 0-d device tensor
+too (``_lr_tensor``, the reference's ``learning_rate_0`` state tensor),
+which an LR scheduler's step writes in place; ``_learning_rate`` keeps
+the same value as a float. A class that is not capturable raises
+``NotImplementedError`` from ``step()`` while a CUDA graph is being
+captured: its host scalars would be baked into the graph.
+``state_dict`` keys are the reference's: ``<name>_<accum>_0``,
+``<name>_<aux>``, and the masters ``<name>_fp32_master_0`` under
+``master_weights``; every per-parameter scalar is a float32 0-d CPU
+tensor there.
 """
 from __future__ import annotations
 
@@ -37,6 +48,9 @@ from .lr import LRScheduler
 
 class Optimizer:
     _accum_names: tuple = ()
+    # whether step() keeps every step-varying scalar on the device, so
+    # that a CUDA graph of the step is right at every replay
+    _capturable = False
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -57,12 +71,16 @@ class Optimizer:
             self._names.append(name)
             self._parameter_list.append(p)
         self._lr_scheduler = None
+        device = self._parameter_list[0].device if self._parameter_list \
+            else torch.device("cpu")
+        self._lr_tensor = torch.zeros((), dtype=torch.float32,
+                                      device=device)
         if isinstance(learning_rate, LRScheduler):
             self._lr_scheduler = learning_rate
-            self._learning_rate = float(learning_rate())
+            self._set_lr_value(learning_rate())
             learning_rate._bind(self)
         else:
-            self._learning_rate = float(learning_rate)
+            self._set_lr_value(learning_rate)
         self._grad_clip = grad_clip
         self._weight_decay = weight_decay
         self._multi_precision = multi_precision
@@ -84,6 +102,27 @@ class Optimizer:
         lst = [np.float32(init)] * len(self._parameter_list)
         self._aux[key] = lst
         return lst
+
+    def _aux_tensors(self, key, init):
+        """As :meth:`_aux_scalars`, a float32 0-d tensor on each
+        parameter's device (a capturable class's scalars)."""
+        lst = [torch.full((), float(np.float32(init)), dtype=torch.float32,
+                          device=p.device) for p in self._parameter_list]
+        self._aux[key] = lst
+        return lst
+
+    def _state_tensors(self):
+        """Every tensor of this optimizer's state (the learning rate,
+        the masters, the accumulators and the device scalars), each
+        once: what a compiled step reads and writes
+        (``framework/state.py``)."""
+        out = [self._lr_tensor]
+        out += [m for m in self._master if m is not None]
+        for lst in self._accums.values():
+            out += lst
+        for lst in self._aux.values():
+            out += [t for t in lst if isinstance(t, torch.Tensor)]
+        return out
 
     def _refuse_ignored(self, what, rate=False, decay=False, clip=False):
         """``NotImplementedError`` for the options the reference's
@@ -138,7 +177,14 @@ class Optimizer:
         return self._learning_rate
 
     def set_lr(self, value):
+        self._set_lr_value(value)
+
+    def _set_lr_value(self, value):
+        """The rate as a float and, in place, in ``_lr_tensor`` (a
+        captured step reads the tensor at every replay)."""
         self._learning_rate = float(value)
+        with torch.no_grad():
+            self._lr_tensor.fill_(self._learning_rate)
 
     def set_lr_scheduler(self, scheduler):
         self._lr_scheduler = scheduler
@@ -164,6 +210,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
+        if not self._capturable and _capturing():
+            raise NotImplementedError(
+                f"{type(self).__name__}.step() keeps its step-varying "
+                "scalars on the host, which a CUDA graph would bake in: it "
+                "cannot run inside jit.to_static on the card yet (only "
+                "AdamW and Adam are capturable)")
         live = [i for i, p in enumerate(self._parameter_list)
                 if p.requires_grad and p.grad is not None]
         grads = [self._parameter_list[i].grad for i in live]
@@ -204,7 +256,7 @@ class Optimizer:
         under ``LR_Scheduler``."""
         tensors, masters, scalars = self._state_items()
         sd = dict(tensors)
-        sd.update({k: torch.tensor(lst[i]) for k, (lst, i) in
+        sd.update({k: _scalar_tensor(lst[i]) for k, (lst, i) in
                    scalars.items()})
         if masters:
             sd["master_weights"] = dict(masters)
@@ -233,9 +285,31 @@ class Optimizer:
                     tensors[k].copy_(torch.as_tensor(v))
                 elif k in scalars:
                     lst, i = scalars[k]
-                    lst[i] = type(lst[i])(float(v))
+                    if isinstance(lst[i], torch.Tensor):
+                        lst[i].fill_(float(v))
+                    else:
+                        lst[i] = type(lst[i])(float(v))
             for k, v in state_dict.get("master_weights", {}).items():
                 masters[k].copy_(torch.as_tensor(v))
+
+
+def _scalar_tensor(v):
+    """A per-parameter scalar as the ``state_dict`` holds it: a float32
+    0-d CPU tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", copy=True)
+    return torch.tensor(v)
+
+
+def _capturing() -> bool:
+    """Whether a CUDA graph is being captured on this thread's stream
+    (by ``jit.to_static`` or by the caller)."""
+    from ..jit import program
+
+    if program.capturing():
+        return True
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def _flatten_groups(entries):

@@ -320,8 +320,10 @@ def test_best_beam_reports_the_kept_score():
 
 
 @pytest.mark.parametrize("call,exc", [
-    (lambda m, ids: generate(m, ids, use_jit=True), NotImplementedError),
-    (lambda m, ids: m.generate(ids, use_jit=True), NotImplementedError),
+    # the compiled decode step is ported: its own refusals remain
+    (lambda m, ids: generate(m, ids, use_jit=True, num_beams=2,
+                             do_sample=True), ValueError),
+    (lambda m, ids: m.generate(ids.float(), use_jit=True), ValueError),
     (lambda m, ids: generate(m, ids, num_beams=2, do_sample=True),
      ValueError),
     (lambda m, ids: generate(m, ids.float()), ValueError),

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch import jit
 from paddle_tpu_torch.incubate.nn import PagedKVCacheManager
 from paddle_tpu_torch.inference import PagedLlamaAdapter
 from paddle_tpu_torch.models import (LlamaForCausalLM, from_hf, generate,
@@ -257,8 +258,9 @@ def _stub(name, **config):
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: generate(m, torch.zeros(1, 2, dtype=torch.long),
-                       use_jit=True),
+    # generate(use_jit=True) is ported; what stays unported of the
+    # compiled path is exporting the program
+    lambda m: jit.save(m, "unused"),
     lambda m: from_hf(_stub("LlamaForCausalLM", num_local_experts=8), {}),
     lambda m: from_hf(_stub("BertModel"), {}),
     lambda m: from_hf(_stub("GPTForCausalLM"), {}),
