@@ -190,6 +190,28 @@ It prints one JSON line per phase:
    the plan's ``hbm_peak_bytes`` within 0.5-2x of the recorded call's
    peak; step ms both ways, capture seconds, the graph pool's bytes, the
    plan's flops beside ``bench.py``'s count.
+17. ``train_fleet``: ``paddle_tpu_torch.distributed.init_parallel_env``
+   on NCCL at world size 1: every collective but the point-to-point ones
+   (sync and async, the stream variant, ``new_group``, the barriers, the
+   object collectives) giving its one-rank result, then ``fleet.init``
+   (dp = mp = 1), ``distributed_model`` and ``distributed_optimizer``
+   around ``train``'s model: 3 steps bit for bit the plain step's;
+18. ``train_tp``: Qwen2-0.5B at full width and depth at mp = 2, two ranks
+   on the one card started by ``python -m
+   paddle_tpu_torch.distributed.launch --devices 0,0`` (this script
+   under ``--dist-rank``) over gloo (``PADDLE_DISTRI_BACKEND=gloo``: NCCL
+   refuses two ranks on one device), ``train_sched``'s clip through
+   ``distributed_optimizer``, 3 steps on ``train``'s batch, against a
+   single-rank run of the same steps: an mp group's losses bit for bit
+   equal, losses within 2e-3 relative, the
+   clipped global norm within 1e-3 at step 1 and 1e-2 after (the runs'
+   weights part at bf16 rounding), step-1 gradient shards at cosine
+   >= 0.995 with norms within 1%, replicated parameters bit for bit
+   across the ranks, losses falling, each rank's launches ``train``'s;
+   each rank's step time and peak memory (gloo goes through the host:
+   no measure of tensor parallelism);
+19. ``train_hybrid``: the same at dp = 2 x mp = 2, four ranks, 4 layers,
+   each dp rank on its half of the batch.
 
 Then ``wall``: each phase line's wall seconds from the line before it.
 Then, on lines of their own: the ``nvidia-smi`` name and power limit,
@@ -229,7 +251,13 @@ admitting quantized weights) on ``QUANT_SERVE_RUNS`` at two layers and
 handing over a step late, the recompute replay reading RoPE a position
 late, ``save`` writing bf16 through fp16, Nesterov momentum without its
 look-ahead, LBFGS ascending) on ``--train-runs`` of the run each may
-break, each required to fail its named run at its named gate; with them
+break, each required to fail its named run at its named gate, and
+``DIST_FAULTS`` (``RowParallelLinear`` without its all-reduce,
+``_c_identity`` without its backward all-reduce, the vocab-parallel
+head's log-sum-exp around the local max and its hidden-state gradient
+left unsummed, the clip summing no norms over mp, dp gradients summed
+and not averaged) on ``train_tp`` or
+``train_hybrid`` the same way; with them
 three faults of the compiled step (AdamW's bias correction from a host
 power baked at capture, a replay that skips the argument copy, the
 planner never freeing an intermediate) on ``train_static``.
@@ -246,13 +274,14 @@ this one in turns (DIR, this, this, DIR), each in a child process, on
 one ``serve_ab`` line. ``--fault-check GROUPS`` plants only the faults
 of those groups (``FAULT_GROUPS``: ``flash``, ``paged``, ``norm``,
 ``serve``, ``spec``, ``plane``, ``front``, ``quant``, ``train``,
-``gen``) or of those names, so that the whole check can be split over
+``gen``, ``dist``) or of those names, so that the whole check can be split over
 calls.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib.util
 import json
 import math
@@ -1895,6 +1924,48 @@ TRAIN_FAULTS = [
 ]
 
 
+# Faults of the distributed training path (the "dist" group), each run
+# through --train-runs of the run it breaks and required to fail it at its
+# named gate.
+_MP_LAYERS_PY = "paddle_tpu_torch/distributed/fleet/layers/mpu/mp_layers.py"
+_MP_OPS_PY = "paddle_tpu_torch/distributed/fleet/layers/mpu/mp_ops.py"
+_FUSED_LOSS_PY = "paddle_tpu_torch/ops/kernels/fused_loss.py"
+_HYBRID_OPT_PY = ("paddle_tpu_torch/distributed/fleet/meta_optimizers/"
+                  "dygraph_optimizer/hybrid_parallel_optimizer.py")
+_PARALLEL_PY = "paddle_tpu_torch/distributed/parallel.py"
+DIST_FAULTS = [
+    # RowParallelLinear keeps its rank's partial product
+    ("row_parallel_without_all_reduce", _MP_LAYERS_PY,
+     "        out = _mp_allreduce(torch.matmul(x, self.weight), group=g)\n",
+     "        out = torch.matmul(x, self.weight)\n",
+     ("train_tp",), "train_tp", "loss at step"),
+    # _c_identity's backward leaves the input's gradient unsummed over mp
+    # (the forward, and so the first loss, is unchanged)
+    ("c_identity_without_backward_all_reduce", _MP_OPS_PY,
+     "        all_reduce(grad, ReduceOp.SUM, group=ctx.group)\n", "",
+     ("train_tp",), "train_tp", "gradient cosine"),
+    # the vocab-parallel head's log-sum-exp around each rank's own max (on
+    # a random model the ranks' maxes lie close, so the loss moves less
+    # than its gate; the ranks' losses no longer agree)
+    ("vocab_parallel_head_local_max", _FUSED_LOSS_PY,
+     "            all_reduce(m, ReduceOp.MAX, group=group)\n", "",
+     ("train_tp",), "train_tp", "in its mp group"),
+    # the vocab-parallel head leaves the hidden state's gradient unsummed
+    ("vocab_parallel_head_dh_unsummed", _FUSED_LOSS_PY,
+     "            all_reduce(dh, ReduceOp.SUM, group=group)\n", "",
+     ("train_tp",), "train_tp", "gradient cosine"),
+    # the global-norm clip counts only this rank's shards
+    ("clip_sums_no_norms_over_mp", _HYBRID_OPT_PY,
+     "        all_reduce(dist_sq, ReduceOp.SUM,\n"
+     "                   group=self._hcg.get_check_parallel_group())\n", "",
+     ("train_tp",), "train_tp", "global norm at step"),
+    # dp gradients summed over the ranks, not averaged
+    ("dp_gradients_summed_not_averaged", _PARALLEL_PY,
+     "            flat.div_(g.nranks)\n", "",
+     ("train_hybrid",), "train_hybrid", "gradient norm ratio"),
+]
+
+
 def _run_with_fault(name, source, old, new, option, cases, phase,
                     extra=()):
     """Plants one fault in a copy of the repository in a temporary
@@ -1936,7 +2007,7 @@ def _run_with_fault(name, source, old, new, option, cases, phase,
 
 
 FAULT_GROUPS = ("flash", "paged", "norm", "serve", "spec", "plane", "front",
-                "quant", "train", "gen")
+                "quant", "train", "gen", "dist")
 
 
 def fault_check_phase(groups=None):
@@ -1952,7 +2023,7 @@ def fault_check_phase(groups=None):
     names = {f[0] for g in (FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS,
                             SERVE_FAULTS, SPEC_FAULTS, PLANE_FAULTS,
                             FRONT_FAULTS, QUANT_FAULTS, TRAIN_FAULTS,
-                            GEN_FAULTS) for f in g}
+                            GEN_FAULTS, DIST_FAULTS) for f in g}
     if groups is not None and set(groups) - set(FAULT_GROUPS) - names:
         raise ValueError(f"unknown fault groups or faults "
                          f"{set(groups) - set(FAULT_GROUPS) - names}")
@@ -2027,7 +2098,8 @@ def fault_check_phase(groups=None):
             [(*f, "--serve-runs", _QUANT_FAULT_RUNS, "serve_runs",
               ("--layers", "2")) for f in of("quant", QUANT_FAULTS)]
             + [(*f, "--train-runs", f[4], "train_runs", ())
-               for f in of("train", TRAIN_FAULTS)]):
+               for f in of("train", TRAIN_FAULTS)
+               + of("dist", DIST_FAULTS)]):
         line = _run_with_fault(name, source, old, new, option, runs, phase,
                                extra=extra)
         results.append({"fault": name, "may_fail": list(broken),
@@ -5825,6 +5897,7 @@ def layer_skip_draft(target, n_layers):
     draft.config = cfg
     draft.model = trunk
     draft.lm_head = target.lm_head
+    draft.mp_group = target.mp_group
     return draft
 
 
@@ -6014,17 +6087,24 @@ def gen_phase(served, seed, names=None, w8_report=None):
 PEAK_BF16_TFLOPS = PEAK_FLOPS_PER_S["bfloat16"] / 1e12
 
 
-def build_trainer(seed):
+def build_trainer(seed, layers=None, clip=None):
     """Qwen2-0.5B at full width and depth (fused CE head) in bf16 on the
     card and its AdamW, as ``bench.py``'s headline trains
-    ``llama_headline``."""
+    ``llama_headline``; ``layers`` of its 24 (all by default) and a
+    ``ClipGradByGlobalNorm(clip)`` when given. Under an active hybrid
+    topology the model holds this rank's mp shard of the same global
+    weights."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM, qwen2_0_5b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True),
+    depth = {} if layers is None else {"num_hidden_layers": layers}
+    model = LlamaForCausalLM(qwen2_0_5b(fused_head_loss=True, **depth),
                              device="cuda", dtype=torch.bfloat16, seed=seed)
-    opt = AdamW(3e-4, parameters=model.parameters(), multi_precision=True)
+    opt = AdamW(3e-4, parameters=model.parameters(), multi_precision=True,
+                grad_clip=None if clip is None
+                else ClipGradByGlobalNorm(clip))
     return model, opt
 
 
@@ -6208,7 +6288,8 @@ def train_phase(model, opt, x, y):
 # was 0.380-0.820 over these 6 steps on an H100 (700 W), so a clip at 1.0
 # would never act and its gates would test nothing.
 TRAIN_RUN_NAMES = ["train_sched", "train_recompute", "train_resume",
-                   "train_optim", "train_static"]
+                   "train_optim", "train_static", "train_fleet", "train_tp",
+                   "train_hybrid"]
 TRAIN_SCHED_STEPS = 6
 TRAIN_SCHED_LR, TRAIN_SCHED_WARMUP, TRAIN_SCHED_TMAX = 3e-4, 2, 4
 TRAIN_SCHED_CLIP, TRAIN_SCHED_DECAY, TRAIN_SCHED_NORM_RATE = 0.25, 0.01, 0.5
@@ -7292,6 +7373,508 @@ def train_static_phase(seed, x=None, y=None):
     return st["launches"]
 
 
+# --------------------------------------------------------------------------
+# distributed training: train_fleet, train_tp, train_hybrid
+# --------------------------------------------------------------------------
+# train_fleet runs in this process, on NCCL at world size 1 (the card is
+# one rank). train_tp and train_hybrid run as ranks that share the one card:
+# NCCL refuses two ranks on one device ("Duplicate GPU detected"), so the
+# script sets PADDLE_DISTRI_BACKEND=gloo for them and says so on its line.
+# gloo takes only broadcast and all_reduce on CUDA tensors, which is all
+# that mp and dp training of the Llama family reach. Its all-reduces go
+# through the host (~52 ms for 29 MB on the card's machine), so these
+# runs' step times are no measure of tensor parallelism.
+DIST_STEPS = 3
+DIST_CLIP = TRAIN_SCHED_CLIP          # the random model's norm: 0.380-0.820
+DIST_BACKEND = "gloo"
+# run: (dp degree, mp degree, decoder layers; None: all 24)
+DIST_RUNS = {"train_tp": (1, 2, None), "train_hybrid": (2, 2, 4)}
+DIST_TIMEOUT_S = 900
+# Gates against the single-rank run of the same steps on the same weights,
+# batch and clip. At mp 2 each rank's row-parallel product is rounded to
+# bf16 before the ranks' sum (the single rank rounds the whole product
+# once), and the clip's squared norms are summed in another order: the
+# loss within 2e-3 relative on every step; the clipped global norm within
+# 1e-3 at step 1, where both runs hold the same weights; at step 1 each
+# gradient shard at cosine >= TRAIN_GRAD_COS_GATE against its slice of the
+# single-rank gradient and its norm within 1% (a gradient scaled by 2 keeps
+# its cosine). After step 1 the runs' weights part: AdamW's first steps
+# move each weight by about the rate times the sign of its gradient, so a
+# rounding-sized difference in a near-zero gradient moves a weight by a
+# whole step. On an H100 (700 W) the norm then differed by 5.4e-4 at step 2
+# and 3.3e-3 at step 3 (train_tp); on the CPU, 2 layers of Qwen2-0.5B's
+# widths, bf16 at mp 2 and at one rank were 1.59% and 1.68% from a float32
+# run at step 3 and 0.09% from each other (tools/torch_mp_precision.py).
+# Steps 2 and 3 are held to 1e-2.
+DIST_LOSS_RTOL = 2e-3
+DIST_NORM_RTOL = 1e-3
+DIST_NORM_LATER_RTOL = 1e-2
+DIST_GRAD_NORM_RTOL = 0.01
+
+
+def record_norms(opt):
+    """The global norms the clip of ``opt`` (or of the optimizer it
+    wraps) computes, one device scalar a step, appended to the returned
+    list."""
+    import torch
+
+    clip = getattr(opt, "_inner_opt", opt)._grad_clip
+    norm_sq, norms = clip._global_norm_sq, []
+
+    def recording(params_grads):
+        sq = norm_sq(params_grads)
+        norms.append(torch.sqrt(sq))
+        return sq
+
+    clip._global_norm_sq = recording
+    return norms
+
+
+def fleet_collective_problems():
+    """Every collective of ``paddle_tpu_torch.distributed`` but the
+    point-to-point ones, on the world group of a one-rank NCCL job,
+    synchronously and asynchronously (the task's ``wait()``), plus the
+    stream variant, ``new_group``, the barriers and the object
+    collectives: each must give its one-rank result, bit for bit.
+    Returns ``(cases checked, problems)``."""
+    import torch
+    from paddle_tpu_torch import distributed as D
+
+    g = D.get_group(0)
+    x = torch.arange(-6, 6, device="cuda", dtype=torch.bfloat16).view(3, 4)
+    stacked = x[None]
+    checked, problems = [], []
+
+    def check(name, got, want):
+        checked.append(name)
+        if isinstance(got, list):
+            got = torch.stack(got)
+        if not (got.shape == want.shape and torch.equal(got, want)):
+            problems.append(f"collective {name} on NCCL at world size 1")
+
+    for sync in (True, False):
+        tag = "sync" if sync else "async"
+
+        def run(ret):
+            if sync:
+                return ret
+            if not isinstance(ret, D.Task):
+                raise TypeError(f"sync_op=False returned {type(ret)}")
+            ret.wait()
+            return ret.result
+
+        for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+            a = x.clone()
+            check(f"all_reduce_{op}_{tag}", run(D.all_reduce(
+                a, getattr(D.ReduceOp, op), group=g, sync_op=sync)), x)
+        a = x.clone()
+        check(f"stream_all_reduce_{tag}",
+              run(D.stream.all_reduce(a, group=g, sync_op=sync)), x)
+        a = x.clone()
+        check(f"reduce_{tag}", run(D.reduce(a, 0, group=g, sync_op=sync)),
+              x)
+        check(f"all_gather_list_{tag}",
+              run(D.all_gather([], x, group=g, sync_op=sync)), stacked)
+        check(f"all_gather_axis0_{tag}",
+              run(D.all_gather(None, x, group=g, sync_op=sync)), stacked)
+        o = torch.empty_like(x)
+        check(f"all_gather_into_tensor_{tag}", run(
+            D.all_gather_into_tensor(o, x, group=g, sync_op=sync)), x)
+        o = torch.empty_like(x)
+        check(f"reduce_scatter_{tag}", run(
+            D.reduce_scatter(o, [x], group=g, sync_op=sync)), x)
+        o = torch.empty_like(x)
+        check(f"reduce_scatter_tensor_{tag}", run(
+            D.reduce_scatter(o, x.clone(), group=g, sync_op=sync)), x)
+        a = x.clone()
+        check(f"broadcast_{tag}",
+              run(D.broadcast(a, 0, group=g, sync_op=sync)), x)
+        check(f"gather_{tag}",
+              run(D.gather(x, [], dst=0, group=g, sync_op=sync)), stacked)
+        o = torch.empty_like(x)
+        check(f"scatter_{tag}",
+              run(D.scatter(o, [x], src=0, group=g, sync_op=sync)), x)
+        check(f"alltoall_{tag}",
+              run(D.alltoall([], [x], group=g, sync_op=sync)), stacked)
+        o = torch.empty_like(x)
+        check(f"alltoall_single_{tag}", run(
+            D.alltoall_single(o, x, group=g, sync_op=sync)), x)
+    sub = D.new_group([0])
+    a = x.clone()
+    check("new_group_all_reduce", D.all_reduce(a, group=sub), x)
+    D.barrier(group=g)
+    D.monitored_barrier(group=g, timeout=60)
+    check("wait", D.wait(x.clone(), group=g), x)
+    obj = {"rank": 0, "x": [1.5, "a"]}
+    got = D.all_gather_object([], obj, group=g)
+    bc = [0, "b"]
+    D.broadcast_object_list(bc, src=0, group=g)
+    sc = D.scatter_object_list([], [obj], src=0, group=g)
+    checked += ["all_gather_object", "broadcast_object_list",
+                "scatter_object_list"]
+    if got != [obj] or bc != [0, "b"] or sc != [obj]:
+        problems.append(f"object collectives on NCCL at world size 1: "
+                        f"{got!r}, {bc!r}, {sc!r}")
+    torch.cuda.synchronize()
+    return checked, problems
+
+
+def train_fleet_phase(seed, x, y):
+    """``init_parallel_env`` on NCCL at world size 1 (no launcher), the
+    collectives at one rank (:func:`fleet_collective_problems`), then
+    ``fleet.init`` (dp = mp = 1), ``distributed_model`` and
+    ``distributed_optimizer`` around ``build_trainer``'s model: DIST_STEPS
+    steps bit for bit the plain ``train_step`` on the same weights and
+    batch (losses, every parameter), with the launch counters reset just
+    before the fleet steps and read just after. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops.kernels import kernel_launch_stats
+
+    model, opt = build_trainer(seed)
+    plain_losses = [train_step(model, opt, x, y) for _ in range(DIST_STEPS)]
+    plain = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt
+    release_device_memory()
+    t0 = time.perf_counter()
+    env = D.init_parallel_env()
+    init_s = time.perf_counter() - t0
+    problems = []
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            problems.append(f"init_parallel_env chose {backend}, not nccl")
+        checked, coll_problems = fleet_collective_problems()
+        problems += coll_problems
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        model, opt = build_trainer(seed)
+        wrapped = fleet.distributed_model(model)
+        dopt = fleet.distributed_optimizer(opt)
+        torch.cuda.synchronize()
+        kernel_launch_stats(reset=True)
+        losses = [train_step(wrapped, dopt, x, y) for _ in range(DIST_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernel_launch_stats(reset=True)
+        same_losses = all(torch.equal(a, b)
+                          for a, b in zip(losses, plain_losses))
+        differ = [n for n, p in model.named_parameters()
+                  if not torch.equal(p.detach(), plain[n])]
+        if not same_losses:
+            problems.append(f"fleet losses {[float(v) for v in losses]} != "
+                            f"plain {[float(v) for v in plain_losses]}")
+        if differ:
+            problems.append(f"{len(differ)} parameters differ from the "
+                            f"plain steps' bit for bit, e.g. {differ[:3]}")
+        want = step_launches_wanted(model.config.num_hidden_layers,
+                                    DIST_STEPS, False)
+        problems += launch_problems_of(launches, want)
+        emit("train_fleet", model="qwen2_0_5b", backend=backend,
+             world_size=env.world_size, rank=env.rank, init_s=init_s,
+             wrapped=type(wrapped).__name__,
+             optimizer=type(dopt).__name__, steps=DIST_STEPS,
+             losses=[float(v) for v in losses],
+             plain_losses=[float(v) for v in plain_losses],
+             losses_bit_for_bit=same_losses,
+             params_bit_for_bit=len(plain) - len(differ), params=len(plain),
+             collectives_checked=len(checked), launches=launches,
+             launches_wanted=want, problems=problems)
+    finally:
+        fleet.reset()
+        D.destroy_process_group()
+        release_device_memory()
+    if problems:
+        raise RuntimeError("train_fleet phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _fingerprint(t):
+    """A digest of tensor ``t``'s bytes."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+    return hashlib.sha1(raw.numpy().tobytes()).hexdigest()
+
+
+def dist_rank_main(run, out, seed):
+    """One rank of ``run`` (DIST_RUNS), started by the port's launcher:
+    joins the job (``init_parallel_env``, the backend from
+    ``PADDLE_DISTRI_BACKEND``), ``fleet.init`` at the run's degrees, builds
+    :func:`build_trainer`'s model (this rank's shard of the seed's
+    weights) through ``distributed_model`` and ``distributed_optimizer``
+    and takes DIST_STEPS steps on its dp rank's rows of ``train``'s
+    batch, the launch counters reset just before and read just after.
+    Writes ``out/rank<r>.pt``: losses, the clip's norms, the step-1
+    gradients (after the dp average), each parameter's mp split and a
+    digest of its final bytes, launches, step times, peak memory."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import qwen2_0_5b
+    from paddle_tpu_torch.ops.kernels import _build, kernel_launch_stats
+
+    _build.library()
+    D.init_parallel_env()
+    dp, mp, layers = DIST_RUNS[run]
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    model, opt = build_trainer(seed, layers, DIST_CLIP)
+    wrapped = fleet.distributed_model(model)
+    dopt = fleet.distributed_optimizer(opt)
+    norms = record_norms(dopt)
+    x, y = train_batch(qwen2_0_5b())
+    rows = TRAIN_BATCH // dp
+    r0 = hcg.get_data_parallel_rank() * rows
+    xb, yb = x[r0:r0 + rows], y[r0:r0 + rows]
+    losses, step_ms, host_ms, grads = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_launch_stats(reset=True)
+    for step in range(DIST_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, loss = wrapped(xb, yb)
+        loss.backward()
+        dopt.step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        if step == 0:  # what the step used: averaged over dp
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}
+        dopt.clear_grad()
+        losses.append(float(loss))
+    launches = kernel_launch_stats(reset=True)
+    result = {
+        "rank": dist.get_rank(), "world": dist.get_world_size(),
+        "backend": dist.get_backend(),
+        "backend_env": os.environ.get("PADDLE_DISTRI_BACKEND"),
+        "device": str(torch.cuda.current_device()),
+        "dp_rank": hcg.get_data_parallel_rank(),
+        "mp_rank": hcg.get_model_parallel_rank(),
+        "mp_group": hcg.get_model_parallel_group().ranks,
+        "dp_group": hcg.get_data_parallel_group().ranks,
+        "layers": model.config.num_hidden_layers,
+        "heads": model.model.layers[0].self_attn.num_heads,
+        "kv_heads": model.model.layers[0].self_attn.num_kv_heads,
+        "losses": losses, "norms": [float(v) for v in norms],
+        "step_ms_device": step_ms, "step_ms_host": host_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "grads": grads,
+        "params": {n: (getattr(p, "mp_split", None), _fingerprint(p))
+                   for n, p in model.named_parameters()}}
+    torch.save(result, os.path.join(out, f"rank{result['rank']}.pt"))
+    fleet.reset()
+    D.destroy_process_group()
+    return 0
+
+
+def launch_ranks(run, seed, n, out):
+    """``python -m paddle_tpu_torch.distributed.launch`` of ``n`` ranks of
+    ``run`` on card 0 (``--devices 0,...,0``) with
+    ``PADDLE_DISTRI_BACKEND=gloo``, each rank this script under
+    ``--dist-rank``. The launcher runs in a session of its own, which is
+    killed whole past DIST_TIMEOUT_S. Returns the seconds it took;
+    raises with the end of the launcher's error output when it fails."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PADDLE_DISTRI_BACKEND=DIST_BACKEND)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(n), "--devices", ",".join(["0"] * n),
+           "--log_dir", os.path.join(out, "log"),
+           os.path.abspath(__file__), "--dist-rank", run, "--dist-out", out,
+           "--seed", str(seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{run}: the ranks ran past {DIST_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{run}: the launcher exited with "
+                           f"{proc.returncode}:\n{err[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def train_dist_phase(run, seed, x, y):
+    """``run`` of DIST_RUNS: the single-rank run of DIST_STEPS steps
+    (:func:`build_trainer` with DIST_CLIP, the whole batch), then the same steps as
+    dp x mp ranks sharing the card over gloo (:func:`launch_ranks`,
+    :func:`dist_rank_main`). Gates: the losses of an mp group's ranks
+    bit for bit equal; each step's loss (averaged over dp)
+    within DIST_LOSS_RTOL of the single rank's, and the clip's global norm
+    within DIST_NORM_RTOL at step 1 and DIST_NORM_LATER_RTOL after, on
+    every rank; at step 1 every gradient shard at
+    cosine >= TRAIN_GRAD_COS_GATE and norm within DIST_GRAD_NORM_RTOL of
+    its slice of the single-rank gradient; the parameters that are not
+    split over mp bit for bit equal on every rank after the steps (and
+    the split ones on the ranks that hold the same slice); losses finite
+    and falling; each rank's launches those of ``train``'s steps.
+    Returns the launches summed over the ranks."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import \
+        mp_shard
+
+    dp, mp, layers = DIST_RUNS[run]
+    world = dp * mp
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = build_trainer(seed, layers, DIST_CLIP)
+    norms = record_norms(opt)
+    ref_losses, ref_grads, ref_ms = [], None, []
+    for step in range(DIST_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _, loss = model(x, y)
+        loss.backward()
+        if step == 0:
+            ref_grads = {name: p.grad.detach().cpu()
+                         for name, p in model.named_parameters()}
+        opt.step()
+        ev[1].record()
+        opt.clear_grad()
+        ref_losses.append(loss.detach())
+        ref_ms.append(ev)
+    torch.cuda.synchronize()
+    ref = {"losses": [float(v) for v in ref_losses],
+           "norms": [float(v) for v in norms],
+           "step_ms_device": [a.elapsed_time(b) for a, b in ref_ms],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    n_layers = model.config.num_hidden_layers
+    del model, opt, norms, ref_losses
+    release_device_memory()
+    out = tempfile.mkdtemp(prefix=f"{run}_")
+    try:
+        launch_s = launch_ranks(run, seed, world, out)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    problems = []
+    want = step_launches_wanted(n_layers, DIST_STEPS, False)
+    for r in ranks:
+        problems += launch_problems_of(r["launches"], want,
+                                       f"rank {r['rank']}")
+    # an mp group's ranks combine the same statistics: their losses agree
+    # bit for bit
+    for r in ranks:
+        peer = next(q for q in ranks if q["dp_rank"] == r["dp_rank"])
+        if r["losses"] != peer["losses"]:
+            problems.append(f"rank {r['rank']}: losses {r['losses']} differ "
+                            f"from mp rank 0's {peer['losses']} in its mp "
+                            "group")
+    # each step's loss averaged over the dp ranks holding one mp slice
+    for m in range(mp):
+        peers = [r for r in ranks if r["mp_rank"] == m]
+        avg = [sum(r["losses"][s] for r in peers) / len(peers)
+               for s in range(DIST_STEPS)]
+        for s, (got, want_) in enumerate(zip(avg, ref["losses"])):
+            if not abs(got - want_) <= DIST_LOSS_RTOL * abs(want_):
+                problems.append(f"mp rank {m}: loss at step {s + 1} "
+                                f"{got!r} against the single rank's "
+                                f"{want_!r}")
+        if not all(math.isfinite(v) for v in avg) or not avg[-1] < avg[0]:
+            problems.append(f"mp rank {m}: losses {avg} not finite and "
+                            "falling")
+    if not ref["losses"][-1] < ref["losses"][0]:
+        problems.append(f"the single rank's losses {ref['losses']} did "
+                        "not fall")
+    for r in ranks:
+        for s, (got, want_) in enumerate(zip(r["norms"], ref["norms"])):
+            rtol = DIST_NORM_RTOL if s == 0 else DIST_NORM_LATER_RTOL
+            if not abs(got - want_) <= rtol * want_:
+                problems.append(f"rank {r['rank']}: global norm at step "
+                                f"{s + 1} {got!r} against {want_!r}")
+    # step-1 gradients against the single rank's slices (a rank's
+    # failures are counted, its worst named, so that every gate's finding
+    # fits the error)
+    grad_rows = []
+    for r in ranks:
+        worst_cos, worst_ratio = (None, 2.0), (None, 1.0)
+        low_cos = off_norm = 0
+        for name, g in r["grads"].items():
+            split = r["params"][name][0]
+            got = g.cuda().float().flatten()
+            whole = mp_shard(ref_grads[name], split)
+            want_g = whole.cuda().float().flatten()
+            cos = float(torch.nn.functional.cosine_similarity(
+                got, want_g, dim=0))
+            ratio = float(got.norm() / want_g.norm().clamp_min(1e-30))
+            if cos < worst_cos[1]:
+                worst_cos = (name, cos)
+            if abs(ratio - 1) > abs(worst_ratio[1] - 1):
+                worst_ratio = (name, ratio)
+            low_cos += not cos >= TRAIN_GRAD_COS_GATE
+            off_norm += not abs(ratio - 1) <= DIST_GRAD_NORM_RTOL
+        if low_cos:
+            problems.append(f"rank {r['rank']}: {low_cos} gradient cosines "
+                            f"< {TRAIN_GRAD_COS_GATE}, the lowest "
+                            f"{worst_cos[1]:.6f} ({worst_cos[0]})")
+        if off_norm:
+            problems.append(f"rank {r['rank']}: {off_norm} gradient norm "
+                            f"ratios beyond 1 +- {DIST_GRAD_NORM_RTOL}, the "
+                            f"worst {worst_ratio[1]:.6f} ({worst_ratio[0]})")
+        grad_rows.append({"rank": r["rank"], "params": len(r["grads"]),
+                          "worst_cosine": list(worst_cos),
+                          "worst_norm_ratio": list(worst_ratio)})
+        r.pop("grads")
+    del ref_grads
+    # the parameters after the steps, bit for bit: the replicated ones on
+    # every rank, the split ones on the ranks that hold the same slice
+    replicated = sum(split is None for split, _ in
+                     ranks[0]["params"].values())
+    for i, r in enumerate(ranks):
+        for q in ranks[i + 1:]:
+            problems += [
+                f"rank {q['rank']}: {name} differs from rank {r['rank']}'s"
+                for name, (split, digest) in r["params"].items()
+                if (split is None or q["mp_rank"] == r["mp_rank"])
+                and q["params"][name][1] != digest]
+    for r in ranks:
+        r.pop("params")
+    emit(run, model="qwen2_0_5b", layers=n_layers, dp=dp, mp=mp,
+         world=world, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=DIST_STEPS,
+         backend=DIST_BACKEND,
+         backend_choice=f"PADDLE_DISTRI_BACKEND={DIST_BACKEND}: {world} ranks "
+         "share one card, which NCCL refuses; gloo all-reduces through the "
+         "host, so the step times measure no tensor parallelism",
+         devices=",".join(["0"] * world),
+         optimizer=f"AdamW(3e-4, multi_precision=True, grad_clip="
+         f"ClipGradByGlobalNorm({DIST_CLIP}))",
+         launch_s=launch_s, single_rank=ref, ranks=ranks,
+         step1_gradients=grad_rows, replicated_params=replicated,
+         loss_rtol=DIST_LOSS_RTOL,
+         norm_rtol=[DIST_NORM_RTOL] + [DIST_NORM_LATER_RTOL] * (
+             DIST_STEPS - 1),
+         grad_cosine_gate=TRAIN_GRAD_COS_GATE,
+         grad_norm_rtol=DIST_GRAD_NORM_RTOL, launches_wanted=want,
+         problems=problems)
+    if problems:
+        raise RuntimeError(f"{run} phase failed: " + "; ".join(problems))
+    total = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def train_profile_phase(model, opt, x, y):
     """One training step under ``torch.profiler``."""
     import torch
@@ -7356,10 +7939,11 @@ def main(argv=None):
                     help="only show that the gates fail each fault of "
                     "FLASH_FAULTS, PAGED_FAULTS, NORM_FAULTS, SERVE_FAULTS, "
                     "SPEC_FAULTS, PLANE_FAULTS, FRONT_FAULTS, QUANT_FAULTS, "
-                    "TRAIN_FAULTS and GEN_FAULTS, planted in a copy; or "
+                    "TRAIN_FAULTS, GEN_FAULTS and DIST_FAULTS, planted in "
+                    "a copy; or "
                     "only those groups (comma-separated: flash, paged, "
-                    "norm, serve, spec, plane, front, quant, train, gen) "
-                    "or faults named")
+                    "norm, serve, spec, plane, front, quant, train, gen, "
+                    "dist) or faults named")
     ap.add_argument("--serve-runs", default=None, metavar="NAMES",
                     help="only build the kernels and serve these runs "
                     "(comma-separated names of SERVE_RUN_NAMES), "
@@ -7380,6 +7964,9 @@ def main(argv=None):
                     help="only time the cases of these ABLATIONS "
                     "(comma-separated names, or 'all') in a changed "
                     "and an unchanged copy")
+    ap.add_argument("--dist-rank", default=None, metavar="RUN",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -7394,6 +7981,9 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
     from paddle_tpu_torch.ops.kernels import _build
+
+    if args.dist_rank:  # one rank of train_tp or train_hybrid
+        return dist_rank_main(args.dist_rank, args.dist_out, args.seed)
 
     smi = nvidia_smi_line()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
@@ -7501,7 +8091,10 @@ def main(argv=None):
                   "train_recompute": train_recompute_phase,
                   "train_resume": train_resume_phase,
                   "train_optim": train_optim_phase,
-                  "train_static": train_static_phase}
+                  "train_static": train_static_phase,
+                  "train_fleet": train_fleet_phase,
+                  **{run: functools.partial(train_dist_phase, run)
+                     for run in DIST_RUNS}}
         for name in names:
             try:
                 phases[name](args.seed, x, y)
@@ -7542,6 +8135,10 @@ def main(argv=None):
     optim_launches = train_optim_phase(args.seed, x, y)
     release_device_memory()
     static_launches = train_static_phase(args.seed)
+    release_device_memory()
+    fleet_launches = train_fleet_phase(args.seed, x, y)
+    dist_launches = {run: train_dist_phase(run, args.seed, x, y)
+                     for run in DIST_RUNS}
 
     def case_times(c):
         return {"case": c["case"], "ms": c["kernel_ms"],
@@ -7558,6 +8155,8 @@ def main(argv=None):
                     ("train_resume", resume_launches),
                     ("train_optim", optim_launches),
                     ("train_static", static_launches),
+                    ("train_fleet", fleet_launches),
+                    *dist_launches.items(),
                     ("varlen", varlen_launches),
                     ("layer_norm", ln_launches))
                    if launches.get(name)}

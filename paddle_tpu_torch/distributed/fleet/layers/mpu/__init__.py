@@ -1,5 +1,7 @@
+from . import mp_ops  # noqa: F401
 from .mp_layers import (  # noqa: F401
     ColumnParallelLinear,
+    ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
 )

@@ -305,15 +305,24 @@ define_flag("jit_budget_comm", 0,
             "whose priced wire bytes at its largest padded step "
             "exceed it as comm-over-budget. 0 (default) disables the "
             "gate")
+define_flag("collective_matmul", "off",
+            "ring-decomposed collective+matmul for the tensor-parallel "
+            "layers and the dp gradient sync: 'off' (default) runs the "
+            "plain all-reduce / all-gather chains; 'on' and 'auto' ask "
+            "for the rings, which the port has not ported yet, and "
+            "raise at an mp or dp degree above 1 "
+            "(distributed/fleet/layers/mpu/mp_ops.py). The reference "
+            "defaults to 'auto'; the rings compute the same function")
 define_flag("collective_dtype", "off",
             "quantize-on-the-wire dtype for the chunked ring "
             "collectives: 'off' (default) ships full-precision "
             "chunks; 'int8' (and 'fp8') ship block-scaled "
             "payloads, one float32 scale per 128 elements of the "
-            "trailing dim. The port has no ring collectives yet; "
-            "the capacity autotuner (framework/autotuner.py) "
-            "reads it as one of its knobs and prices its wire "
-            "ratio")
+            "trailing dim. The port has no ring collectives yet "
+            "(a value other than 'off' raises at an mp or dp degree "
+            "above 1); the capacity autotuner "
+            "(framework/autotuner.py) reads it as one of its knobs "
+            "and prices its wire ratio")
 define_flag("ops_server_port", 0,
             "embedded live-ops debug HTTP server "
             "(framework/ops_server.py): 0 (default) builds nothing — "

@@ -90,6 +90,8 @@ class PagedLlamaAdapter:
     def __init__(self, model, num_pages=256, page_size=16,
                  max_length=None, dtype=None, kv_cache_dtype=None,
                  weight_dtype=None, page_pool_bytes=None, sanitizer=None):
+        if getattr(model, "mp_group", None) is not None:
+            model._refuse_mp("PagedLlamaAdapter")
         self.model = model
         cfg = model.config
         self.cfg = cfg

@@ -64,6 +64,7 @@ import time
 import weakref
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from ..framework import state as _state
@@ -231,6 +232,11 @@ class StaticFunction:
     def __call__(self, *args, **kwargs):
         if not _TO_STATIC_ENABLED:
             return self._fn(*args, **kwargs)
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "to_static in a job of several ranks: capturing "
+                "collectives into a CUDA graph is not ported yet")
         entry, state, tensors = self._prepare(args, kwargs)
         if not entry.recorded:
             return self._compile(entry, state, tensors, args, kwargs)

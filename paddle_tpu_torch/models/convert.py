@@ -27,12 +27,17 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def from_reference_state(np_state, device, dtype):
+def from_reference_state(np_state, device, dtype, splits=None):
     """``{name: np.ndarray}`` -> ``{name: torch.Tensor}`` on ``device``
-    in ``dtype`` (floating arrays only are cast)."""
+    in ``dtype`` (floating arrays only are cast). ``splits`` maps a name
+    to the ``mp_split`` of the parameter it fills (tensor parallelism:
+    the tensor keeps that rank's slice of the whole array)."""
+    from ..distributed.fleet.layers.mpu.mp_layers import mp_shard
+
+    splits = splits or {}
     out = {}
     for name, arr in np_state.items():
-        t = _to_tensor(np.asarray(arr))
+        t = mp_shard(_to_tensor(np.asarray(arr)), splits.get(name))
         if t.is_floating_point():
             t = t.to(dtype)
         out[name] = t.to(device)

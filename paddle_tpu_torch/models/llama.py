@@ -15,7 +15,16 @@ K/V are written in place into preallocated cache slots
 (``init_cache``), and attention over all slots runs in float32.
 
 Module and parameter names mirror the reference, so its state dict maps
-1:1 (:meth:`LlamaForCausalLM.load_reference_state`). Parameters are
+1:1 (:meth:`LlamaForCausalLM.load_reference_state`).
+
+Under tensor parallelism (``fleet.init`` with ``mp_degree`` n > 1 before
+the model is built) each rank holds its shard, as Megatron lays it out:
+``num_heads / n`` query and ``num_kv_heads / n`` KV heads (q/k/v column
+split, o_proj row split), the MLP's intermediate width split the same
+way, and the vocabulary (embedding and head) split by rows.
+The training forward then runs the same kernels on the rank's heads;
+the vocab-parallel CE head combines the ranks' statistics. Serving and
+decoding at n > 1 raise ``NotImplementedError``. Parameters are
 built directly on their device in the model dtype, with the reference's
 XavierNormal scale, from a seeded ``torch.Generator`` on that device.
 The float32 oracles the tests and ``chip_smoke.py`` compare against are
@@ -33,10 +42,15 @@ from ..device import resolve_device
 from ..distributed.fleet.recompute import recompute
 from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear,
+    ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
+    mp_group_of,
+    mp_shard,
 )
+from ..distributed.fleet.layers.mpu.mp_ops import _c_concat, _c_identity
 from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..ops.kernels.fused_loss import fused_linear_cross_entropy_vocab_parallel
 from ..nn.functional import cross_entropy, flash_attention
 from ..nn.layer.norm import RMSNorm
 from ..ops.kernels.rope import apply_rotary_emb, build_rope_cache
@@ -285,6 +299,12 @@ class LlamaAttention(nn.Module):
         kv_out = self.num_kv_heads * self.head_dim
         qkv_bias = config.attention_bias
         h = config.hidden_size
+        mp = mp_group_of(factory.get("mp_group")).nranks
+        if self.num_kv_heads % mp or self.num_heads % mp:
+            raise NotImplementedError(
+                f"{self.num_heads}:{self.num_kv_heads} heads over {mp} mp "
+                "ranks: a column shard would split a head (the "
+                "reference repeats the KV heads on global arrays)")
         self.q_proj = ColumnParallelLinear(
             h, h, has_bias=qkv_bias, gather_output=False, **factory)
         self.k_proj = ColumnParallelLinear(
@@ -293,6 +313,9 @@ class LlamaAttention(nn.Module):
             h, kv_out, has_bias=qkv_bias, gather_output=False, **factory)
         self.o_proj = RowParallelLinear(
             h, h, has_bias=False, input_is_parallel=True, **factory)
+        # this rank's heads
+        self.num_heads //= mp
+        self.num_kv_heads //= mp
 
     def forward(self, x, cos, sin):
         """``cos``/``sin``: the RoPE tables of positions 0..s-1
@@ -447,7 +470,9 @@ class LlamaForCausalLM(nn.Module):
             dtype = _DTYPES[dtype]
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-        factory = {"device": device, "dtype": dtype, "generator": gen}
+        self.mp_group = mp_group_of()
+        factory = {"device": device, "dtype": dtype, "generator": gen,
+                   "mp_group": self.mp_group}
         self.config = config
         self.model = LlamaModel(config, **factory)
         if config.tie_word_embeddings:
@@ -469,25 +494,61 @@ class LlamaForCausalLM(nn.Module):
         """Logits [B, S, V] without labels. With labels [B, S]
         (next-token targets, shifted here): ``(None, loss)`` through the
         fused CE head when ``config.fused_head_loss``, else
-        ``(logits, loss)``."""
+        ``(logits, loss)``.
+
+        At mp > 1 the logits are gathered whole; the fused head is the
+        vocab-parallel one, over the whole sequence with the labels
+        shifted by padding the last with -100 (as the reference's), and
+        falls back to the unfused criterion (``ParallelCrossEntropy``)
+        when the sequence does not divide by the degree."""
         h = self.model(input_ids)
-        if labels is not None and self.config.fused_head_loss:
+        g = self.mp_group
+        if labels is not None and self._fused_loss_active(labels):
             tied = self.lm_head is None
             w = (self.model.embed_tokens.weight if tied
                  else self.lm_head.weight)  # [V, H] tied / [H, V] linear
+            if g.nranks > 1:
+                shifted = torch.cat([labels[:, 1:], labels.new_full(
+                    (labels.shape[0], 1), -100)], dim=1)
+                return None, fused_linear_cross_entropy_vocab_parallel(
+                    h, w if tied else w.t(), shifted, group=g)
             # h[:, :-1] predicts labels[:, 1:]; the chunked head never
             # builds the logits, so there are none to return
             return None, fused_linear_cross_entropy(
                 h[:, :-1], w, labels[:, 1:], transpose_w=not tied)
         logits = self._head(h)
+        if g.nranks == 1:
+            if labels is None:
+                return logits
+            return logits, LlamaPretrainingCriterion()(logits, labels)
         if labels is None:
-            return logits
-        return logits, LlamaPretrainingCriterion()(logits, labels)
+            return _c_concat(logits, group=g)
+        tgt = labels[:, 1:]
+        per_tok = ParallelCrossEntropy(mp_group=g)(logits[:, :-1], tgt)
+        loss = per_tok.sum() / (tgt != -100).sum().clamp_min(1)
+        return _c_concat(logits, group=g), loss
+
+    def _fused_loss_active(self, labels):
+        """The fused head runs at mp 1, and at mp n > 1 when the
+        sequence divides by n (the vocabulary does: its rows are split)."""
+        if not self.config.fused_head_loss:
+            return False
+        return labels.shape[-1] % self.mp_group.nranks == 0
 
     def _head(self, h):
+        """This rank's logits (its vocab slice at mp > 1, where the
+        hidden state's gradient is summed over mp, by ``lm_head``'s own
+        ``_c_identity`` or the tied head's)."""
         if self.lm_head is not None:
             return self.lm_head(h)
+        h = _c_identity(h, group=self.mp_group)
         return torch.matmul(h, self.model.embed_tokens.weight.t())
+
+    def _refuse_mp(self, what):
+        if self.mp_group.nranks > 1:
+            raise NotImplementedError(
+                f"{what} at mp degree {self.mp_group.nranks}: "
+                "model-parallel serving and decoding are not ported yet")
 
     # -- decode ----------------------------------------------------------
 
@@ -495,6 +556,7 @@ class LlamaForCausalLM(nn.Module):
         """Zeroed KV cache slots, one ``(k, v)`` pair a layer, each
         [batch_size, max_length, KVH, D] on the model's device, in the
         model's dtype unless ``dtype`` is given."""
+        self._refuse_mp("init_cache")
         cfg = self.config
         if dtype is None:
             dtype = self.dtype
@@ -515,6 +577,7 @@ class LlamaForCausalLM(nn.Module):
         device that is never read on the host (what a compiled step
         takes; the caller then checks ``pos + S <= S_max``). Runs without
         autograd."""
+        self._refuse_mp("decode_step")
         h, caches = self.model.decode_step(input_ids, caches, pos)
         return self._head(h), caches
 
@@ -525,16 +588,21 @@ class LlamaForCausalLM(nn.Module):
         ``repetition_penalty``, ``generator``), ``eos_token_id`` and beam
         search (``num_beams``) as :func:`models.generation.generate`.
         Returns [B, S0 + max_new_tokens]."""
+        self._refuse_mp("generate")
         return _generate(self, input_ids, max_new_tokens=max_new_tokens,
                          use_jit=use_jit, **kwargs)
 
     def load_reference_state(self, np_state):
         """Load the reference package's state dict given as numpy arrays
-        (``{name: array}``, [in, out] linears) onto this model's device
-        and dtype."""
+        (``{name: array}``, [in, out] linears, whole) onto this model's
+        device and dtype; at mp > 1 each parameter keeps this rank's
+        slice."""
         from .convert import from_reference_state
 
-        state = from_reference_state(np_state, self.device, self.dtype)
+        splits = {n: getattr(p, "mp_split", None)
+                  for n, p in self.named_parameters()}
+        state = from_reference_state(np_state, self.device, self.dtype,
+                                     splits)
         self.load_state_dict(state, strict=True)
         return self
 

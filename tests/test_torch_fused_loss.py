@@ -13,6 +13,8 @@ the same points, so the loss agrees to 1e-5 relative and the gradients
 to one bf16 spacing of the largest entry (a float32 difference of ~1e-7
 can flip one rounding).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -152,5 +154,12 @@ def test_bad_reduction_and_vocab_parallel_raise():
     lab = torch.zeros(2, dtype=torch.long)
     with pytest.raises(ValueError):
         tfl.fused_linear_cross_entropy(h, w, lab, reduction="max")
-    with pytest.raises(NotImplementedError):
-        tfl.fused_linear_cross_entropy_vocab_parallel(h, w, lab)
+    # the vocab-parallel head: an unknown reduction, and a sequence the
+    # mp degree does not divide (the reference's ValueError)
+    with pytest.raises(ValueError):
+        tfl.fused_linear_cross_entropy_vocab_parallel(
+            h[None], w, lab[None], reduction="max")
+    two_ranks = types.SimpleNamespace(nranks=2, rank=0)
+    with pytest.raises(ValueError, match="divisible"):
+        tfl.fused_linear_cross_entropy_vocab_parallel(
+            h[None, :1], w, lab[None, :1], group=two_ranks)

@@ -518,3 +518,54 @@ def test_blocking_async_rule_catches_each_call():
         assert _blocking_calls(tree.body[0]), body
     ok = ast.parse("async def f(self):\n    await asyncio.sleep(0)\n")
     assert not _blocking_calls(ok.body[0])
+
+
+SLICE_18 = ("distributed/env.py", "distributed/collective.py",
+            "distributed/stream.py", "distributed/object_collectives.py",
+            "distributed/parallel.py", "distributed/spawn.py",
+            "distributed/launch/main.py", "distributed/launch/__main__.py",
+            "distributed/fleet/fleet.py",
+            "distributed/fleet/base/topology.py",
+            "distributed/fleet/base/distributed_strategy.py",
+            "distributed/fleet/layers/mpu/mp_ops.py",
+            "distributed/fleet/layers/mpu/mp_layers.py",
+            "distributed/fleet/meta_parallel/tensor_parallel.py",
+            "distributed/fleet/meta_parallel/meta_parallel_base.py",
+            "distributed/fleet/meta_parallel/parallel_layers/random.py",
+            "distributed/fleet/meta_optimizers/dygraph_optimizer/"
+            "hybrid_parallel_optimizer.py",
+            "distributed/fleet/utils/hybrid_parallel_util.py")
+
+
+def test_scan_covers_the_distributed_slice():
+    """The distributed modules are among the files the AST scan checks,
+    and importing them, joining a world of one over gloo and training a
+    step through fleet's wrappers loads no JAX and nothing of the JAX
+    package (the launcher and spawned ranks import the same modules)."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in SLICE_18:
+        assert f"paddle_tpu_torch/{rel}" in scanned
+    code = ("import sys, torch\n"
+            "import paddle_tpu_torch.distributed as dist\n"
+            "import paddle_tpu_torch.distributed.launch.main\n"
+            "from paddle_tpu_torch.distributed import fleet\n"
+            "from paddle_tpu_torch.models import LlamaForCausalLM, "
+            "llama_tiny\n"
+            "from paddle_tpu_torch.optimizer import AdamW\n"
+            "dist.init_parallel_env(device='cpu')\n"
+            "fleet.init(is_collective=True)\n"
+            "m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, "
+            "fused_head_loss=True), device='cpu')\n"
+            "o = fleet.distributed_optimizer(AdamW(0.01, "
+            "parameters=m.parameters()))\n"
+            "x = torch.zeros(1, 4, dtype=torch.long)\n"
+            "fleet.distributed_model(m)(x, x)[1].backward()\n"
+            "o.step()\n"
+            "dist.destroy_process_group()\n"
+            "print([m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

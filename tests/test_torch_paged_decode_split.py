@@ -148,7 +148,8 @@ CHIP_SMOKE = _chip_smoke()
     + CHIP_SMOKE.NORM_FAULTS + CHIP_SMOKE.SERVE_FAULTS
     + CHIP_SMOKE.SPEC_FAULTS + CHIP_SMOKE.GEN_FAULTS
     + CHIP_SMOKE.PLANE_FAULTS + CHIP_SMOKE.FRONT_FAULTS
-    + CHIP_SMOKE.QUANT_FAULTS + CHIP_SMOKE.TRAIN_FAULTS,
+    + CHIP_SMOKE.QUANT_FAULTS + CHIP_SMOKE.TRAIN_FAULTS
+    + CHIP_SMOKE.DIST_FAULTS,
     ids=lambda f: f[0])
 def test_every_planted_fault_names_live_kernel_text(fault):
     """--fault-check replaces each fault's text in its source (CUDA; the
